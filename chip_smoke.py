@@ -1,0 +1,609 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``tpu_zkpool_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase; exits non-zero on a failure
+    python3 chip_smoke.py --profile  # also trace one warm proof (torch.profiler)
+    python3 chip_smoke.py --out DIR  # details directory (default chip_smoke_out/)
+
+Phases, one line each:
+  0 card     nvidia-smi name and power limit, torch and CUDA versions;
+  1 build    nvcc builds the grid-MSM kernels, g++ the native host library;
+  2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), against its plain
+             torch twin on the card (equal limb for limb): every mode on
+             small inputs with the special cases, then at the withdraw
+             proof's shapes, timed beside the twin;
+  3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
+             G2 MSM of 2^14 points against the native Pippenger oracle;
+  4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
+             rows, domain 2^14): setup, one cold and three warm proofs, each
+             verified and a tampered input rejected, prove_batch (B = 4)
+             against prove(seed + i), per-phase times;
+  5 launches every kernel's launch count during phase 4 (must be > 0).
+Then the "kernels" JSON line, the card line, and the last line
+{"ok": true, "device": {...}}. Needs a CUDA device and the repository's
+``tpu_zkpool_torch``: without either it exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import subprocess
+import sys
+import threading
+import time
+
+import torch
+
+from tpu_zkpool_torch import native_bridge
+from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
+from tpu_zkpool_torch.fields.fctx import FP
+from tpu_zkpool_torch.fields.limbs import ints_to_limbs
+from tpu_zkpool_torch.groth16 import prove as tp
+from tpu_zkpool_torch.msm import grid, kernels
+from tpu_zkpool_torch.refimpl import pairing_ref as pr
+from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM: 3.35 TB/s of HBM3; 32-bit integer multiply-adds at 64 per SM per
+# clock (132 SMs).
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
+# 32-bit multiply-adds of one Fp Montgomery product (CIOS, 8 x 32-bit
+# words): 64 product and 64 reduction word products, each a lo and a hi
+# multiply-add, and 8 quotient words m = t0 * n0', one low product each.
+MADDS_PER_FP_MUL = 2 * 64 + 2 * 64 + 8
+# Field multiplications M and squarings S per point formula (grid.py):
+# mixed add 8M + 3S, general add 12M + 4S, doubling 2M + 5S. The rare
+# doubling branch of a complete add is not counted (this run's data takes
+# it on a handful of lanes).
+FORMULAS = {"pmadd": (8, 3), "padd": (12, 4), "pdouble": (2, 5)}
+# Fp products per field M and S: 1 and 1 over Fp; over Fp2 a Karatsuba
+# product takes 3 and a square 2 ((a + b)(a - b) and 2ab).
+FP_PRODUCTS = {1: (1, 1), 2: (3, 2)}
+
+
+def _fp_products(formula, ncomp):
+    (m, s), (pm, ps) = FORMULAS[formula], FP_PRODUCTS[ncomp]
+    return m * pm + s * ps
+
+
+# kernel name -> (Pallas kernel it replaces, file:line of its pallas_call)
+REPLACES = {
+    "prefix_rows": "tpu_zkpool/msm/grid.py:439",
+    "prefix": "tpu_zkpool/msm/grid.py:466",
+    "wsum": "tpu_zkpool/msm/grid.py:524",
+    "addn": "tpu_zkpool/msm/grid.py:554",
+    "scale_add": "tpu_zkpool/msm/grid.py:579",
+    "horner": "tpu_zkpool/msm/grid.py:615",
+}
+SOURCE = "tpu_zkpool_torch/csrc/msm_grid.cu"
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def nvidia_smi(query):
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+        return res.stdout.strip().splitlines()[0] if res.stdout else ""
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+# --------------------------------------------------------------- inputs
+
+def _points(ncomp, n, seed):
+    rng = random.Random(seed)
+    ks = [rng.randrange(1, 1 << 250) for _ in range(n)]
+    return (native_bridge.g1_gen_mul_batch if ncomp == 1
+            else native_bridge.g2_gen_mul_batch)(ks)
+
+
+def _neg(ncomp, p):
+    return (p[0], (-p[1]) % FP_MOD) if ncomp == 1 else pr.g2_neg(p)
+
+
+def _rows(ncomp, pts, rng, affine=False):
+    """Points (None = identity) -> Jacobian rows int64[n, 3, ncomp, 16]
+    with random Z (Z = 1 if ``affine``)."""
+    out = []
+    for p in pts:
+        if p is None:
+            out.append([[0] * ncomp] * 3)
+        elif ncomp == 1:
+            z = 1 if affine else rng.randrange(1, FP_MOD)
+            out.append([[p[0] * z * z % FP_MOD], [p[1] * z ** 3 % FP_MOD],
+                        [z]])
+        else:
+            z = (1, 0) if affine else (rng.randrange(1, FP_MOD),
+                                       rng.randrange(FP_MOD))
+            z2 = pr.f2_mul(z, z)
+            out.append([list(pr.f2_mul(p[0], z2)),
+                        list(pr.f2_mul(p[1], pr.f2_mul(z2, z))), list(z)])
+    return torch.as_tensor(FP.to_mont(out))
+
+
+def _special(ncomp, pts):
+    """In every block of 16 points plant P = Q (rows i, i+1), P = -Q (i+2,
+    i+3) and identities (i+4, and i+5 in every fourth block)."""
+    pts = list(pts)
+    for i in range(0, len(pts) - 1, 16):
+        pts[i + 1] = pts[i]                          # P = Q
+        if i + 3 < len(pts):
+            pts[i + 3] = _neg(ncomp, pts[i + 2])     # P = -Q
+        if i + 5 < len(pts):
+            pts[i + 4] = None                        # identities
+            if i % 64 == 0:
+                pts[i + 5] = None
+    return pts
+
+
+def kernel_inputs(ncomp, device, lanes=1024, k=4, L=16, W=4, seed=5):
+    """Small inputs of every kernel (lane-major pairs across steps carry
+    the P = Q / P = -Q cases into the scans)."""
+    rng = random.Random(seed + ncomp)
+    n = k * lanes
+    base = _points(ncomp, n, seed + 10 * ncomp)
+    # scans: lane l's step-1 point repeats (or negates) its step-0 point
+    scan = list(base)
+    for l in range(0, lanes, 4):
+        scan[lanes + l] = scan[l]
+        scan[lanes + l + 1] = _neg(ncomp, scan[l + 1])
+    aff = _rows(ncomp, scan, rng, affine=True)[:, :2]
+    jac = _rows(ncomp, _special(ncomp, base), rng)
+    signs = _random_bits(rng, (k, lanes), device)
+    dev = lambda t: t.to(device).contiguous()
+    a = jac[:lanes]
+    b = _rows(ncomp, _special(ncomp, base[lanes:2 * lanes]), rng)
+    b[::7] = a[::7]                                  # a = b: doubling
+    b[3::11] = _rows(ncomp, [None if p is None else _neg(ncomp, p)
+                             for p in _affine(ncomp, a[3::11])], rng)
+    return dict(
+        rows_t=dev(aff.reshape(k, lanes, 2, ncomp, 16)),
+        signs=signs,
+        tiles_jac=dev(jac.reshape(k, lanes, 3, ncomp, 16)),
+        steps=dev(_rows(ncomp, _special(ncomp, _points(ncomp, L * 64, seed)),
+                        rng).reshape(L, 64, 3, ncomp, 16)),
+        a=dev(a), b=dev(b),
+        S=dev(jac[:W]),
+    )
+
+
+def _random_bits(rng, shape, device):
+    return torch.tensor([[rng.randrange(2) for _ in range(shape[1])]
+                         for _ in range(shape[0])], dtype=torch.int64,
+                        device=device)
+
+
+def _affine(ncomp, rows):
+    """Point rows (..., 3, ncomp, 16) -> affine ints (None = identity)."""
+    to_aff = tp._g1_affine if ncomp == 1 else tp._g2_affine
+    return [to_aff(tuple(r[:, 0] if ncomp == 1 else r))
+            for r in rows.reshape(-1, 3, ncomp, 16).cpu()]
+
+
+def kernel_cases(inp):
+    """(name, variant, kernel call, plain call) for every kernel mode."""
+    r, s, tj = inp["rows_t"], inp["signs"], inp["tiles_jac"]
+    return [
+        ("prefix_rows", "complete",
+         lambda: kernels.prefix_rows(r, s, True),
+         lambda: grid.prefix_rows_plain(r, s, True)),
+        ("prefix_rows", "incomplete",
+         lambda: kernels.prefix_rows(r, s, False),
+         lambda: grid.prefix_rows_plain(r, s, False)),
+        ("prefix", "mixed",
+         lambda: kernels.prefix(r, True, True),
+         lambda: grid.prefix_plain(r, True, True)),
+        ("prefix", "mixed-incomplete",
+         lambda: kernels.prefix(r, True, False),
+         lambda: grid.prefix_plain(r, True, False)),
+        ("prefix", "jacobian",
+         lambda: kernels.prefix(tj, False, True),
+         lambda: grid.prefix_plain(tj, False, True)),
+        ("wsum", "",
+         lambda: kernels.wsum(inp["steps"]),
+         lambda: grid.wsum_plain(inp["steps"])),
+        ("addn", "",
+         lambda: kernels.addn(inp["a"], inp["b"]),
+         lambda: grid.addn_plain(inp["a"], inp["b"])),
+        ("scale_add", "s=7",
+         lambda: kernels.scale_add(inp["a"], inp["b"], 7),
+         lambda: grid.scale_add_plain(inp["a"], inp["b"], 7)),
+        ("horner", "c=13",
+         lambda: kernels.horner(inp["S"], 13),
+         lambda: grid.horner_plain(inp["S"], 13)),
+    ]
+
+
+def check_kernels(device, lanes=1024, k=4, L=16, W=4):
+    """Every kernel mode, Fp and Fp2, against its plain twin on ``device``.
+    Returns {(name, ncomp, variant): max |kernel - plain| over the limbs}."""
+    errs = {}
+    for ncomp in (1, 2):
+        inp = kernel_inputs(ncomp, device, lanes, k, L, W)
+        for name, variant, kern, plain in kernel_cases(inp):
+            got, want = kern(), plain()
+            if got.is_cuda:
+                torch.cuda.synchronize()
+            errs[(name, ncomp, variant)] = int(
+                (got - want).abs().max().item())
+    return errs
+
+
+# ------------------------------------------------------------ timings
+
+def _cuda_ms(fn, reps, warm=True):
+    """(mean ms of ``reps`` calls by CUDA events, the last call's output)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps, out
+
+
+def slice_shapes(ncomp):
+    """Each kernel's input shape in the withdraw-scale prover (c = 13,
+    16,384 points per leg = 16 steps of 1,024 lanes, W = 20 windows, half
+    = 4,096 buckets as C = 32 chunks of L = 128)."""
+    return dict(prefix_rows=(16, 1024), prefix=(32, 1024), wsum=(128, 640),
+                addn=81920, scale_add=20, horner=20)
+
+
+def _bound(name, ncomp, shape, clock_hz):
+    """(bound ms, bound_by) for one call: max of the 32-bit multiply-adds
+    over the card's INT32 rate and the bytes over its memory rate."""
+    madd, add, dbl = (_fp_products(f, ncomp)
+                      for f in ("pmadd", "padd", "pdouble"))
+    row = 3 * ncomp * 16 * 8                    # one int64-limb point row
+    if name == "prefix_rows":
+        k, lanes = shape
+        muls = k * lanes * madd
+        nbytes = k * lanes * (2 * row // 3 + 8 + row)
+    elif name == "prefix":
+        k, lanes = shape
+        muls = k * lanes * add
+        nbytes = 2 * k * lanes * row
+    elif name == "wsum":
+        L, lanes = shape
+        muls = 2 * L * lanes * add
+        nbytes = (L + 2) * lanes * row
+    elif name == "addn":
+        muls = shape * add
+        nbytes = 3 * shape * row
+    elif name == "scale_add":
+        muls = shape * (7 * dbl + add)
+        nbytes = 3 * shape * row
+    else:                                       # horner, W = shape, c = 13
+        muls = shape * (13 * dbl + add)
+        nbytes = (shape + 1) * row
+    ops_s = muls * MADDS_PER_FP_MUL / (INT32_LANES * clock_hz)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_kernels(device, clock_hz):
+    """Every kernel at the slice's shapes: its output against the plain
+    twin's on the same inputs (``max_abs_err`` over the limbs), and the ms
+    of both."""
+    rng = random.Random(3)
+    res = {}
+    for ncomp in (1, 2):
+        shp = slice_shapes(ncomp)
+        pts = _points(ncomp, 4096, 77 + ncomp)
+        pool = _rows(ncomp, pts, rng).to(device)
+        pool_aff = _rows(ncomp, pts, rng, affine=True).to(device)
+
+        def take(n, C=3, src=pool):
+            idx = torch.arange(n, device=device) % src.shape[0]
+            return src[idx][:, :C].contiguous()
+
+        k1, l1 = shp["prefix_rows"]
+        rows_t = take(k1 * l1, 2, pool_aff).reshape(k1, l1, 2, ncomp, 16)
+        signs = (torch.arange(k1 * l1, device=device) % 3 == 0).long() \
+            .reshape(k1, l1)
+        k2, l2 = shp["prefix"]
+        tiles = take(k2 * l2).reshape(k2, l2, 3, ncomp, 16)
+        L3, l3 = shp["wsum"]
+        steps = take(L3 * l3).reshape(L3, l3, 3, ncomp, 16)
+        na = shp["addn"]
+        a4, b4 = take(na), take(na).roll(1, 0).contiguous()
+        n5 = shp["scale_add"]
+        a5, b5 = take(n5), take(n5).roll(1, 0).contiguous()
+        S6 = take(shp["horner"])
+        calls = {
+            "prefix_rows": (lambda: kernels.prefix_rows(rows_t, signs, True),
+                            lambda: grid.prefix_rows_plain(rows_t, signs,
+                                                           True)),
+            "prefix": (lambda: kernels.prefix(tiles, False, True),
+                       lambda: grid.prefix_plain(tiles, False, True)),
+            "wsum": (lambda: kernels.wsum(steps),
+                     lambda: grid.wsum_plain(steps)),
+            "addn": (lambda: kernels.addn(a4, b4),
+                     lambda: grid.addn_plain(a4, b4)),
+            "scale_add": (lambda: kernels.scale_add(a5, b5, 7),
+                          lambda: grid.scale_add_plain(a5, b5, 7)),
+            "horner": (lambda: kernels.horner(S6, 13),
+                       lambda: grid.horner_plain(S6, 13)),
+        }
+        for name, (kern, plain) in calls.items():
+            ms, got = _cuda_ms(kern, 50)
+            plain_ms, want = _cuda_ms(plain, 1, warm=False)
+            bound_ms, bound_by = _bound(name, ncomp, shp[name], clock_hz)
+            res[(name, ncomp)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=shp[name],
+                max_abs_err=int((got - want).abs().max().item()))
+    return res
+
+
+# ------------------------------------------------------------- phases
+
+def phase_msm(device):
+    """G1 MSM at 2^18 (two 2^17 slices folded through K4) and G2 at 2^14,
+    against the native Pippenger oracle."""
+    out = {}
+    for ncomp, log2n, distinct in ((1, 18, 1 << 14), (2, 14, 1 << 12)):
+        n = 1 << log2n
+        rng = random.Random(100 + log2n)
+        base = _points(ncomp, distinct, 200 + ncomp)
+        pts = [base[i % distinct] for i in range(n)]
+        for i in range(0, n, 997):
+            pts[i] = None                               # identity rows
+        ks = [rng.randrange(1, 1 << 254) for _ in range(n)]
+        rows = _rows(ncomp, pts, rng, affine=True).to(device)
+        limbs = torch.as_tensor(ints_to_limbs(ks), device=device)
+        if ncomp == 1:
+            pts_dev = tuple(rows[:, i, 0].contiguous() for i in range(3))
+            msm, aff, oracle = (grid.msm_grid_g1, tp._g1_affine,
+                                native_bridge.g1_msm)
+        else:
+            pts_dev = tuple(rows[:, i].contiguous() for i in range(3))
+            msm, aff, oracle = (grid.msm_grid_g2, tp._g2_affine,
+                                native_bridge.g2_msm)
+        res = msm(pts_dev, limbs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = msm(pts_dev, limbs)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        got = aff(tuple(t.cpu() for t in res))
+        pairs = [(k, p) for k, p in zip(ks, pts) if p is not None]
+        want = oracle([k for k, _ in pairs], [p for _, p in pairs])
+        out[ncomp] = dict(n=n, warm_ms=warm, ok=got == want)
+    return out
+
+
+def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
+    """Seeded synthetic R1CS of the withdraw proof's shape: ``m`` rows, wire
+    0 the constant, wires 1..num_public-1 public outputs, ``n_inputs``
+    private inputs, then one wire per row c_i = (lc) * (lc), each lc of at
+    most 3 terms over wires computed earlier; the last num_public - 1 rows
+    define the public outputs. Returns (r1cs, witness fn(seed))."""
+    rng = random.Random(seed)
+    npub_out = num_public - 1
+    first = num_public + n_inputs               # first computed wire
+    nv = first + m - npub_out
+    a_rows, b_rows, c_rows = [], [], []
+
+    def lc(avail):
+        terms = {}
+        for _ in range(rng.randrange(1, 4)):
+            terms[rng.choice(avail)] = rng.randrange(1, FR_MOD)
+        return terms
+
+    avail = [0] + list(range(num_public, first))
+    for i in range(m):
+        a_rows.append(lc(avail[-64:] + [0]))
+        b_rows.append(lc(avail[-64:] + [0]))
+        if i < m - npub_out:
+            out = first + i
+            avail.append(out)
+        else:
+            out = 1 + (i - (m - npub_out))      # public output wire
+        c_rows.append({out: 1})
+    r1cs = R1CS(num_vars=nv, num_public=num_public, a_rows=a_rows,
+                b_rows=b_rows, c_rows=c_rows)
+
+    def witness(wseed):
+        wr = random.Random(wseed)
+        w = [0] * nv
+        w[0] = 1
+        for i in range(num_public, first):
+            w[i] = wr.randrange(FR_MOD)
+        for i in range(m):
+            v = (r1cs.eval_row(a_rows[i], w) * r1cs.eval_row(b_rows[i], w)
+                 % FR_MOD)
+            w[next(iter(c_rows[i]))] = v
+        assert r1cs.is_satisfied(w)
+        return w
+
+    return r1cs, witness
+
+
+def profile_prove(run):
+    """Trace one warm proof with torch.profiler: device busy share of the
+    wall time (kernels of one stream do not overlap, so their summed device
+    time is the busy time) and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return dict(wall_s=wall, device_busy_s=busy_s,
+                busy_share=busy_s / wall if wall else None,
+                top=[dict(name=k[:80], device_ms=us / 1e3, count=n)
+                     for us, k, n in rows[:12]])
+
+
+def phase_prove(device, profile=False):
+    info = {}
+    t0 = time.perf_counter()
+    r1cs, witness = withdraw_shape_r1cs()
+    w = witness(1)
+    pk, vk = setup(r1cs, seed=31)
+    info["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dpk = tp.DeviceProvingKey(pk, device=device)
+    torch.cuda.synchronize()
+    info["dpk_s"] = time.perf_counter() - t0
+    info["legs"] = dict(a=dpk._na, k=dpk._nk, h=dpk._nh, b2=dpk._nb2,
+                        n=pk.n_domain, rows=len(r1cs.a_rows),
+                        vars=r1cs.num_vars)
+    pub = w[1:r1cs.num_public]
+
+    kernels.reset_launches()          # the main path starts here
+    t0 = time.perf_counter()
+    proof = tp.prove(dpk, r1cs, w, seed=7)
+    info["cold_s"] = time.perf_counter() - t0
+    ok = verify(vk, proof, pub)
+    ok &= not verify(vk, proof, [pub[0] + 1] + pub[1:])
+    warm = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        p = tp.prove(dpk, r1cs, w, seed=8 + i)
+        warm.append(time.perf_counter() - t0)
+        ok &= verify(vk, p, pub)
+    per_proof = {k: v // 4 for k, v in kernels.LAUNCHES.items()}
+    phases = {}          # one more proof, synchronized around each phase
+    tp.prove(dpk, r1cs, w, seed=11, timings=phases)
+    if profile:
+        info["profile"] = profile_prove(lambda: tp.prove(dpk, r1cs, w,
+                                                         seed=12))
+    ws = [witness(10 + i) for i in range(4)]
+    batch = tp.prove_batch(dpk, r1cs, ws, seed=40)
+    singles = [tp.prove(dpk, r1cs, wi, seed=40 + i)
+               for i, wi in enumerate(ws)]
+    batch_ok = batch == singles and verify(vk, batch[3],
+                                           ws[3][1:r1cs.num_public])
+    launches = dict(kernels.LAUNCHES)    # the main path ends here
+    info.update(verified=bool(ok), batch_ok=bool(batch_ok),
+                warm_s=warm, proofs_per_s=len(warm) / sum(warm),
+                phases_s=phases, launches=launches,
+                launches_per_proof=per_proof)
+    return info
+
+
+def main(argv):
+    out_dir = (argv[argv.index("--out") + 1] if "--out" in argv
+               else os.path.join(HERE, "chip_smoke_out"))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    os.makedirs(out_dir, exist_ok=True)
+    device = torch.device("cuda", 0)
+
+    # ---- 0: card
+    card = nvidia_smi("name,power.limit")
+    clock_mhz = nvidia_smi("clocks.max.sm").split()[0:1]
+    clock_hz = float(clock_mhz[0]) * 1e6 if clock_mhz else 1.98e9
+    kind = torch.cuda.get_device_name(0)
+    log(0, f"card {card} | torch {torch.__version__} cuda "
+           f"{torch.version.cuda} | {kind} | max SM clock {clock_hz / 1e6:.0f}"
+           f" MHz")
+
+    # ---- 1: build (nvcc and g++ started together)
+    t0 = time.perf_counter()
+    host = {}
+    th = threading.Thread(target=lambda: host.update(
+        lib=native_bridge.get_lib()))
+    th.start()
+    path, ptxas = kernels.build(["-Xptxas", "-v"])
+    th.join()
+    if "lib" not in host:
+        raise RuntimeError("native host library did not build")
+    if ptxas:
+        with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+            f.write(ptxas)
+    log(1, f"built {os.path.basename(path)} in "
+           f"{time.perf_counter() - t0:.1f} s"
+           + (" (cached)" if ptxas is None else ""))
+
+    # ---- 2: kernels vs plain twins, small then at the slice's shapes
+    t0 = time.perf_counter()
+    errs = check_kernels(device)
+    bad = {k: v for k, v in errs.items() if v}
+    log(2, f"{len(errs)} kernel modes equal to their plain twins: "
+           f"{not bad} ({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        raise AssertionError(f"kernels differ from plain twins: {bad}")
+    times = time_kernels(device, clock_hz)
+    for (name, ncomp), t in times.items():
+        log(2, f"{name} {'G1' if ncomp == 1 else 'G2'} {t['shape']}: "
+               f"max |err| {t['max_abs_err']}, {t['ms']:.4f} ms, plain "
+               f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.5f} ms "
+               f"({t['bound_by']})")
+    bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
+    if bad:
+        raise AssertionError(
+            f"kernels differ from plain twins at the slice's shapes: {bad}")
+
+    # ---- 3: MSMs against the native oracle
+    msm = phase_msm(device)
+    log(3, "msm " + json.dumps(msm))
+    if not all(v["ok"] for v in msm.values()):
+        raise AssertionError("MSM differs from the native oracle")
+
+    # ---- 4: prove at withdraw scale
+    info = phase_prove(device, profile="--profile" in argv)
+    log(4, "prove " + json.dumps(info))
+    if not (info["verified"] and info["batch_ok"]):
+        raise AssertionError("proof check failed")
+
+    # ---- 5: launches of the main path
+    missing = [k for k, v in info["launches"].items() if v <= 0]
+    log(5, f"launches {json.dumps(info['launches'])}")
+    if missing:
+        raise AssertionError(f"kernels never launched: {missing}")
+
+    max_err = {}              # over both checks, Fp and Fp2
+    for (name, _, _), e in errs.items():
+        max_err[name] = max(max_err.get(name, 0), e)
+    for (name, _), t in times.items():
+        max_err[name] = max(max_err[name], t["max_abs_err"])
+    line = {"kernels": [dict(
+        name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+        launches=info["launches"][name], max_abs_err=max_err[name],
+        ms=times[(name, 1)]["ms"], plain_ms=times[(name, 1)]["plain_ms"],
+        bound_ms=times[(name, 1)]["bound_ms"],
+        bound_by=times[(name, 1)]["bound_by"], library_ms=None)
+        for name in REPLACES]}
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(dict(card=card, kernels=line["kernels"], times={
+            f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
+            prove=info), f, indent=1, default=str)
+    print(json.dumps(line))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

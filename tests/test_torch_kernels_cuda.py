@@ -1,0 +1,21 @@
+"""The grid-MSM CUDA kernels against their plain torch twins, on the card.
+
+Marked ``cuda``: it needs an NVIDIA GPU with the CUDA toolkit (nvcc) and
+skips elsewhere. Run it there with
+``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -n 0``;
+``python3 chip_smoke.py`` runs the same check and more.
+"""
+
+import pytest
+import torch
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_twins():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    errs = chip_smoke.check_kernels(torch.device("cuda", 0), lanes=256, k=3,
+                                    L=4, W=3)
+    assert len(errs) == 18
+    assert not {k: v for k, v in errs.items() if v}

@@ -1,0 +1,556 @@
+"""Grid-accumulator Pippenger MSM over G1 and G2 (the port of
+``tpu_zkpool/msm/grid.py``).
+
+Pipeline per slice of points, the same as the JAX package's:
+
+1. signed window digits from 16-bit scalar limbs,
+2. per window: sort the points by |digit| (one ``torch.sort`` of the bucket
+   keys per column, the packed index | sign payload gathered alongside),
+3. bucket sums via a chunk-contiguous inclusive prefix scan: ``lanes``
+   chunks of ``k = N / lanes`` sorted points, one mixed Jacobian + affine add
+   per step (kernel K1, ``prefix_rows``) - the O(N * W) bulk,
+4. cross-chunk prefix in two 32-step levels (K2, ``prefix``), bucket values
+   from boundary differences (K4, ``addn``),
+5. bucket reduction sum_j j * B_j with the weighted-suffix identity (K3,
+   ``wsum``, then K5, ``scale_add``),
+6. the Horner window combine (K6, ``horner``).
+
+Each of K1-K6 is a CUDA kernel (``csrc/msm_grid.cu``, wrappers in
+``msm/kernels.py``) with a plain PyTorch twin here (``*_plain``). A CPU tensor
+goes to the twin, a CUDA tensor to the kernel. Sorting, the bucket histogram
+and the gathers are torch ops, as they were XLA glue in JAX.
+
+Point rows are ``int64[n, 3, ncomp, 16]``: Jacobian (X, Y, Z) Montgomery
+limbs, ncomp = 1 (Fp, G1) or 2 (Fp2, G2), Z = 0 the identity.
+
+The point formulas are generic over a field adapter whose elements are
+limb-major ``int64[16, ncomp, *batch]``; a point stacks its coordinates,
+``int64[C, 16, ncomp, *batch]``. ``muls`` takes several independent
+products at once and runs them as one batched Montgomery multiplication,
+so each formula issues one field-op call per dependency level; the values
+are those of the JAX formulas, op for op.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from tpu_zkpool_torch.fields import bn254
+from tpu_zkpool_torch.fields.fctx import FP
+from tpu_zkpool_torch.fields.limbs import NLIMB, WBITS
+# kernels imports this module for the plain twins; both only use each
+# other's names inside functions, so the import cycle is benign.
+from tpu_zkpool_torch.msm import kernels
+
+TILE_N = 1024      # default lanes: chunks per prefix scan
+SCALAR_BITS = 255  # BN254 Fr < 2^254; one guard bit for the signed recode
+# Max points per sub-MSM slice; larger sets fold per-slice window sums.
+SUB_LOG2 = 17
+
+
+# --------------------------------------------------------------------------
+# Field adapters over limb-major elements (16, ncomp, *batch).
+# --------------------------------------------------------------------------
+
+
+class _TFp:
+    ncomp = 1
+
+    @staticmethod
+    def muls(*pairs):
+        a = torch.stack([x for x, _ in pairs], 1)
+        b = torch.stack([y for _, y in pairs], 1)
+        return FP.lm_mul(a, b).unbind(1)
+
+    add = staticmethod(FP.lm_add)
+    sub = staticmethod(FP.lm_sub)
+
+    @staticmethod
+    def dbl(a):
+        return FP.lm_add(a, a)
+
+    @staticmethod
+    def is_zero(a):
+        return (a == 0).flatten(0, 1).all(0)
+
+    zero = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def one(like):
+        out = torch.zeros_like(like)
+        r1 = FP.ones_mont((), like.device)
+        out[:, 0] = r1.view((NLIMB,) + (1,) * (like.dim() - 2))
+        return out
+
+    @staticmethod
+    def select(cond, a, b):
+        return torch.where(cond, a, b)
+
+
+class _TFp2(_TFp):
+    """Fp2 = Fp[u]/(u^2 + 1): Karatsuba (3 Fp products per Fp2 product),
+    t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1), c = (t0 - t1,
+    (t2 - t0) - t1). add/sub/dbl/select are componentwise (inherited)."""
+
+    ncomp = 2
+
+    @staticmethod
+    def muls(*pairs):
+        a = torch.stack([x for x, _ in pairs], 1)          # (16, k, 2, *B)
+        b = torch.stack([y for _, y in pairs], 1)
+        s = FP.lm_add(torch.stack([a[:, :, 0], b[:, :, 0]], 1),
+                      torch.stack([a[:, :, 1], b[:, :, 1]], 1))
+        t = FP.lm_mul(torch.stack([a[:, :, 0], a[:, :, 1], s[:, 0]], 2),
+                      torch.stack([b[:, :, 0], b[:, :, 1], s[:, 1]], 2))
+        t0, t1, t2 = t.unbind(2)
+        u = FP.lm_sub(torch.stack([t0, t2], 1), torch.stack([t1, t0], 1))
+        c1 = FP.lm_sub(u[:, 1], t1)
+        return torch.stack([u[:, 0], c1], 2).unbind(1)
+
+
+def _field(ncomp):
+    return _TFp if ncomp == 1 else _TFp2
+
+
+# --------------------------------------------------------------------------
+# Jacobian point formulas (a = 0 curves).
+# --------------------------------------------------------------------------
+
+
+def _pdouble(F, P):
+    X, Y, Z = P
+    A, B, YZ = F.muls((X, X), (Y, Y), (Y, Z))
+    xb = F.add(X, B)
+    C, xb2 = F.muls((B, B), (xb, xb))
+    D = F.dbl(F.sub(F.sub(xb2, A), C))
+    E = F.add(F.dbl(A), A)
+    (Fq,) = F.muls((E, E))
+    X3 = F.sub(Fq, F.dbl(D))
+    C8 = F.dbl(F.dbl(F.dbl(C)))
+    (EDX,) = F.muls((E, F.sub(D, X3)))
+    Y3 = F.sub(EDX, C8)
+    Z3 = F.dbl(YZ)
+    return torch.stack([X3, Y3, Z3])
+
+
+def _finish(F, P, Q, R, H, r, complete, q_affine=False):
+    """Special-case selects on stacked points (3, 16, ncomp, *B).
+    ``complete=False`` (prover mode) skips the doubling branch (P == Q);
+    P == -Q still lands on the identity since Z3 = Z1 Z2 H = 0. Identity
+    operands are always handled."""
+    p_inf = F.is_zero(P[2])
+    q_inf = None if q_affine else F.is_zero(Q[2])
+    if complete:
+        same_x = F.is_zero(H)
+        same_y = F.is_zero(r)
+        finite = ~p_inf if q_inf is None else (~p_inf & ~q_inf)
+        is_dbl = same_x & same_y & finite
+        to_inf = same_x & ~same_y & finite
+        if bool(is_dbl.any()):    # the doubling is selected nowhere else
+            R = F.select(is_dbl, _pdouble(F, P), R)
+        R = F.select(to_inf, 0, R)
+    if q_affine:
+        Q = torch.cat([Q, F.one(Q[0])[None]])
+    R = F.select(p_inf, Q, R)
+    if q_inf is not None:
+        R = F.select(q_inf, P, R)
+    return R
+
+
+def _pmadd(F, P, Q, complete=True):
+    """P (Jacobian) + Q ((X2, Y2) affine, Z2 = 1): 8M + 3S. Q is never the
+    identity: the pipeline zeroes the digits of identity inputs."""
+    X1, Y1, Z1 = P
+    X2, Y2 = Q[0], Q[1]
+    (Z1Z1,) = F.muls((Z1, Z1))
+    U2, Z1c = F.muls((X2, Z1Z1), (Z1, Z1Z1))
+    H = F.sub(U2, X1)
+    S2, HH, Z3 = F.muls((Y2, Z1c), (H, H), (Z1, H))
+    r = F.sub(S2, Y1)
+    HHH, V, r2 = F.muls((H, HH), (X1, HH), (r, r))
+    X3 = F.sub(F.sub(r2, HHH), F.dbl(V))
+    t1, t2 = F.muls((r, F.sub(V, X3)), (Y1, HHH))
+    Y3 = F.sub(t1, t2)
+    return _finish(F, P, Q, torch.stack([X3, Y3, Z3]), H, r, complete,
+                   q_affine=True)
+
+
+def _padd(F, P, Q, complete=True):
+    """General Jacobian addition: 12M + 4S."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    Z1Z1, Z2Z2, Z12 = F.muls((Z1, Z1), (Z2, Z2), (Z1, Z2))
+    U1, U2, Z2c, Z1c = F.muls((X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2),
+                              (Z1, Z1Z1))
+    S1, S2 = F.muls((Y1, Z2c), (Y2, Z1c))
+    H = F.sub(U2, U1)
+    r = F.sub(S2, S1)
+    HH, r2, Z3 = F.muls((H, H), (r, r), (Z12, H))
+    HHH, V = F.muls((H, HH), (U1, HH))
+    X3 = F.sub(F.sub(r2, HHH), F.dbl(V))
+    t1, t2 = F.muls((r, F.sub(V, X3)), (S1, HHH))
+    Y3 = F.sub(t1, t2)
+    return _finish(F, P, Q, torch.stack([X3, Y3, Z3]), H, r, complete)
+
+
+# --------------------------------------------------------------------------
+# Plain twins of the six kernels. Rows (..., C, ncomp, 16) convert to
+# limb-major points (C x (16, ncomp, lanes)) once per call.
+# --------------------------------------------------------------------------
+
+
+def _to_lm(rows):
+    """(..., lanes, C, ncomp, 16) -> (..., C, 16, ncomp, lanes)."""
+    d = rows.dim()
+    perm = tuple(range(d - 4)) + (d - 3, d - 1, d - 2, d - 4)
+    return rows.permute(perm).contiguous()
+
+
+def _from_lm(pts):
+    """(..., C, 16, ncomp, lanes) -> (..., lanes, C, ncomp, 16)."""
+    d = pts.dim()
+    perm = tuple(range(d - 4)) + (d - 1, d - 4, d - 2, d - 3)
+    return pts.permute(perm).contiguous()
+
+
+def _zero_point(ncomp, lanes, device):
+    return torch.zeros((3, NLIMB, ncomp, lanes), dtype=torch.int64,
+                       device=device)
+
+
+def prefix_rows_plain(rows_t, signs_t, complete):
+    """K1 twin. rows_t (k, lanes, 2, ncomp, 16) step-major affine rows,
+    signs_t (k, lanes) nonzero where Y negates -> (k, lanes, 3, ncomp, 16)
+    per-lane inclusive prefix sums over the k steps."""
+    k, lanes, _, ncomp, _ = rows_t.shape
+    F = _field(ncomp)
+    q = _to_lm(rows_t)                                 # (k, 2, 16, nc, lanes)
+    acc = _zero_point(ncomp, lanes, rows_t.device)
+    out = []
+    for j in range(k):
+        x, y = q[j]
+        y = F.select(signs_t[j] != 0, F.sub(F.zero(y), y), y)
+        acc = _pmadd(F, acc, torch.stack([x, y]), complete)
+        out.append(acc)
+    return _from_lm(torch.stack(out))
+
+
+def prefix_plain(tiles, mixed, complete):
+    """K2 twin. tiles (k, lanes, C, ncomp, 16), C = 2 (affine, mixed adds)
+    or 3 (Jacobian, general adds) -> (k, lanes, 3, ncomp, 16) inclusive
+    prefix sums over the k steps."""
+    k, lanes, C, ncomp, _ = tiles.shape
+    if C != (2 if mixed else 3):
+        raise ValueError(f"prefix: {C} coordinates for mixed={mixed}")
+    F = _field(ncomp)
+    q = _to_lm(tiles)
+    acc = _zero_point(ncomp, lanes, tiles.device)
+    out = []
+    for j in range(k):
+        acc = (_pmadd if mixed else _padd)(F, acc, q[j], complete)
+        out.append(acc)
+    return _from_lm(torch.stack(out))
+
+
+def wsum_plain(steps):
+    """K3 twin. steps (L, lanes, 3, ncomp, 16), fed from step L-1 down to 0:
+    acc = sum_l B_l, tot = sum_l (l + 1) B_l -> (2, lanes, 3, ncomp, 16)."""
+    L, lanes, _, ncomp, _ = steps.shape
+    F = _field(ncomp)
+    q = _to_lm(steps)
+    acc = tot = _zero_point(ncomp, lanes, steps.device)
+    for j in range(L - 1, -1, -1):
+        acc = _padd(F, acc, q[j])
+        tot = _padd(F, tot, acc)
+    return _from_lm(torch.stack([acc, tot]))
+
+
+def addn_plain(a, b):
+    """K4 twin: lane-parallel complete Jacobian a + b on (n, 3, ncomp, 16)."""
+    return _from_lm(_padd(_field(a.shape[2]), _to_lm(a), _to_lm(b)))
+
+
+def scale_add_plain(a, b, log2s):
+    """K5 twin: 2^log2s * a + b on (n, 3, ncomp, 16)."""
+    F = _field(a.shape[2])
+    P = _to_lm(a)
+    for _ in range(log2s):
+        P = _pdouble(F, P)
+    return _from_lm(_padd(F, P, _to_lm(b)))
+
+
+def horner_plain(S, c):
+    """K6 twin: S (W, 3, ncomp, 16) window sums -> sum_w 2^(c w) S_w as one
+    row (3, ncomp, 16): per step, c doublings, then add the next sum."""
+    W, _, ncomp, _ = S.shape
+    F = _field(ncomp)
+    q = _to_lm(S[:, None])                         # (W, 3, 16, nc, 1)
+    acc = _zero_point(ncomp, 1, S.device)
+    for t in range(W - 1, -1, -1):
+        for _ in range(c):
+            acc = _pdouble(F, acc)
+        acc = _padd(F, acc, q[t])
+    return _from_lm(acc)[0]
+
+
+# --------------------------------------------------------------------------
+# Signed window digits.
+# --------------------------------------------------------------------------
+
+
+def n_windows(c: int, nbits: int = SCALAR_BITS) -> int:
+    return -(-nbits // c)
+
+
+def signed_digits(limbs, c: int, nbits: int = SCALAR_BITS):
+    """int64[N, 16] plain scalar limbs -> (bucket int64[N, W] in
+    [0, 2^(c-1)], neg bool[N, W]); scalar = sum_w sign_w bucket_w 2^(c w).
+    ``nbits`` narrows the recode for scalars known to be < 2^(nbits-1)."""
+    W = n_windows(c, nbits)
+    cmask = (1 << c) - 1
+    half = 1 << (c - 1)
+    raw = []
+    for w in range(W):
+        o = w * c
+        lo, sh = o // WBITS, o % WBITS
+        v = limbs[:, lo] >> sh
+        if lo + 1 < NLIMB and sh + c > WBITS:
+            v = v | (limbs[:, lo + 1] << (WBITS - sh))
+        raw.append(v & cmask)
+    digits = []
+    carry = torch.zeros_like(raw[0])
+    for w in range(W):
+        d = raw[w] + carry
+        carry = (d > half).long()
+        digits.append(d - (carry << c))
+    dig = torch.stack(digits, 1)
+    return dig.abs(), dig < 0
+
+
+# --------------------------------------------------------------------------
+# Full MSM.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _safe_point_host(ncomp: int):
+    if ncomp == 1:
+        xy = [[bn254.G1_GX], [bn254.G1_GY]]
+    else:
+        xy = [list(bn254.G2_GX), list(bn254.G2_GY)]
+    return FP.to_mont(xy)
+
+
+def _safe_point(ncomp: int, device):
+    """A valid curve point substituted for identity inputs (their digits
+    are zeroed, so it never contributes): the G1 / G2 generator as
+    (2, ncomp, 16) Montgomery limbs."""
+    return torch.as_tensor(_safe_point_host(ncomp), device=device)
+
+
+def _reduction_shape(half: int):
+    """Bucket axis half = C * L for the two-level weighted suffix
+    reduction: L = per-wsum steps (<= 128), C = chunk count."""
+    L = min(128, half)
+    C = half // L
+    assert C * L == half
+    return C, L
+
+
+def _pad_rows(rows, n):
+    pad = n - rows.shape[0]
+    assert pad >= 0, (rows.shape, n)
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad,) + rows.shape[1:])])
+    return rows
+
+
+def rows_neg_y(rows):
+    """Negate the Y coordinate of point rows (componentwise p - y)."""
+    out = rows.clone()
+    out[:, 1] = FP.neg(rows[:, 1])
+    return out
+
+
+def _prefix_chunks(rows, k):
+    """Jacobian prefix over chunk-contiguous rows (lanes * k, 3, nc, 16):
+    row i is step i % k of lane i // k."""
+    lanes = rows.shape[0] // k
+    tiles = rows.reshape((lanes, k) + rows.shape[1:]).transpose(0, 1)
+    out = kernels.prefix(tiles.contiguous(), mixed=False, complete=True)
+    return out.transpose(0, 1).reshape(rows.shape[:1] + out.shape[2:])
+
+
+def window_sums(rows, scalar_limbs, c, lanes=TILE_N, complete=True,
+                sub_log2=SUB_LOG2, nbits=SCALAR_BITS):
+    """Per-window Pippenger sums S_w (W, 3, ncomp, 16): everything but the
+    Horner combine. Point sets larger than 2^``sub_log2`` (and a multiple
+    of it) run slice by slice, the window sums folded by Jacobian adds."""
+    N = rows.shape[0]
+    SUB = 1 << sub_log2
+    if N > SUB and N % SUB == 0:
+        W = n_windows(c, nbits)
+        acc = rows.new_zeros((W, 3) + rows.shape[2:])
+        for s in range(0, N, SUB):
+            Sw = _window_sums_one(rows[s:s + SUB], scalar_limbs[s:s + SUB],
+                                  c, lanes, complete, nbits)
+            acc = kernels.addn(acc, Sw)
+        return acc
+    return _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits)
+
+
+def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits):
+    N, _, ncomp, _ = rows.shape
+    if N % lanes or lanes % 32:
+        raise ValueError(f"{N} points in {lanes} lanes: lanes must be a "
+                         "multiple of 32 that divides the point count")
+    k = N // lanes
+    W = n_windows(c, nbits)
+    if W > 32:
+        raise ValueError(f"c={c} gives {W} windows of {nbits} bits; the "
+                         "level-1 cross-chunk prefix holds at most 32")
+    half = 1 << (c - 1)
+    C, L = _reduction_shape(half)
+    dev = rows.device
+    pt = (3, ncomp, NLIMB)
+
+    bucket, neg = signed_digits(scalar_limbs, c, nbits)
+    # identity inputs (Z = 0) contribute nothing: their digits go to the
+    # never-read bucket 0 and a valid curve point stands in for their
+    # coordinates, so the mixed-add scan needs no Z plane.
+    valid = (rows[:, 2] != 0).reshape(N, -1).any(-1)
+    bucket = torch.where(valid[:, None], bucket, 0)
+    neg = neg & valid[:, None]
+    xy = torch.where(valid[:, None, None, None], rows[:, :2],
+                     _safe_point(ncomp, dev))
+    xyf = xy.reshape(N, -1)
+    # co-sort a packed (index | neg << 31) payload with the bucket keys
+    payload = (torch.arange(N, device=dev)[:, None]
+               | (neg.long() << 31))                   # (N, W)
+    skeys, perm = torch.sort(bucket, dim=0, stable=True)
+    svals = torch.gather(payload, 0, perm)
+    # step-major payload: row j * lanes + l = sorted position l * k + j
+    svals_t = svals.reshape(lanes, k, W).permute(2, 1, 0)   # (W, k, lanes)
+
+    nq = half + 2                                  # boundary queries 0..half+1
+    zero1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    last = (torch.arange(lanes, device=dev) + 1) * k - 1
+    WV, CID, ZM, TOT = [], [], [], []
+    for w in range(W):
+        pv = svals_t[w].reshape(-1)
+        rs_t = xyf[pv & 0x7FFFFFFF].reshape(k, lanes, 2, ncomp, NLIMB)
+        sg_t = (pv >> 31).reshape(k, lanes)
+        # starts[v] = #keys < v
+        counts = torch.bincount(skeys[:, w], minlength=half + 1)
+        starts = torch.cat([zero1, torch.cumsum(counts, 0)])[:nq]
+        pr = kernels.prefix_rows(rs_t, sg_t, complete)
+        prs = pr.transpose(0, 1).reshape((N,) + pt)          # sorted order
+        idx = (starts - 1).clamp(0, N - 1)
+        WV.append(prs[idx])
+        CID.append(idx // k)
+        ZM.append(starts == 0)
+        TOT.append(prs[last])
+    WV, CID, ZM, TOT = (torch.stack(v) for v in (WV, CID, ZM, TOT))
+
+    # ---- cross-chunk exclusive prefix of the `lanes` chunk totals, all
+    # windows batched into lanes: level 1 groups the chunks of window w
+    # into GA groups of 32; flat row (w*GA + g)*32 + e = w*lanes + g*32 + e.
+    GA = lanes // 32
+    l1 = _prefix_chunks(_pad_rows(TOT.reshape((W * lanes,) + pt),
+                                  lanes * 32), 32)
+    gtot = l1[torch.arange(W * GA, device=dev) * 32 + 31]
+    l2 = _prefix_chunks(_pad_rows(gtot, lanes * GA), GA)
+
+    # excl[w, chunk = g*32 + e] = l1[e-1 @ lane w*GA + g] + l2[g-1 @ lane w]
+    wi = torch.arange(W, device=dev)[:, None]
+    ch = torch.arange(lanes, device=dev)[None, :]
+    g, e = ch // 32, ch % 32
+    a_idx = ((wi * GA + g) * 32 + (e - 1)).reshape(-1)
+    e_mask = (e == 0).expand(W, lanes).reshape(-1)
+    a = torch.where(e_mask[:, None, None, None], 0, l1[a_idx.clamp(min=0)])
+    b_idx = (wi * GA + (g - 1)).reshape(-1)
+    g_mask = (g == 0).expand(W, lanes).reshape(-1)
+    b = torch.where(g_mask[:, None, None, None], 0, l2[b_idx.clamp(min=0)])
+    excl = kernels.addn(a, b)
+
+    # ---- E[i] at bucket boundaries; B_j = E[start_{j+1}] - E[start_j] ----
+    ex_at = excl[(wi * lanes + CID).reshape(-1)]
+    E = kernels.addn(ex_at, WV.reshape((W * nq,) + pt))
+    E = E.reshape((W, nq) + pt)
+    E = torch.where(ZM[:, :, None, None, None], 0, E)
+    lo = rows_neg_y(E[:, 1:-1].reshape((W * half,) + pt))
+    hi = E[:, 2:].reshape((W * half,) + pt)
+    B = kernels.addn(hi, lo).reshape((W, half) + pt)
+    # B[w, j-1] = bucket j's sum, j = 1..half
+    return _reduce_buckets(B, W, half, C, L)
+
+
+def _reduce_buckets(B, W, half, C, L):
+    """Bucket reduction sum_j j B_j per window, j = m L + (l + 1), from the
+    dense bucket rows B (W, half, 3, ncomp, 16)."""
+    pt = B.shape[2:]
+    Bm = B.reshape((W * C, L) + pt).transpose(0, 1).contiguous()
+    T, U = kernels.wsum(Bm)                       # (W*C,) lanes each
+    T = T.reshape((W, C) + pt)
+    U = U.reshape((W, C) + pt)
+    if C > 1:
+        # lanes = W, steps = C
+        accT, uT = kernels.wsum(T.transpose(0, 1).contiguous())
+        accU, _ = kernels.wsum(U.transpose(0, 1).contiguous())
+        # sum_m m T_m = (sum (m+1) T_m) - (sum T_m)
+        mT = kernels.addn(uT, rows_neg_y(accT))
+        sU = accU
+    else:
+        mT = torch.zeros_like(U[:, 0])
+        sU = U[:, 0].contiguous()
+    # window sums S_w = L * (sum_m m T_m) + sum_m U_m
+    return kernels.scale_add(mT, sU, L.bit_length() - 1)
+
+
+# The MSM is integer work that never needs autograd: inference mode drops
+# autograd's bookkeeping from each of its many small ops, which is host time
+# on every plain field product. The prover's entry points do the same.
+@torch.inference_mode()
+def msm_rows(rows, scalar_limbs, c=13, lanes=TILE_N, complete=True,
+             nbits=SCALAR_BITS, sub_log2=SUB_LOG2):
+    """rows int64[N, 3, ncomp, 16] Jacobian Montgomery points with Z in
+    {R, 0}; scalar_limbs int64[N, 16] plain. N must be a multiple of
+    ``lanes``. Returns the MSM as one point row (3, ncomp, 16)."""
+    S = window_sums(rows, scalar_limbs, c, lanes, complete, sub_log2, nbits)
+    return kernels.horner(S, c)
+
+
+def _no_tree(tree):
+    if tree:
+        raise NotImplementedError(
+            "tree=True (the batched-affine bucket tree) is not ported yet; "
+            "see ROADMAP.md, queue A, the affine tree")
+
+
+def msm_grid_g1(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
+                complete: bool = True, nbits: int = SCALAR_BITS,
+                sub_log2: int = SUB_LOG2, tree: bool = False):
+    """Grid-accumulator MSM over G1. points: (X, Y, Z) int64[N, 16]
+    Montgomery Jacobian with Z in {R, 0}; scalar_limbs int64[N, 16] plain;
+    N a multiple of ``lanes``. Runs on the points' device. Returns (X, Y, Z)
+    int64[16] each. ``complete=False`` (prover mode) drops the doubling
+    branch of the input-point scan only."""
+    _no_tree(tree)
+    X, Y, Z = points
+    rows = torch.stack([X, Y, Z], 1)[:, :, None, :]
+    out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2)
+    return out[0, 0], out[1, 0], out[2, 0]
+
+
+def msm_grid_g2(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
+                complete: bool = True, nbits: int = SCALAR_BITS,
+                sub_log2: int = SUB_LOG2, tree: bool = False):
+    """Grid-accumulator MSM over G2: points (X, Y, Z) int64[N, 2, 16] (Fp2
+    coordinates). Returns (X, Y, Z) int64[2, 16] each."""
+    _no_tree(tree)
+    X, Y, Z = points
+    rows = torch.stack([X, Y, Z], 1)
+    out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2)
+    return out[0], out[1], out[2]
