@@ -7,18 +7,30 @@
 
 Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
-  1 build    nvcc builds the grid-MSM kernels, g++ the native host library;
-  2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), against its plain
-             torch twin on the card (equal limb for limb): every mode on
-             small inputs with the special cases, then at the withdraw
-             proof's shapes, timed beside the twin;
+  1 build    nvcc builds the grid-MSM kernels and the Poseidon kernel, g++
+             the native host library, all three started together;
+  2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), and K7 for t = 3,
+             4, 5, against its plain torch twin on the card (equal limb for
+             limb): every mode on small inputs with the special cases, then
+             at the withdraw proof's and the Merkle tree's shapes, timed
+             beside the twin;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
              rows, domain 2^14): setup, one cold and three warm proofs, each
              verified and a tampered input rejected, prove_batch (B = 4)
              against prove(seed + i), per-phase times;
-  5 launches every kernel's launch count during phase 4 (must be > 0).
+  6 merkle   the depth-16 tree at full capacity: build_levels over 2^16
+             seeded leaves on the card (16 K7 launches), every level against
+             the plain twin and 64 sampled nodes per level against the host
+             oracle; a MerkleTree on the card of 256 host inserts, its
+             device-built root against its frontier root, 8 proofs verified
+             and a tampered one rejected; warm ms of the 2^16 build;
+  7 chain    bench.py's Poseidon throughput shape: a hash2 chain, batch 2^15
+             x 4, warm best of 3, in hashes/s, sampled outputs against the
+             host oracle;
+  5 launches every kernel's launch count on its main path, K1-K6 during
+             phase 4 and K7 during phase 6 (must be > 0); it runs last.
 Then the "kernels" JSON line, the card line, and the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
 ``tpu_zkpool_torch``: without either it exits non-zero and prints no
@@ -32,16 +44,21 @@ import os
 import random
 import subprocess
 import sys
-import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from tpu_zkpool_torch import native_bridge
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
-from tpu_zkpool_torch.fields.fctx import FP
+from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
 from tpu_zkpool_torch.groth16 import prove as tp
+from tpu_zkpool_torch.hash import kernels as hkern
+from tpu_zkpool_torch.hash import poseidon
+from tpu_zkpool_torch.hash.poseidon_params import N_ROUNDS_F, N_ROUNDS_P
+from tpu_zkpool_torch.hash.poseidon_params import poseidon_hash_ref
+from tpu_zkpool_torch.merkle import MerkleTree, build_levels
 from tpu_zkpool_torch.msm import grid, kernels
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
@@ -79,8 +96,10 @@ REPLACES = {
     "addn": "tpu_zkpool/msm/grid.py:554",
     "scale_add": "tpu_zkpool/msm/grid.py:579",
     "horner": "tpu_zkpool/msm/grid.py:615",
+    "poseidon": "tpu_zkpool/hash/poseidon_pallas.py:206",
 }
-SOURCE = "tpu_zkpool_torch/csrc/msm_grid.cu"
+SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
+SOURCES["poseidon"] = "tpu_zkpool_torch/csrc/poseidon.cu"
 
 
 def log(phase, msg):
@@ -223,9 +242,10 @@ def kernel_cases(inp):
     ]
 
 
-def check_kernels(device, lanes=1024, k=4, L=16, W=4):
-    """Every kernel mode, Fp and Fp2, against its plain twin on ``device``.
-    Returns {(name, ncomp, variant): max |kernel - plain| over the limbs}."""
+def check_kernels(device, lanes=1024, k=4, L=16, W=4, B=256):
+    """Every kernel mode, Fp and Fp2, and K7 for t = 3, 4, 5 at batch B,
+    against its plain twin on ``device``. Returns {(name, ncomp or t,
+    variant): max |kernel - plain| over the limbs}."""
     errs = {}
     for ncomp in (1, 2):
         inp = kernel_inputs(ncomp, device, lanes, k, L, W)
@@ -235,7 +255,88 @@ def check_kernels(device, lanes=1024, k=4, L=16, W=4):
                 torch.cuda.synchronize()
             errs[(name, ncomp, variant)] = int(
                 (got - want).abs().max().item())
+    for t in hkern.WIDTHS:
+        x = poseidon_special(t, B, device)
+        got, want = hkern.hash_tiles(x, t), poseidon.hash_n_plain(x)
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        errs[("poseidon", t, "special")] = int((got - want).abs().max().item())
     return errs
+
+
+# ------------------------------------------------------------ Poseidon K7
+
+def poseidon_special(t, B, device, seed=9):
+    """B rows of t - 1 Montgomery inputs: seeded random values, with 0, 1
+    and r - 1 planted alone and mixed in the first rows."""
+    r = FR.modulus
+    rng = random.Random(seed + t)
+    rows = [[rng.randrange(r) for _ in range(t - 1)] for _ in range(B)]
+    special = [0, 1, r - 1]
+    for i in range(min(B, 12)):
+        rows[i] = [special[(i + w * (i // 3)) % 3] for w in range(t - 1)]
+    return torch.as_tensor(FR.to_mont(rows), device=device).contiguous()
+
+
+def random_mont(shape, device, seed):
+    """Seeded canonical Montgomery Fr limbs made on the device (top limb
+    below r's, so every value is < r)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    x = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=g,
+                      device=device, dtype=torch.int64)
+    x[..., 15] %= FR.modulus >> 240
+    return x
+
+
+# 32-bit multiply-adds of one Fr product's parts: the unreduced product of
+# two 8-word values (64 word products, lo and hi), a square's (36 distinct
+# word products), and one Montgomery reduction (64 word products and 8
+# quotient words). A full product is 128 + 136 = MADDS_PER_FP_MUL.
+MADDS_WIDE, MADDS_WIDE_SQR, MADDS_REDC = 2 * 64, 2 * 36, 2 * 64 + 8
+
+
+def poseidon_madds(t):
+    """32-bit multiply-adds of one hash in the least form known: x^5 as two
+    squares and one product; each mix lazy (unreduced products summed, one
+    reduction per output); the partial rounds in the sparse form of the
+    Poseidon paper's appendix B (the last first-half full round mixes with
+    the dense pre-matrix, each partial round with a matrix of 2t - 1
+    nonzero entries); the last mix computes wire 0 alone."""
+    r_p = N_ROUNDS_P[t - 2]
+    sbox = 2 * (MADDS_WIDE_SQR + MADDS_REDC) + MADDS_WIDE + MADDS_REDC
+    dense = t * t * MADDS_WIDE + t * MADDS_REDC
+    sparse = (2 * t - 1) * MADDS_WIDE + t * MADDS_REDC
+    last = t * MADDS_WIDE + MADDS_REDC
+    return ((N_ROUNDS_F * t + r_p) * sbox + (N_ROUNDS_F - 1) * dense
+            + r_p * sparse + last)
+
+
+def poseidon_bound(t, B, clock_hz):
+    """(bound ms, bound_by) of B hashes of width t: multiply-adds over the
+    INT32 rate against (t - 1) input rows and one output row of int64
+    limbs over the memory rate."""
+    ops_s = B * poseidon_madds(t) / (INT32_LANES * clock_hz)
+    bytes_s = B * t * 16 * 8 / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_poseidon(device, clock_hz, B=1 << 15):
+    """K7 for t = 3, 4, 5 at batch B (the top level of the 2^16 tree is
+    hash2 x 32,768): its output against the plain twin's on the same inputs,
+    and the ms of both."""
+    res = {}
+    for t in hkern.WIDTHS:
+        x = random_mont((B, t - 1), device, seed=70 + t)
+        ms, got = _cuda_ms(lambda: hkern.hash_tiles(x, t), 50)
+        plain_ms, want = _cuda_ms(lambda: poseidon.hash_n_plain(x), 1,
+                                  warm=False)
+        bound_ms, bound_by = poseidon_bound(t, B, clock_hz)
+        res[("poseidon", t)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            shape=(B, t - 1), max_abs_err=int((got - want).abs().max().item()))
+    return res
 
 
 # ------------------------------------------------------------ timings
@@ -388,6 +489,110 @@ def phase_msm(device):
     return out
 
 
+def phase_merkle(device, clock_hz, log2n=16, inserts=256, samples=64):
+    """The depth-16 tree at full capacity on the card, then a MerkleTree of
+    host inserts; the K7 launches of both are this path's count."""
+    n = 1 << log2n
+    leaves = random_mont((n,), device, seed=16)
+    hkern.reset_launches()            # the Merkle path starts here
+    levels, root = build_levels(leaves, 16)
+    torch.cuda.synchronize()
+    build_launches = hkern.LAUNCHES["poseidon"]
+    rng = random.Random(17)
+    tree = MerkleTree(device=device)
+    tree_leaves = [rng.randrange(FR.modulus) for _ in range(inserts)]
+    for v in tree_leaves:
+        tree.insert(v)
+    idx = [0, 1, inserts - 1] + rng.sample(range(2, inserts - 1), 5)
+    proofs = [tree.get_proof(i) for i in idx]
+    launches = hkern.LAUNCHES["poseidon"]   # the Merkle path ends here
+
+    info = dict(leaves=n, levels=len(levels), build_launches=build_launches,
+                launches=launches)
+    # every level against the plain twin of its children, on the card
+    err = 0
+    for k in range(1, len(levels)):
+        lo = levels[k - 1]
+        want = poseidon.hash_n_plain(torch.stack([lo[0::2], lo[1::2]], 1))
+        err = max(err, int((levels[k] - want).abs().max().item()))
+    info["max_abs_err"] = err
+    # sampled nodes against the host oracle
+    bad_nodes = 0
+    for k in range(1, len(levels)):
+        m = levels[k].shape[0]
+        for i in rng.sample(range(m), min(samples, m)):
+            a, b, node = (int(v) for v in FR.from_mont(torch.stack(
+                [levels[k - 1][2 * i], levels[k - 1][2 * i + 1],
+                 levels[k][i]])))
+            bad_nodes += poseidon_hash_ref([a, b]) != node
+    info["bad_nodes"] = bad_nodes
+    info["root_is_top"] = bool(torch.equal(root, levels[-1][0]))
+    # the tree of host inserts: device-built root, proofs, tampering
+    tl = torch.as_tensor(FR.to_mont(tree_leaves), device=device)
+    _, troot = build_levels(tl, 16)
+    info["tree_root_ok"] = (int(FR.from_mont(troot)) == tree.get_root()
+                            == tree._levels()[16][0])
+    info["proofs_ok"] = all(
+        MerkleTree.verify_proof(tree_leaves[i], i, p, tree.get_root())
+        for i, p in zip(idx, proofs))
+    bad = list(proofs[1])
+    bad[3] = (bad[3] + 1) % FR.modulus
+    info["tamper_rejected"] = not MerkleTree.verify_proof(
+        tree_leaves[idx[1]], idx[1], bad, tree.get_root())
+    # warm 2^16 builds, synchronized around each
+    times = []
+    for s in range(3):
+        x = random_mont((n,), device, seed=20 + s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_levels(x, 16)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    info.update(build_ms=times, build_ms_best=min(times),
+                bound_ms=poseidon_bound(3, n - 1, clock_hz)[0])
+    # K7 alone at each level's width, 32,768 ... 1 hashes (CUDA events)
+    info["level_ms"] = {}
+    for k in range(1, log2n + 1):
+        x = random_mont((n >> k, 2), device, seed=40 + k)
+        info["level_ms"][n >> k] = _cuda_ms(lambda: hkern.hash_tiles(x, 3),
+                                            20)[0]
+    info["ok"] = (err == 0 and bad_nodes == 0 and info["root_is_top"]
+                  and build_launches == log2n and info["tree_root_ok"]
+                  and info["proofs_ok"] and info["tamper_rejected"])
+    return info
+
+
+def phase_chain(device, clock_hz, batch=1 << 15, iters=4, samples=16):
+    """bench.py's Poseidon throughput: a chain of ``iters`` hash2(x, x) at
+    ``batch``, warm best of 3 by the host clock, in hashes/s; sampled rows
+    of the last chain against the host oracle."""
+    def chain(x):
+        for _ in range(iters):
+            x = hkern.hash2_kernel(x, x)
+        return x
+
+    chain(random_mont((batch,), device, seed=30))
+    times = []
+    for s in range(1, 4):
+        x = random_mont((batch,), device, seed=30 + s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chain(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rows = random.Random(31).sample(range(batch), samples)
+    ok = True
+    for i in rows:
+        v = int(FR.from_mont(x[i]))
+        for _ in range(iters):
+            v = poseidon_hash_ref([v, v])
+        ok &= v == int(FR.from_mont(out[i]))
+    return dict(batch=batch, iters=iters, times_s=times,
+                hashes_per_s=batch * iters / min(times),
+                bound_ms=poseidon_bound(3, batch * iters, clock_hz)[0],
+                ok=bool(ok))
+
+
 def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
     """Seeded synthetic R1CS of the withdraw proof's shape: ``m`` rows, wire
     0 the constant, wires 1..num_public-1 public outputs, ``n_inputs``
@@ -527,24 +732,24 @@ def main(argv):
            f"{torch.version.cuda} | {kind} | max SM clock {clock_hz / 1e6:.0f}"
            f" MHz")
 
-    # ---- 1: build (nvcc and g++ started together)
+    # ---- 1: build (one nvcc per kernel source and g++, started together)
     t0 = time.perf_counter()
-    host = {}
-    th = threading.Thread(target=lambda: host.update(
-        lib=native_bridge.get_lib()))
-    th.start()
-    path, ptxas = kernels.build(["-Xptxas", "-v"])
-    th.join()
-    if "lib" not in host:
-        raise RuntimeError("native host library did not build")
+    flags = ["-Xptxas", "-v"]
+    with ThreadPoolExecutor(3) as ex:
+        futs = dict(msm=ex.submit(kernels.build, flags),
+                    poseidon=ex.submit(hkern.build, flags),
+                    host=ex.submit(native_bridge.get_lib))
+        built = {k: f.result() for k, f in futs.items()}
+    ptxas = "".join(built[k][1] or "" for k in ("msm", "poseidon"))
     if ptxas:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write(ptxas)
-    log(1, f"built {os.path.basename(path)} in "
+    log(1, f"built {os.path.basename(built['msm'][0])} and "
+           f"{os.path.basename(built['poseidon'][0])} in "
            f"{time.perf_counter() - t0:.1f} s"
-           + (" (cached)" if ptxas is None else ""))
+           + ("" if ptxas else " (cached)"))
 
-    # ---- 2: kernels vs plain twins, small then at the slice's shapes
+    # ---- 2: kernels vs plain twins, small then at the slices' shapes
     t0 = time.perf_counter()
     errs = check_kernels(device)
     bad = {k: v for k, v in errs.items() if v}
@@ -553,15 +758,18 @@ def main(argv):
     if bad:
         raise AssertionError(f"kernels differ from plain twins: {bad}")
     times = time_kernels(device, clock_hz)
-    for (name, ncomp), t in times.items():
-        log(2, f"{name} {'G1' if ncomp == 1 else 'G2'} {t['shape']}: "
+    times.update(time_poseidon(device, clock_hz))
+    for (name, c), t in times.items():
+        label = (f"t={c}" if name == "poseidon" else "G1" if c == 1
+                 else "G2")
+        log(2, f"{name} {label} {t['shape']}: "
                f"max |err| {t['max_abs_err']}, {t['ms']:.4f} ms, plain "
                f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.5f} ms "
                f"({t['bound_by']})")
     bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
     if bad:
         raise AssertionError(
-            f"kernels differ from plain twins at the slice's shapes: {bad}")
+            f"kernels differ from plain twins at the slices' shapes: {bad}")
 
     # ---- 3: MSMs against the native oracle
     msm = phase_msm(device)
@@ -575,28 +783,46 @@ def main(argv):
     if not (info["verified"] and info["batch_ok"]):
         raise AssertionError("proof check failed")
 
-    # ---- 5: launches of the main path
-    missing = [k for k, v in info["launches"].items() if v <= 0]
-    log(5, f"launches {json.dumps(info['launches'])}")
+    # ---- 6: the depth-16 Merkle tree through K7
+    merkle = phase_merkle(device, clock_hz)
+    log(6, "merkle " + json.dumps(merkle))
+    if not merkle["ok"]:
+        raise AssertionError("Merkle tree check failed")
+
+    # ---- 7: hash2 chain throughput
+    chain = phase_chain(device, clock_hz)
+    log(7, "chain " + json.dumps(chain))
+    if not chain["ok"]:
+        raise AssertionError("hash chain differs from the host oracle")
+
+    # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7)
+    launches = dict(info["launches"], poseidon=merkle["launches"])
+    missing = [k for k, v in launches.items() if v <= 0]
+    log(5, f"launches {json.dumps(launches)}")
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
-    max_err = {}              # over both checks, Fp and Fp2
+    max_err = {}              # over every check, Fp and Fp2, every t
     for (name, _, _), e in errs.items():
         max_err[name] = max(max_err.get(name, 0), e)
     for (name, _), t in times.items():
         max_err[name] = max(max_err[name], t["max_abs_err"])
+    max_err["poseidon"] = max(max_err["poseidon"], merkle["max_abs_err"])
+    # the row of each kernel: G1 for K1-K6, hash2 (the tree's width) for K7
+    rows = {name: times[(name, 3 if name == "poseidon" else 1)]
+            for name in REPLACES}
     line = {"kernels": [dict(
-        name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-        launches=info["launches"][name], max_abs_err=max_err[name],
-        ms=times[(name, 1)]["ms"], plain_ms=times[(name, 1)]["plain_ms"],
-        bound_ms=times[(name, 1)]["bound_ms"],
-        bound_by=times[(name, 1)]["bound_by"], library_ms=None)
+        name=name, route="cuda", source=SOURCES[name],
+        replaces=REPLACES[name], launches=launches[name],
+        max_abs_err=max_err[name], ms=rows[name]["ms"],
+        plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
+        bound_by=rows[name]["bound_by"], library_ms=None)
         for name in REPLACES]}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=line["kernels"], times={
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
-            prove=info), f, indent=1, default=str)
+            prove=info, merkle=merkle, chain=chain), f, indent=1,
+            default=str)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

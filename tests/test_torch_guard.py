@@ -9,13 +9,14 @@ import re
 import pytest
 import torch
 
-from tpu_zkpool_torch.fields.fctx import FP
+from tpu_zkpool_torch.fields.fctx import FP, FR
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tpu_zkpool_torch")
 
 
 def _port_sources():
+    """chip_smoke.py and every module of the port, found by walking it."""
     yield os.path.join(ROOT, "chip_smoke.py")
     for d, _, files in os.walk(PKG):
         for f in files:
@@ -36,6 +37,10 @@ def _imported(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = list(_port_sources())
     assert len(files) > 10
+    names = {os.path.relpath(f, PKG) for f in files}
+    assert {"cuda_build.py", os.path.join("hash", "poseidon.py"),
+            os.path.join("hash", "kernels.py"),
+            os.path.join("merkle", "tree.py")} <= names
     for path in files:
         for mod in _imported(path):
             top = mod.split(".")[0]
@@ -58,19 +63,40 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_hash_and_merkle_entry_points_raise_without_cuda(monkeypatch):
+    from tpu_zkpool_torch.hash import poseidon
+    from tpu_zkpool_torch.merkle import MerkleTree
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = poseidon._mont_tables(3)
+    for call in (MerkleTree, lambda: poseidon.hash_ints([1], [2]),
+                 lambda: poseidon.load_tables(arrays)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert MerkleTree(device="cpu").device.type == "cpu"
+    assert list(poseidon.hash_ints([1], [2], device="cpu")) == [
+        7853200120776062878684798364095072458815029376092732009249414926327459813530]
+    assert poseidon.load_tables(arrays, device="cpu").m.device.type == "cpu"
+
+
 def test_cuda_field_constants_are_bn254():
     with open(os.path.join(PKG, "csrc", "field.cuh")) as f:
         src = f.read()
 
     def words(name):
-        body = re.search(name + r"\[8\] = \{([^}]*)\}", src).group(1)
+        body = re.search(r"\b" + name + r"\[8\] = \{([^}]*)\}", src).group(1)
         ws = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
         return sum(w << (32 * i) for i, w in enumerate(ws))
 
+    def n0(name):
+        return int(re.search(r"\b" + name + r" = (0x[0-9a-f]+)u", src).group(1),
+                   16)
+
     assert words("kP") == FP.modulus
     assert words("kR1") == FP.r_mod_p
-    n0 = int(re.search(r"kN0 = (0x[0-9a-f]+)u", src).group(1), 16)
-    assert n0 == FP.n0_32 == (-pow(FP.modulus, -1, 1 << 32)) % (1 << 32)
+    assert n0("kN0") == FP.n0_32 == (-pow(FP.modulus, -1, 1 << 32)) % (1 << 32)
+    assert words("kFrP") == FR.modulus
+    assert words("kFrR1") == FR.r_mod_p
+    assert n0("kFrN0") == FR.n0_32 == 0xefffffff
 
 
 def test_kernel_wrappers_reject_bad_inputs():
@@ -78,3 +104,18 @@ def test_kernel_wrappers_reject_bad_inputs():
     meta = torch.empty((4, 3, 1, 16), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.addn(meta, meta)
+
+
+def test_poseidon_wrapper_rejects_bad_inputs():
+    from tpu_zkpool_torch.hash import kernels, poseidon
+    meta = torch.empty((4, 2, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.hash_tiles(meta, 3)
+    with pytest.raises(ValueError, match="not t = 2"):
+        kernels.hash_tiles(meta[:, :1], 2)
+    # a width that does not match the rows raises on the CPU as on the card
+    with pytest.raises(ValueError, match=r"want \(B, 4, 16\)"):
+        kernels.hash_tiles(torch.zeros((4, 2, 16), dtype=torch.int64), 5)
+    with pytest.raises(ValueError, match="not t = 6"):
+        poseidon.hash_n(torch.empty((4, 5, 16), dtype=torch.int64,
+                                    device="meta"))
