@@ -2,18 +2,19 @@
 """Drive the PyTorch/CUDA port (``tpu_zkpool_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; exits non-zero on a failure
-    python3 chip_smoke.py --profile  # also trace one warm proof (torch.profiler)
+    python3 chip_smoke.py --profile  # also trace one warm proof of each path
     python3 chip_smoke.py --out DIR  # details directory (default chip_smoke_out/)
 
 Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
-  1 build    nvcc builds the grid-MSM kernels and the Poseidon kernel, g++
-             the native host library, all three started together;
-  2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), and K7 for t = 3,
-             4, 5, against its plain torch twin on the card (equal limb for
-             limb): every mode on small inputs with the special cases, then
-             at the withdraw proof's and the Merkle tree's shapes, timed
-             beside the twin;
+  1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel and the
+             affine-tree kernel, g++ the native host library, all four
+             started together;
+  2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), K7 for t = 3, 4,
+             5, and K8 complete and incomplete, against its plain torch twin
+             on the card (equal limb for limb): every mode on small inputs
+             with the special cases, then K1-K7 at the withdraw proof's and
+             the Merkle tree's shapes, timed beside the twin;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
@@ -29,8 +30,16 @@ Phases, one line each:
   7 chain    bench.py's Poseidon throughput shape: a hash2 chain, batch 2^15
              x 4, warm best of 3, in hashes/s, sampled outputs against the
              host oracle;
+  8 tree     ``tree=True``: K8 at the prover's level 0 (20 x 8,192 pairs)
+             against its twin, timed beside it and its bound, then alone at
+             each of the leg's 14 level widths; phase 3's 2^18 G1 MSM and a
+             2^14 MSM with all-equal scalars against the native oracle;
+             phase 4's key with tree=True: one cold and three warm proofs,
+             verified, a tampered input rejected, the seed-7 proof equal to
+             phase 4's, per-phase times, K8 launches per proof;
   5 launches every kernel's launch count on its main path, K1-K6 during
-             phase 4 and K7 during phase 6 (must be > 0); it runs last.
+             phase 4, K7 during phase 6 and K8 during phase 8's proofs (must
+             be > 0); it runs last.
 Then the "kernels" JSON line, the card line, and the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
 ``tpu_zkpool_torch``: without either it exits non-zero and prints no
@@ -59,7 +68,8 @@ from tpu_zkpool_torch.hash import poseidon
 from tpu_zkpool_torch.hash.poseidon_params import N_ROUNDS_F, N_ROUNDS_P
 from tpu_zkpool_torch.hash.poseidon_params import poseidon_hash_ref
 from tpu_zkpool_torch.merkle import MerkleTree, build_levels
-from tpu_zkpool_torch.msm import grid, kernels
+from tpu_zkpool_torch.msm import affine_tree, grid, kernels
+from tpu_zkpool_torch.msm import tree_kernels as tkern
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
 
@@ -97,9 +107,11 @@ REPLACES = {
     "scale_add": "tpu_zkpool/msm/grid.py:579",
     "horner": "tpu_zkpool/msm/grid.py:615",
     "poseidon": "tpu_zkpool/hash/poseidon_pallas.py:206",
+    "tree_level": "tpu_zkpool/msm/affine_tree.py:346",
 }
 SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
 SOURCES["poseidon"] = "tpu_zkpool_torch/csrc/poseidon.cu"
+SOURCES["tree_level"] = "tpu_zkpool_torch/csrc/affine_tree.cu"
 
 
 def log(phase, msg):
@@ -242,10 +254,32 @@ def kernel_cases(inp):
     ]
 
 
-def check_kernels(device, lanes=1024, k=4, L=16, W=4, B=256):
-    """Every kernel mode, Fp and Fp2, and K7 for t = 3, 4, 5 at batch B,
-    against its plain twin on ``device``. Returns {(name, ncomp or t,
-    variant): max |kernel - plain| over the limbs}."""
+def tree_pairs(M, device, seed=8):
+    """M pairs for K8: affine Montgomery rows L, R int64[M, 32] (x limbs,
+    then y limbs) and flags int64[M] (1 = L is infinity, 2 = R is). In every
+    block of 16 pairs: P = Q, P = -Q, INF_L, INF_R, both, x equal with an
+    unrelated y, and P = Q or P = -Q under an INF bit; the rest random."""
+    rng = random.Random(seed)
+    pts = _points(1, 2 * M, seed)
+    Lp, Rp, fl = pts[:M], pts[M:], [0] * M
+    for i in range(0, M - 9, 16):
+        Rp[i + 1] = Lp[i + 1]                               # P = Q
+        Rp[i + 2] = _neg(1, Lp[i + 2])                      # P = -Q
+        fl[i + 3], fl[i + 4], fl[i + 5] = 1, 2, 3           # INF_L, INF_R, both
+        Rp[i + 6] = (Lp[i + 6][0], rng.randrange(FP_MOD))   # x equal only
+        Rp[i + 7], fl[i + 7] = Lp[i + 7], 1
+        Rp[i + 8], fl[i + 8] = _neg(1, Lp[i + 8]), 2
+        Rp[i + 9], fl[i + 9] = Lp[i + 9], 3
+    rows = [torch.as_tensor(FP.to_mont([[x, y] for x, y in side]))
+            .reshape(M, 32).to(device) for side in (Lp, Rp)]
+    return rows[0], rows[1], torch.tensor(fl, device=device)
+
+
+def check_kernels(device, lanes=1024, k=4, L=16, W=4, B=256, pairs=4096):
+    """Every kernel mode, Fp and Fp2, K7 for t = 3, 4, 5 at batch B, and K8
+    in both modes on ``pairs`` planted pairs, against its plain twin on
+    ``device``. Returns {(name, ncomp or t, variant): max |kernel - plain|
+    over the limbs and flags}."""
     errs = {}
     for ncomp in (1, 2):
         inp = kernel_inputs(ncomp, device, lanes, k, L, W)
@@ -261,6 +295,14 @@ def check_kernels(device, lanes=1024, k=4, L=16, W=4, B=256):
         if got.is_cuda:
             torch.cuda.synchronize()
         errs[("poseidon", t, "special")] = int((got - want).abs().max().item())
+    Lr, Rr, fl = tree_pairs(pairs, device)
+    for complete in (True, False):
+        got = tkern.tree_level(Lr, Rr, fl, complete)
+        want = affine_tree.tree_level_plain(Lr, Rr, fl, complete)
+        if got[0].is_cuda:
+            torch.cuda.synchronize()
+        errs[("tree_level", 1, "complete" if complete else "incomplete")] = \
+            max(int((g - w).abs().max().item()) for g, w in zip(got, want))
     return errs
 
 
@@ -456,7 +498,8 @@ def time_kernels(device, clock_hz):
 
 def phase_msm(device):
     """G1 MSM at 2^18 (two 2^17 slices folded through K4) and G2 at 2^14,
-    against the native Pippenger oracle."""
+    against the native Pippenger oracle. Returns (results, the G1 inputs:
+    affine ints, scalars, device points and limbs, the oracle's point)."""
     out = {}
     for ncomp, log2n, distinct in ((1, 18, 1 << 14), (2, 14, 1 << 12)):
         n = 1 << log2n
@@ -486,7 +529,9 @@ def phase_msm(device):
         pairs = [(k, p) for k, p in zip(ks, pts) if p is not None]
         want = oracle([k for k, _ in pairs], [p for _, p in pairs])
         out[ncomp] = dict(n=n, warm_ms=warm, ok=got == want)
-    return out
+        if ncomp == 1:
+            g1 = dict(pts=pts, ks=ks, pts_dev=pts_dev, limbs=limbs, want=want)
+    return out, g1
 
 
 def phase_merkle(device, clock_hz, log2n=16, inserts=256, samples=64):
@@ -591,6 +636,112 @@ def phase_chain(device, clock_hz, batch=1 << 15, iters=4, samples=16):
                 hashes_per_s=batch * iters / min(times),
                 bound_ms=poseidon_bound(3, batch * iters, clock_hz)[0],
                 ok=bool(ok))
+
+
+# ------------------------------------------------------- affine tree K8
+
+def tree_bound(L, R, fl, complete, clock_hz):
+    """(bound ms, bound_by) of one K8 call: per pair 6 Fp products (3 of
+    batch inversion, lambda, lambda^2, lambda (xL - x3)) and one more per
+    finite doubling pair (complete mode), against L, R, fl read once and the
+    rows and flags written once (784 B a pair of int64 limbs). The one
+    inversion per launch is left out."""
+    M = L.shape[0]
+    dbl = int(((L == R).all(1) & (fl == 0)).sum().item()) if complete else 0
+    ops_s = (6 * M + dbl) * MADDS_PER_FP_MUL / (INT32_LANES * clock_hz)
+    bytes_s = M * (3 * 32 * 8 + 2 * 8) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def tree_widths(n=1 << 14, c=13, W=20):
+    """K8's pair count per level in one withdraw-scale G1 leg: W windows x
+    tree_plan's bound (20 x 8,192 ... 20 x 2 for 16,384 points, c = 13)."""
+    return [W * p for p in affine_tree.tree_plan(n, 1 << (c - 1))[1]]
+
+
+def time_tree(device, clock_hz, pool_n=4096, seed=91):
+    """K8 (complete mode, as the prover runs it) at the prover's level 0:
+    its output against the plain twin's on the same inputs, the ms of both
+    and the bound; then K8 alone at each level's width (CUDA events)."""
+    widths = tree_widths()
+    M = widths[0]
+    pool = torch.as_tensor(FP.to_mont(_points(1, pool_n, seed))) \
+        .reshape(pool_n, 32).to(device)
+    i = torch.arange(M, device=device)
+    L = pool[i % pool_n].contiguous()
+    R = pool[(7 * i + 1) % pool_n].contiguous()        # never R = L
+    fl = torch.where(i % 8 == 7, 3, 0)                 # a pad slot in 8
+    ms, got = _cuda_ms(lambda: tkern.tree_level(L, R, fl, True), 50)
+    plain_ms, want = _cuda_ms(
+        lambda: affine_tree.tree_level_plain(L, R, fl, True), 1, warm=False)
+    bound_ms, bound_by = tree_bound(L, R, fl, True, clock_hz)
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               shape=M, max_abs_err=max(int((g - w).abs().max().item())
+                                        for g, w in zip(got, want)))
+    res["level_ms"] = {m: _cuda_ms(lambda: tkern.tree_level(
+        L[:m], R[:m], fl[:m], True), 20)[0] for m in widths}
+    return res
+
+
+def phase_tree(device, g1, ctx, profile=False):
+    """``tree=True``: the 2^18 G1 MSM of phase 3 and a 2^14 MSM with
+    all-equal scalars against the native oracle, then proofs of phase 4's
+    circuit with DeviceProvingKey(pk, tree=True): verified, a tampered
+    input rejected, seed 7 equal to phase 4's proof; K8's launches;
+    ``profile`` traces one warm tree proof."""
+    info = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    msm = lambda: grid.msm_grid_g1(g1["pts_dev"], g1["limbs"], tree=True)
+    cold_ms, _ = timed(msm)
+    warm_ms, res = timed(msm)
+    info["msm18"] = dict(cold_ms=cold_ms, warm_ms=warm_ms, ok=tp._g1_affine(
+        tuple(t.cpu() for t in res)) == g1["want"])
+    n = 1 << 14
+    k = random.Random(18).randrange(1, FR_MOD)
+    pts_dev = tuple(t[:n].contiguous() for t in g1["pts_dev"])
+    limbs = torch.as_tensor(ints_to_limbs([k] * n), device=device)
+    warm_ms, res = timed(lambda: grid.msm_grid_g1(pts_dev, limbs, tree=True))
+    live = [p for p in g1["pts"][:n] if p is not None]
+    info["msm14_equal"] = dict(warm_ms=warm_ms, ok=tp._g1_affine(
+        tuple(t.cpu() for t in res)) == native_bridge.g1_msm([k] * len(live),
+                                                             live))
+
+    r1cs, w, vk = ctx["r1cs"], ctx["w"], ctx["vk"]
+    pub = w[1:r1cs.num_public]
+    dpk = tp.DeviceProvingKey(ctx["pk"], tree=True, device=device)
+    tkern.reset_launches()            # the tree path starts here
+    t0 = time.perf_counter()
+    proof = tp.prove(dpk, r1cs, w, seed=7)
+    info["cold_s"] = time.perf_counter() - t0
+    ok = verify(vk, proof, pub)
+    ok &= not verify(vk, proof, [pub[0] + 1] + pub[1:])
+    warm = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        p = tp.prove(dpk, r1cs, w, seed=8 + i)
+        warm.append(time.perf_counter() - t0)
+        ok &= verify(vk, p, pub)
+    launches = tkern.LAUNCHES["tree_level"]   # the tree path ends here
+    phases = {}
+    tp.prove(dpk, r1cs, w, seed=11, timings=phases)
+    if profile:
+        info["profile"] = profile_prove(lambda: tp.prove(dpk, r1cs, w,
+                                                         seed=12))
+    info.update(verified=bool(ok), equals_prefix=proof == ctx["proof"],
+                warm_s=warm, proofs_per_s=len(warm) / sum(warm),
+                phases_s=phases, launches=launches,
+                launches_per_proof=launches / 4)
+    info["ok"] = (info["msm18"]["ok"] and info["msm14_equal"]["ok"]
+                  and info["verified"] and info["equals_prefix"])
+    return info
 
 
 def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
@@ -711,7 +862,7 @@ def phase_prove(device, profile=False):
                 warm_s=warm, proofs_per_s=len(warm) / sum(warm),
                 phases_s=phases, launches=launches,
                 launches_per_proof=per_proof)
-    return info
+    return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof)
 
 
 def main(argv):
@@ -735,18 +886,17 @@ def main(argv):
     # ---- 1: build (one nvcc per kernel source and g++, started together)
     t0 = time.perf_counter()
     flags = ["-Xptxas", "-v"]
-    with ThreadPoolExecutor(3) as ex:
-        futs = dict(msm=ex.submit(kernels.build, flags),
-                    poseidon=ex.submit(hkern.build, flags),
-                    host=ex.submit(native_bridge.get_lib))
+    cus = dict(msm=kernels, poseidon=hkern, tree=tkern)
+    with ThreadPoolExecutor(len(cus) + 1) as ex:
+        futs = {k: ex.submit(m.build, flags) for k, m in cus.items()}
+        futs["host"] = ex.submit(native_bridge.get_lib)
         built = {k: f.result() for k, f in futs.items()}
-    ptxas = "".join(built[k][1] or "" for k in ("msm", "poseidon"))
+    ptxas = "".join(built[k][1] or "" for k in cus)
     if ptxas:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write(ptxas)
-    log(1, f"built {os.path.basename(built['msm'][0])} and "
-           f"{os.path.basename(built['poseidon'][0])} in "
-           f"{time.perf_counter() - t0:.1f} s"
+    log(1, "built " + ", ".join(os.path.basename(built[k][0]) for k in cus)
+           + f" in {time.perf_counter() - t0:.1f} s"
            + ("" if ptxas else " (cached)"))
 
     # ---- 2: kernels vs plain twins, small then at the slices' shapes
@@ -772,13 +922,13 @@ def main(argv):
             f"kernels differ from plain twins at the slices' shapes: {bad}")
 
     # ---- 3: MSMs against the native oracle
-    msm = phase_msm(device)
+    msm, g1 = phase_msm(device)
     log(3, "msm " + json.dumps(msm))
     if not all(v["ok"] for v in msm.values()):
         raise AssertionError("MSM differs from the native oracle")
 
     # ---- 4: prove at withdraw scale
-    info = phase_prove(device, profile="--profile" in argv)
+    info, ctx = phase_prove(device, profile="--profile" in argv)
     log(4, "prove " + json.dumps(info))
     if not (info["verified"] and info["batch_ok"]):
         raise AssertionError("proof check failed")
@@ -795,8 +945,23 @@ def main(argv):
     if not chain["ok"]:
         raise AssertionError("hash chain differs from the host oracle")
 
-    # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7)
-    launches = dict(info["launches"], poseidon=merkle["launches"])
+    # ---- 8: the affine bucket tree through K8
+    t = times[("tree_level", 1)] = time_tree(device, clock_hz)
+    log(8, f"tree_level G1 {t['shape']}: max |err| {t['max_abs_err']}, "
+           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, bound "
+           f"{t['bound_ms']:.5f} ms ({t['bound_by']}); per level "
+           + json.dumps(t["level_ms"]))
+    if t["max_abs_err"]:
+        raise AssertionError("K8 differs from its plain twin at level 0")
+    tree = phase_tree(device, g1, ctx, profile="--profile" in argv)
+    log(8, "tree " + json.dumps(tree))
+    if not tree["ok"]:
+        raise AssertionError("tree=True MSM or proof check failed")
+
+    # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
+    # tree proofs: K8)
+    launches = dict(info["launches"], poseidon=merkle["launches"],
+                    tree_level=tree["launches"])
     missing = [k for k, v in launches.items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}")
     if missing:
@@ -808,7 +973,8 @@ def main(argv):
     for (name, _), t in times.items():
         max_err[name] = max(max_err[name], t["max_abs_err"])
     max_err["poseidon"] = max(max_err["poseidon"], merkle["max_abs_err"])
-    # the row of each kernel: G1 for K1-K6, hash2 (the tree's width) for K7
+    # the row of each kernel: G1 for K1-K6, hash2 (the Merkle tree's width)
+    # for K7, the prover's level 0 for K8
     rows = {name: times[(name, 3 if name == "poseidon" else 1)]
             for name in REPLACES}
     line = {"kernels": [dict(
@@ -821,7 +987,7 @@ def main(argv):
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=line["kernels"], times={
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
-            prove=info, merkle=merkle, chain=chain), f, indent=1,
+            prove=info, merkle=merkle, chain=chain, tree=tree), f, indent=1,
             default=str)
     print(json.dumps(line))
     print(card)

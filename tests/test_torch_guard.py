@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = {os.path.relpath(f, PKG) for f in files}
     assert {"cuda_build.py", os.path.join("hash", "poseidon.py"),
             os.path.join("hash", "kernels.py"),
-            os.path.join("merkle", "tree.py")} <= names
+            os.path.join("merkle", "tree.py"),
+            os.path.join("msm", "affine_tree.py"),
+            os.path.join("msm", "tree_kernels.py")} <= names
     for path in files:
         for mod in _imported(path):
             top = mod.split(".")[0]
@@ -104,6 +106,14 @@ def test_kernel_wrappers_reject_bad_inputs():
     meta = torch.empty((4, 3, 1, 16), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.addn(meta, meta)
+
+
+def test_tree_level_wrapper_rejects_bad_inputs():
+    from tpu_zkpool_torch.msm import tree_kernels
+    rows = torch.empty((4, 32), dtype=torch.int64, device="meta")
+    fl = torch.empty((4,), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tree_kernels.tree_level(rows, rows, fl, True)
 
 
 def test_poseidon_wrapper_rejects_bad_inputs():

@@ -1,5 +1,5 @@
-"""The CUDA kernels (grid MSM K1-K6, Poseidon K7) against their plain torch
-twins, on the card.
+"""The CUDA kernels (grid MSM K1-K6, Poseidon K7, affine tree K8) against
+their plain torch twins, on the card.
 
 Marked ``cuda``: it needs an NVIDIA GPU with the CUDA toolkit (nvcc) and
 skips elsewhere. Run it there with
@@ -17,6 +17,7 @@ def test_kernels_equal_plain_twins():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     import chip_smoke
     errs = chip_smoke.check_kernels(torch.device("cuda", 0), lanes=256, k=3,
-                                    L=4, W=3, B=40)
-    assert len(errs) == 18 + 3          # 9 modes x (Fp, Fp2), K7 x 3 widths
+                                    L=4, W=3, B=40, pairs=1500)
+    # 9 modes x (Fp, Fp2), K7 x 3 widths, K8 complete and incomplete
+    assert len(errs) == 18 + 3 + 2
     assert not {k: v for k, v in errs.items() if v}

@@ -291,8 +291,3 @@ def test_msm_grid_vs_native(ncomp, n, c, nbits, lanes, sub_log2):
     pairs = [(k, p) for k, p in zip(ks, pts) if p is not None and k]
     oracle = jnb.g1_msm if ncomp == 1 else jnb.g2_msm
     assert got == oracle([k for k, _ in pairs], [p for _, p in pairs])
-
-
-def test_tree_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.msm_grid_g1((None, None, None), None, tree=True)

@@ -2,7 +2,8 @@
 ``tpu_zkpool/groth16/prove_tpu.py``).
 
 The four G1 legs (A, B1, K, H) and the G2 leg (B2) run through the grid
-Pippenger MSM (``msm.grid``, CUDA kernels K1-K6); H(X) = (UV - W)/t runs
+Pippenger MSM (``msm.grid``, CUDA kernels K1-K6, and K8 for the G1 legs
+with ``tree=True``); H(X) = (UV - W)/t runs
 through the Fr NTT (``groth16.domain``). The U/V/W row evaluations are host
 work, and the final combine into (A, B2, C) is host bigint code. A proof
 equals ``tpu_zkpool.refimpl.groth16_ref.prove`` on the same inputs and seed.
@@ -107,15 +108,17 @@ class DeviceProvingKey:
     input-point scan: safe for large pseudorandom query sets, not for tiny
     or structured circuits, so it defaults to complete. Small G1 legs are
     unified to one padded size; ``pad_to`` forces every leg (G2 included)
-    to one size. ``lanes`` is the MSM chunk count (a multiple of 32)."""
+    to one size. ``lanes`` is the MSM chunk count (a multiple of 32).
+    ``tree`` runs the four G1 legs through the batched-affine bucket tree
+    (kernel K8); the G2 leg keeps the prefix path."""
 
     def __init__(self, pk: g16.ProvingKey, c: int = 13,
                  complete: bool = True, tree: bool = False,
                  pad_to: int = 0, lanes: int = TILE_N, device=None):
-        grid._no_tree(tree)
         self.pk = pk
         self.c = c
         self.complete = complete
+        self.tree = tree
         self.lanes = lanes
         self.device = resolve_device(device)
         npads = [_pad_up(len(q), lanes) for q in
@@ -143,7 +146,8 @@ class DeviceProvingKey:
 
     def _msm_g1(self, points_dev, npad, limbs):
         return msm_grid_g1(points_dev, limbs[:npad].contiguous(), c=self.c,
-                           lanes=self.lanes, complete=self.complete)
+                           lanes=self.lanes, complete=self.complete,
+                           tree=self.tree)
 
     def _msm_g2(self, limbs):
         return msm_grid_g2(self.b2_query, limbs[: self._nb2].contiguous(),

@@ -15,6 +15,10 @@ Pipeline per slice of points, the same as the JAX package's:
    ``wsum``, then K5, ``scale_add``),
 6. the Horner window combine (K6, ``horner``).
 
+With ``tree=True`` a G1 MSM replaces steps 3-4 by the batched-affine
+pairwise tree over each window's sorted segments (``msm/affine_tree.py``,
+kernel K8, ``tree_level``); G2 keeps the prefix path.
+
 Each of K1-K6 is a CUDA kernel (``csrc/msm_grid.cu``, wrappers in
 ``msm/kernels.py``) with a plain PyTorch twin here (``*_plain``). A CPU tensor
 goes to the twin, a CUDA tensor to the kernel. Sorting, the bucket histogram
@@ -42,7 +46,7 @@ from tpu_zkpool_torch.fields.fctx import FP
 from tpu_zkpool_torch.fields.limbs import NLIMB, WBITS
 # kernels imports this module for the plain twins; both only use each
 # other's names inside functions, so the import cycle is benign.
-from tpu_zkpool_torch.msm import kernels
+from tpu_zkpool_torch.msm import affine_tree, kernels
 
 TILE_N = 1024      # default lanes: chunks per prefix scan
 SCALAR_BITS = 255  # BN254 Fr < 2^254; one guard bit for the signed recode
@@ -384,10 +388,12 @@ def _prefix_chunks(rows, k):
 
 
 def window_sums(rows, scalar_limbs, c, lanes=TILE_N, complete=True,
-                sub_log2=SUB_LOG2, nbits=SCALAR_BITS):
+                sub_log2=SUB_LOG2, nbits=SCALAR_BITS, tree=False):
     """Per-window Pippenger sums S_w (W, 3, ncomp, 16): everything but the
     Horner combine. Point sets larger than 2^``sub_log2`` (and a multiple
-    of it) run slice by slice, the window sums folded by Jacobian adds."""
+    of it) run slice by slice, the window sums folded by Jacobian adds.
+    ``tree`` accumulates G1 buckets through the affine tree (G2 keeps the
+    prefix path, as in the JAX package)."""
     N = rows.shape[0]
     SUB = 1 << sub_log2
     if N > SUB and N % SUB == 0:
@@ -395,22 +401,20 @@ def window_sums(rows, scalar_limbs, c, lanes=TILE_N, complete=True,
         acc = rows.new_zeros((W, 3) + rows.shape[2:])
         for s in range(0, N, SUB):
             Sw = _window_sums_one(rows[s:s + SUB], scalar_limbs[s:s + SUB],
-                                  c, lanes, complete, nbits)
+                                  c, lanes, complete, nbits, tree)
             acc = kernels.addn(acc, Sw)
         return acc
-    return _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits)
+    return _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits,
+                            tree)
 
 
-def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits):
+def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     N, _, ncomp, _ = rows.shape
     if N % lanes or lanes % 32:
         raise ValueError(f"{N} points in {lanes} lanes: lanes must be a "
                          "multiple of 32 that divides the point count")
     k = N // lanes
     W = n_windows(c, nbits)
-    if W > 32:
-        raise ValueError(f"c={c} gives {W} windows of {nbits} bits; the "
-                         "level-1 cross-chunk prefix holds at most 32")
     half = 1 << (c - 1)
     C, L = _reduction_shape(half)
     dev = rows.device
@@ -431,6 +435,23 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits):
                | (neg.long() << 31))                   # (N, W)
     skeys, perm = torch.sort(bucket, dim=0, stable=True)
     svals = torch.gather(payload, 0, perm)
+
+    if tree and ncomp == 1:
+        # the batched-affine pairwise tree over the sorted bucket segments
+        # (msm/affine_tree.py, kernel K8) replaces the chunk prefix and the
+        # boundary differences below. Rows (W, N, 32) per window: x, then y
+        # negated where the sign bit is set.
+        xyn = torch.cat([xyf[:, :NLIMB], FP.neg(xyf[:, NLIMB:])], dim=1)
+        sv_t = svals.T
+        order = sv_t & 0x7FFFFFFF
+        neg_w = (sv_t >> 31) != 0
+        pts = torch.where(neg_w[..., None], xyn[order], xyf[order])
+        B = affine_tree.bucket_sums_tree(pts, skeys.T.contiguous(), half,
+                                         complete)
+        return _reduce_buckets(B, W, half, C, L)
+    if W > 32:
+        raise ValueError(f"c={c} gives {W} windows of {nbits} bits; the "
+                         "level-1 cross-chunk prefix holds at most 32")
     # step-major payload: row j * lanes + l = sorted position l * k + j
     svals_t = svals.reshape(lanes, k, W).permute(2, 1, 0)   # (W, k, lanes)
 
@@ -514,19 +535,13 @@ def _reduce_buckets(B, W, half, C, L):
 # on every plain field product. The prover's entry points do the same.
 @torch.inference_mode()
 def msm_rows(rows, scalar_limbs, c=13, lanes=TILE_N, complete=True,
-             nbits=SCALAR_BITS, sub_log2=SUB_LOG2):
+             nbits=SCALAR_BITS, sub_log2=SUB_LOG2, tree=False):
     """rows int64[N, 3, ncomp, 16] Jacobian Montgomery points with Z in
     {R, 0}; scalar_limbs int64[N, 16] plain. N must be a multiple of
     ``lanes``. Returns the MSM as one point row (3, ncomp, 16)."""
-    S = window_sums(rows, scalar_limbs, c, lanes, complete, sub_log2, nbits)
+    S = window_sums(rows, scalar_limbs, c, lanes, complete, sub_log2, nbits,
+                    tree)
     return kernels.horner(S, c)
-
-
-def _no_tree(tree):
-    if tree:
-        raise NotImplementedError(
-            "tree=True (the batched-affine bucket tree) is not ported yet; "
-            "see ROADMAP.md, queue A, the affine tree")
 
 
 def msm_grid_g1(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
@@ -536,11 +551,13 @@ def msm_grid_g1(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
     Montgomery Jacobian with Z in {R, 0}; scalar_limbs int64[N, 16] plain;
     N a multiple of ``lanes``. Runs on the points' device. Returns (X, Y, Z)
     int64[16] each. ``complete=False`` (prover mode) drops the doubling
-    branch of the input-point scan only."""
-    _no_tree(tree)
+    branch of the input-point scan (or, with ``tree``, of the pair adds).
+    ``tree`` accumulates the buckets through the batched-affine pairwise
+    tree (``msm/affine_tree.py``, kernel K8) instead of the prefix scan."""
     X, Y, Z = points
     rows = torch.stack([X, Y, Z], 1)[:, :, None, :]
-    out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2)
+    out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2,
+                   tree)
     return out[0, 0], out[1, 0], out[2, 0]
 
 
@@ -548,9 +565,11 @@ def msm_grid_g2(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
                 complete: bool = True, nbits: int = SCALAR_BITS,
                 sub_log2: int = SUB_LOG2, tree: bool = False):
     """Grid-accumulator MSM over G2: points (X, Y, Z) int64[N, 2, 16] (Fp2
-    coordinates). Returns (X, Y, Z) int64[2, 16] each."""
-    _no_tree(tree)
+    coordinates). Returns (X, Y, Z) int64[2, 16] each. ``tree`` is taken as
+    in the JAX package and changes nothing: the affine tree is G1 only, so
+    G2 runs the prefix path."""
     X, Y, Z = points
     rows = torch.stack([X, Y, Z], 1)
-    out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2)
+    out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2,
+                   tree)
     return out[0], out[1], out[2]
