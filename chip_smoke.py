@@ -7,9 +7,9 @@
 
 Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
-  1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel and the
-             affine-tree kernel, g++ the native host library, all four
-             started together;
+  1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel, the
+             affine-tree kernel and the NTT exchange kernel, g++ the native
+             host library, all five started together;
   2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), K7 for t = 3, 4,
              5, and K8 complete and incomplete, against its plain torch twin
              on the card (equal limb for limb): every mode on small inputs
@@ -37,9 +37,22 @@ Phases, one line each:
              phase 4's key with tree=True: one cold and three warm proofs,
              verified, a tampered input rejected, the seed-7 proof equal to
              phase 4's, per-phase times, K8 launches per proof;
+  9 mesh     the sharded paths on D virtual shards of one card
+             (``Mesh.virtual``; the log says how many cards torch sees): K9
+             against its twin (u side and v side, random tw and tw = R mod
+             q, the edge values 0, 1, q - 1, 1, 2, 3 and 5 chunks through
+             the two receive slots), then timed at the audit ring's shape
+             beside its twin and bound, a chunk launch and a whole stage;
+             the sharded negacyclic NTT (n = 1,024, 4,096 polynomials, D =
+             2, 4, 8, both exchanges) against the single-device NTT, its
+             inverse and four rows against the schoolbook, ms a product;
+             phase 3's 2^18 G1 MSM over dp = 2, 4, 8 and a (host 2, chip 4)
+             mesh, four 2^14-point legs on a (leg 4, pt 2) mesh, against
+             the native oracle; 2^16 leaves in 8 dp shards, subtrees through
+             K7 and one root combine, against build_levels;
   5 launches every kernel's launch count on its main path, K1-K6 during
-             phase 4, K7 during phase 6 and K8 during phase 8's proofs (must
-             be > 0); it runs last.
+             phase 4, K7 during phase 6, K8 during phase 8's proofs and K9
+             during phase 9's rdma products (must be > 0); it runs last.
 Then the "kernels" JSON line, the card line, and the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
 ``tpu_zkpool_torch``: without either it exits non-zero and prints no
@@ -59,6 +72,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from tpu_zkpool_torch import native_bridge
+from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
@@ -70,8 +84,15 @@ from tpu_zkpool_torch.hash.poseidon_params import poseidon_hash_ref
 from tpu_zkpool_torch.merkle import MerkleTree, build_levels
 from tpu_zkpool_torch.msm import affine_tree, grid, kernels
 from tpu_zkpool_torch.msm import tree_kernels as tkern
+from tpu_zkpool_torch.parallel import Mesh, ntt_rdma, ntt_sharded
+from tpu_zkpool_torch.parallel.merkle_sharded import root_sharded
+from tpu_zkpool_torch.parallel.msm_sharded import (msm_grid_sharded,
+                                                   msm_grid_sharded_2d)
+from tpu_zkpool_torch.parallel.prove_stages import msm_legs_sharded
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
+from tpu_zkpool_torch.refimpl import rlwe_ref
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
+from tpu_zkpool_torch.rlwe import ntt as rntt
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -108,10 +129,12 @@ REPLACES = {
     "horner": "tpu_zkpool/msm/grid.py:615",
     "poseidon": "tpu_zkpool/hash/poseidon_pallas.py:206",
     "tree_level": "tpu_zkpool/msm/affine_tree.py:346",
+    "exchange_butterfly": "tpu_zkpool/parallel/ntt_rdma.py:161",
 }
 SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
 SOURCES["poseidon"] = "tpu_zkpool_torch/csrc/poseidon.cu"
 SOURCES["tree_level"] = "tpu_zkpool_torch/csrc/affine_tree.cu"
+SOURCES["exchange_butterfly"] = "tpu_zkpool_torch/csrc/ntt_rdma.cu"
 
 
 def log(phase, msg):
@@ -396,6 +419,17 @@ def _cuda_ms(fn, reps, warm=True):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps, out
+
+
+def _host_ms(fn, reps=1):
+    """(mean ms of ``reps`` calls by the host clock, synchronized around
+    them; the last call's output)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
 
 
 def slice_shapes(ncomp):
@@ -691,24 +725,16 @@ def phase_tree(device, g1, ctx, profile=False):
     input rejected, seed 7 equal to phase 4's proof; K8's launches;
     ``profile`` traces one warm tree proof."""
     info = {}
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, out
-
     msm = lambda: grid.msm_grid_g1(g1["pts_dev"], g1["limbs"], tree=True)
-    cold_ms, _ = timed(msm)
-    warm_ms, res = timed(msm)
+    cold_ms, _ = _host_ms(msm)
+    warm_ms, res = _host_ms(msm)
     info["msm18"] = dict(cold_ms=cold_ms, warm_ms=warm_ms, ok=tp._g1_affine(
         tuple(t.cpu() for t in res)) == g1["want"])
     n = 1 << 14
     k = random.Random(18).randrange(1, FR_MOD)
     pts_dev = tuple(t[:n].contiguous() for t in g1["pts_dev"])
     limbs = torch.as_tensor(ints_to_limbs([k] * n), device=device)
-    warm_ms, res = timed(lambda: grid.msm_grid_g1(pts_dev, limbs, tree=True))
+    warm_ms, res = _host_ms(lambda: grid.msm_grid_g1(pts_dev, limbs, tree=True))
     live = [p for p in g1["pts"][:n] if p is not None]
     info["msm14_equal"] = dict(warm_ms=warm_ms, ok=tp._g1_affine(
         tuple(t.cpu() for t in res)) == native_bridge.g1_msm([k] * len(live),
@@ -742,6 +768,232 @@ def phase_tree(device, g1, ctx, profile=False):
     info["ok"] = (info["msm18"]["ok"] and info["msm14_equal"]["ok"]
                   and info["verified"] and info["equals_prefix"])
     return info
+
+
+# ------------------------------------------------- mesh: K9 and sharding
+
+def _max_err(got, want):
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def random_q(shape, device, seed):
+    """Seeded int32 values in [0, q) made on the device."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randint(0, rlweq.Q, tuple(shape), generator=g,
+                         device=device, dtype=torch.int32)
+
+
+def k9_bound(rows, S, u_side, clock_hz):
+    """(bound ms, bound_by) of one K9 launch on (rows, S): y, the receive
+    slot and out (4 B each an element) and tw once over the memory rate,
+    against 5 32-bit multiply-adds a v-side element (the 64-bit product, the
+    quotient word, m * q) over the INT32 rate."""
+    ops_s = (0 if u_side else 5 * rows * S) / (INT32_LANES * clock_hz)
+    bytes_s = (12 * rows * S + 4 * S) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s
+                                       else "bytes")
+
+
+def exchange_inputs(device, B, S, seed=90):
+    """Two shards int32[B, S] and a twiddle row, random, with the edge
+    values 0, 1 and q - 1 planted: whole rows of each, all nine pairs of
+    them in row 3, and in the first three twiddles; and tw = R mod q."""
+    q1 = rlweq.Q - 1
+    ys = [random_q((B, S), device, seed + i) for i in range(2)]
+    for y, vals in zip(ys, ((0, 1, q1), (q1, 0, q1))):
+        for r, v in enumerate(vals):
+            y[r] = v
+    edge = torch.tensor([0, 1, q1], dtype=torch.int32, device=device)
+    ys[0][3, :9] = edge.repeat_interleave(3)
+    ys[1][3, :9] = edge.repeat(3)
+    tw = random_q((S,), device, seed + 2)
+    tw[:3] = edge
+    one = torch.full((S,), rlweq.R_MOD_Q, dtype=torch.int32, device=device)
+    return ys, tw, one
+
+
+def check_exchange(device, B=40, S=256):
+    """K9 against its twin on the card: the kernel alone at u = 0 and 1
+    with random tw and tw = R mod q; then ``exchange_butterfly`` on a
+    2-slot virtual mesh at 1, 2, 3 and 5 chunks of rows (both receive slots
+    reused, the flow-control events waited on), each slot's output against
+    the twin of the whole-shard stage. Returns ({case: max |kernel -
+    twin|}, the exchanges' K9 launches)."""
+    ys, tw, one = exchange_inputs(device, B, S)
+    errs = {}
+    for u in (0, 1):
+        for name, t in (("tw", tw), ("R", one)):
+            got = ntt_rdma.butterfly(ys[0], ys[1], t, u)
+            want = ntt_rdma.butterfly_plain(ys[0], ys[1], t, u)
+            errs[("exchange_butterfly", 1, f"u={u} {name}")] = _max_err(
+                got, want)
+    mesh = Mesh.virtual((2,), ("sp",), device)
+    before = ntt_rdma.LAUNCHES["exchange_butterfly"]
+    for chunk in (B, 20, 16, 9):                  # 1, 2, 3 and 5 chunks
+        for u0 in (True, False):
+            u = [u0, not u0]
+            outs = ntt_rdma.exchange_butterfly(mesh, ys, [tw, one], u,
+                                               [1, 0], chunk)
+            torch.cuda.synchronize()
+            errs[("exchange_butterfly", 2, f"{-(-B // chunk)} chunks "
+                  f"u0={int(u0)}")] = max(_max_err(outs[d], (
+                      ntt_rdma.butterfly_plain(ys[d], ys[1 - d], [tw, one][d],
+                                               u[d]))) for d in (0, 1))
+    return errs, ntt_rdma.LAUNCHES["exchange_butterfly"] - before
+
+
+def time_exchange(device, clock_hz, n=rlwe_ref.N, B=4096, D=8, reps=50):
+    """K9 at phase 9's shape (the audit ring n over D shards, B
+    polynomials): one chunk launch of 512 x n/D words on the v side against
+    its twin and bound, by CUDA events around ``reps`` launches from Python
+    (``ms``) and around a CUDA graph of ``reps`` launches (``graph_ms``: the
+    device time without the host's enqueue gaps); then one whole exchange
+    stage over a D-slot virtual mesh, rdma (D x ceil(B / 512) copies and
+    launches) and ppermute (D whole-shard copies and launches), by the host
+    clock around ``reps`` stages."""
+    S = n // D
+    rows = min(ntt_rdma.CHUNK_ROWS, B)
+    y, o = random_q((rows, S), device, 96), random_q((rows, S), device, 97)
+    tw = random_q((S,), device, 98)
+    ms, got = _cuda_ms(lambda: ntt_rdma.butterfly(y, o, tw, False), reps)
+    plain_ms, want = _cuda_ms(
+        lambda: ntt_rdma.butterfly_plain(y, o, tw, False), reps)
+    bound_ms, bound_by = k9_bound(rows, S, False, clock_hz)
+    graph, buf = torch.cuda.CUDAGraph(), torch.empty_like(y)
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            ntt_rdma.butterfly(y, o, tw, False, out=buf)
+    graph_ms = _cuda_ms(graph.replay, 5)[0] / reps
+    res = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, shape=(rows, S),
+               max_abs_err=max(_max_err(got, want), _max_err(buf, want)),
+               D=D, B=B)
+    mesh = Mesh.virtual((D,), ("sp",), device)
+    ys = [random_q((B, S), device, 100 + d) for d in range(D)]
+    partners = [d ^ 1 for d in range(D)]
+    u = [d % 2 == 0 for d in range(D)]
+
+    def ppermute():
+        others = mesh.ppermute(ys, partners)
+        for s, yd, od, ud in zip(mesh.slots, ys, others, u):
+            with s.on():
+                ntt_rdma.butterfly(yd, od, tw, ud)
+
+    rdma = lambda: ntt_rdma.exchange_butterfly(mesh, ys, [tw] * D, u,
+                                               partners)
+    for name, fn in (("stage_rdma_ms", rdma), ("stage_ppermute_ms", ppermute)):
+        fn()
+        res[name] = _host_ms(fn, reps)[0]
+    res["stage_bound_ms"] = D * -(-B // rows) * k9_bound(rows, S, False,
+                                                         clock_hz)[0]
+    return res
+
+
+def phase_ntt(device, n=rlwe_ref.N, B=4096, reps=3, samples=4):
+    """The sharded negacyclic NTT at the audit ring (n = 1,024), B
+    polynomials a side, on D = 2, 4, 8 virtual shards with both exchanges:
+    forward equal to the single-device forward, the inverse round trip, the
+    product equal to the single-device product (so equal under both
+    exchanges), ``samples`` rows of it equal to the schoolbook; ms a product
+    (host clock, ``reps`` warm products) beside the single-device
+    product's, K9 launches a product."""
+    a, b = random_q((B, n), device, 110), random_q((B, n), device, 111)
+    f_ref = rntt.forward(a)
+    single_ms, prod_ref = _host_ms(lambda: rntt.negacyclic_mul(a, b), reps)
+    rows = random.Random(112).sample(range(B), samples)
+    school = all(rlwe_ref.negacyclic_mul(x, y, n) == p for x, y, p in zip(
+        a[rows].tolist(), b[rows].tolist(), prod_ref[rows].tolist()))
+    info = dict(n=n, batch=B, single_ms=single_ms,
+                single_polymuls_per_s=B / single_ms * 1e3,
+                schoolbook_ok=school, runs={}, rdma_launches=0)
+    ok = school
+    for D in (2, 4, 8):
+        mesh = Mesh.virtual((D,), ("sp",), device)
+        for ex in ntt_sharded.EXCHANGES:
+            f = ntt_sharded.forward_sharded(a, mesh, exchange=ex)
+            back = ntt_sharded.inverse_sharded(f, mesh, exchange=ex)
+            ntt_rdma.reset_launches()
+            p = ntt_sharded.negacyclic_mul_sharded(a, b, mesh, exchange=ex)
+            launches = ntt_rdma.LAUNCHES["exchange_butterfly"]
+            if ex == "rdma":
+                info["rdma_launches"] += launches
+            ms, p2 = _host_ms(lambda: ntt_sharded.negacyclic_mul_sharded(
+                a, b, mesh, exchange=ex), reps)
+            run = dict(forward_ok=torch.equal(f, f_ref),
+                       inverse_ok=torch.equal(back, a),
+                       mul_ok=torch.equal(p, prod_ref)
+                       and torch.equal(p2, prod_ref),
+                       launches_per_product=launches, ms=ms,
+                       polymuls_per_s=B / ms * 1e3)
+            ok &= run["forward_ok"] and run["inverse_ok"] and run["mul_ok"]
+            info["runs"][f"D={D} {ex}"] = run
+    info["ok"] = bool(ok and info["rdma_launches"] > 0)
+    return info
+
+
+def _g1_point(row):
+    """(3, 1, 16) Jacobian row on the card -> affine ints (None = O)."""
+    return tp._g1_affine(tuple(row[i, 0].cpu() for i in range(3)))
+
+
+def phase_msm_sharded(device, g1):
+    """Phase 3's 2^18 G1 MSM with the points sharded over dp = 2, 4, 8 and
+    over a (host 2, chip 4) mesh (``hierarchical_fold``), each against
+    phase 3's native-oracle point; cold and warm ms by the host clock."""
+    rows = torch.stack(g1["pts_dev"], 1)[:, :, None, :].contiguous()
+    limbs = g1["limbs"]
+    cases = [(f"dp={D}", Mesh.virtual((D,), ("dp",), device),
+              msm_grid_sharded) for D in (2, 4, 8)]
+    cases.append(("host=2 chip=4", Mesh.virtual((2, 4), ("host", "chip"),
+                                                device), msm_grid_sharded_2d))
+    res = {}
+    for name, mesh, msm in cases:
+        cold, out = _host_ms(lambda: msm(rows, limbs, mesh))
+        warm, out2 = _host_ms(lambda: msm(rows, limbs, mesh))
+        res[name] = dict(cold_ms=cold, warm_ms=warm, ok=(
+            _g1_point(out) == _g1_point(out2) == g1["want"]))
+    return res
+
+
+def phase_legs(device, g1, n=1 << 14, seed=113):
+    """Four seeded G1 legs of n points (the withdraw prover's leg size) on
+    a (leg 4, pt 2) virtual mesh, each against the native oracle."""
+    rng = random.Random(seed)
+    pts = g1["pts"][:4 * n]
+    rows = torch.stack(g1["pts_dev"], 1)[:4 * n, :, None, :] \
+        .reshape(4, n, 3, 1, 16).contiguous()
+    ks = [rng.randrange(1, FR_MOD) for _ in range(4 * n)]
+    limbs = torch.as_tensor(ints_to_limbs(ks), device=device) \
+        .reshape(4, n, 16)
+    mesh = Mesh.virtual((4, 2), ("leg", "pt"), device)
+    cold, _ = _host_ms(lambda: msm_legs_sharded(rows, limbs, mesh))
+    warm, out = _host_ms(lambda: msm_legs_sharded(rows, limbs, mesh))
+    oks = []
+    for i in range(4):
+        live = [(k, p) for k, p in zip(ks[i * n:(i + 1) * n],
+                                       pts[i * n:(i + 1) * n])
+                if p is not None]
+        oks.append(_g1_point(out[i]) == native_bridge.g1_msm(
+            [k for k, _ in live], [p for _, p in live]))
+    return dict(n=n, cold_ms=cold, warm_ms=warm, legs_ok=oks, ok=all(oks))
+
+
+def phase_dp_step(device, log2n=16, D=8):
+    """2^log2n seeded leaves in D dp shards: a subtree per shard through K7
+    on its own stream, the D roots gathered and combined on the first
+    shard; the root against ``build_levels`` over all leaves on one
+    device."""
+    leaves = random_mont((1 << log2n,), device, seed=114)
+    mesh = Mesh.virtual((D,), ("dp",), device)
+    before = hkern.LAUNCHES["poseidon"]
+    cold, root = _host_ms(lambda: root_sharded(leaves, mesh))
+    launches = hkern.LAUNCHES["poseidon"] - before
+    warm, root2 = _host_ms(lambda: root_sharded(leaves, mesh))
+    _, want = build_levels(leaves, 16)
+    return dict(leaves=1 << log2n, D=D, cold_ms=cold, warm_ms=warm,
+                k7_launches=launches, ok=torch.equal(root, want)
+                and torch.equal(root2, want))
 
 
 def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
@@ -886,7 +1138,7 @@ def main(argv):
     # ---- 1: build (one nvcc per kernel source and g++, started together)
     t0 = time.perf_counter()
     flags = ["-Xptxas", "-v"]
-    cus = dict(msm=kernels, poseidon=hkern, tree=tkern)
+    cus = dict(msm=kernels, poseidon=hkern, tree=tkern, ntt=ntt_rdma)
     with ThreadPoolExecutor(len(cus) + 1) as ex:
         futs = {k: ex.submit(m.build, flags) for k, m in cus.items()}
         futs["host"] = ex.submit(native_bridge.get_lib)
@@ -958,10 +1210,54 @@ def main(argv):
     if not tree["ok"]:
         raise AssertionError("tree=True MSM or proof check failed")
 
+    # ---- 9: the sharded paths on D virtual shards of this one card
+    log(9, f"mesh: every shard on {device}, virtual (torch.cuda."
+           f"device_count() = {torch.cuda.device_count()}); copies between "
+           f"shards are device-to-device copies on one card")
+    t0 = time.perf_counter()
+    xerrs, xlaunches = check_exchange(device)
+    errs.update(xerrs)
+    bad = {k: v for k, v in xerrs.items() if v}
+    log(9, f"exchange_butterfly: {len(xerrs)} cases equal to the twin: "
+           f"{not bad}, {xlaunches} chunk launches "
+           f"({time.perf_counter() - t0:.1f} s)")
+    if bad or xlaunches != 2 * 2 * (1 + 2 + 3 + 5):
+        raise AssertionError(f"K9 differs from its twin or skipped chunks: "
+                             f"{bad}, {xlaunches} launches")
+    t = times[("exchange_butterfly", 8)] = time_exchange(device, clock_hz)
+    log(9, f"exchange_butterfly {t['shape']} (D={t['D']}, B={t['B']}): max "
+           f"|err| {t['max_abs_err']}, {t['ms']:.4f} ms (in a CUDA graph "
+           f"{t['graph_ms']:.4f} ms), plain "
+           f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+           f"({t['bound_by']}); a stage: rdma {t['stage_rdma_ms']:.4f} ms, "
+           f"ppermute {t['stage_ppermute_ms']:.4f} ms, bound "
+           f"{t['stage_bound_ms']:.5f} ms")
+    if t["max_abs_err"]:
+        raise AssertionError("K9 differs from its twin at phase 9's shape")
+    mesh_ntt = phase_ntt(device)
+    log(9, "ntt " + json.dumps(mesh_ntt))
+    if not mesh_ntt["ok"]:
+        raise AssertionError("the sharded NTT differs from the single-device "
+                             "NTT or the schoolbook, or never ran K9")
+    mesh_msm = phase_msm_sharded(device, g1)
+    log(9, "msm " + json.dumps(mesh_msm))
+    if not all(v["ok"] for v in mesh_msm.values()):
+        raise AssertionError("a sharded MSM differs from the native oracle")
+    legs = phase_legs(device, g1)
+    log(9, "legs " + json.dumps(legs))
+    if not legs["ok"]:
+        raise AssertionError("a leg-parallel MSM differs from the oracle")
+    dp = phase_dp_step(device)
+    log(9, "dp-step " + json.dumps(dp))
+    if not dp["ok"]:
+        raise AssertionError("the dp-sharded Merkle root differs from "
+                             "build_levels")
+
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
-    # tree proofs: K8)
+    # tree proofs: K8, the sharded NTT's rdma products: K9)
     launches = dict(info["launches"], poseidon=merkle["launches"],
-                    tree_level=tree["launches"])
+                    tree_level=tree["launches"],
+                    exchange_butterfly=mesh_ntt["rdma_launches"])
     missing = [k for k, v in launches.items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}")
     if missing:
@@ -974,9 +1270,9 @@ def main(argv):
         max_err[name] = max(max_err[name], t["max_abs_err"])
     max_err["poseidon"] = max(max_err["poseidon"], merkle["max_abs_err"])
     # the row of each kernel: G1 for K1-K6, hash2 (the Merkle tree's width)
-    # for K7, the prover's level 0 for K8
-    rows = {name: times[(name, 3 if name == "poseidon" else 1)]
-            for name in REPLACES}
+    # for K7, the prover's level 0 for K8, a chunk at D = 8 for K9
+    row_key = {"poseidon": 3, "exchange_butterfly": 8}
+    rows = {name: times[(name, row_key.get(name, 1))] for name in REPLACES}
     line = {"kernels": [dict(
         name=name, route="cuda", source=SOURCES[name],
         replaces=REPLACES[name], launches=launches[name],
@@ -987,8 +1283,9 @@ def main(argv):
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=line["kernels"], times={
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
-            prove=info, merkle=merkle, chain=chain, tree=tree), f, indent=1,
-            default=str)
+            prove=info, merkle=merkle, chain=chain, tree=tree,
+            mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp)),
+            f, indent=1, default=str)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -132,7 +132,7 @@ def points():
 
 def _run_msm(ks, aff, c, nbits=39, complete=False, identity_every=0):
     rows = _affine_rows(aff)
-    Z = FP.ones_mont((N,)).clone()
+    Z = FP.ones_mont((N,), device="cpu").clone()
     if identity_every:
         Z[::identity_every] = 0
     out = tg.msm_grid_g1((rows[:, :16], rows[:, 16:], Z),

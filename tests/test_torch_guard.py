@@ -42,7 +42,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             os.path.join("hash", "kernels.py"),
             os.path.join("merkle", "tree.py"),
             os.path.join("msm", "affine_tree.py"),
-            os.path.join("msm", "tree_kernels.py")} <= names
+            os.path.join("msm", "tree_kernels.py"),
+            os.path.join("fields", "rlweq.py"), os.path.join("rlwe", "ntt.py"),
+            os.path.join("refimpl", "rlwe_ref.py")} | {
+                os.path.join("parallel", f) for f in (
+                    "__init__.py", "mesh.py", "ntt_rdma.py", "ntt_sharded.py",
+                    "msm_sharded.py", "multihost.py", "prove_stages.py",
+                    "merkle_sharded.py")} <= names
     for path in files:
         for mod in _imported(path):
             top = mod.split(".")[0]
@@ -129,3 +135,36 @@ def test_poseidon_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="not t = 6"):
         poseidon.hash_n(torch.empty((4, 5, 16), dtype=torch.int64,
                                     device="meta"))
+
+
+def test_mesh_and_sharded_ntt_raise_without_cuda(monkeypatch):
+    from tpu_zkpool_torch.parallel import Mesh, negacyclic_mul_sharded
+    from tpu_zkpool_torch.parallel.multihost import pod_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Mesh.virtual((2,), ("sp",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pod_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Mesh([["cuda:0", "cuda:0"]], ("host", "chip"))
+    a = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        negacyclic_mul_sharded(a, a, Mesh.virtual((2,), ("sp",)))
+    mesh = Mesh.virtual((2,), ("sp",), device="cpu")
+    assert [s.device.type for s in mesh.slots] == ["cpu", "cpu"]
+    assert [s.stream for s in mesh.slots] == [None, None]
+    assert negacyclic_mul_sharded(a, a, mesh).device.type == "cpu"
+
+
+def test_exchange_butterfly_wrapper_rejects_bad_inputs():
+    from tpu_zkpool_torch.parallel import ntt_rdma
+    y = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    tw = torch.empty((8,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ntt_rdma.butterfly(y, y, tw, 0)
+    # int64 words are refused on the CPU as on the card
+    y64 = torch.zeros((4, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        ntt_rdma.butterfly(y64, y64, torch.zeros(8, dtype=torch.int64), 1)
+    with pytest.raises(ValueError, match=r"\(rows, S\)"):
+        ntt_rdma.butterfly(y[0], y[0], tw, 0)

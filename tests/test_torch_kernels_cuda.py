@@ -1,5 +1,5 @@
-"""The CUDA kernels (grid MSM K1-K6, Poseidon K7, affine tree K8) against
-their plain torch twins, on the card.
+"""The CUDA kernels (grid MSM K1-K6, Poseidon K7, affine tree K8, the NTT
+exchange butterfly K9) against their plain torch twins, on the card.
 
 Marked ``cuda``: it needs an NVIDIA GPU with the CUDA toolkit (nvcc) and
 skips elsewhere. Run it there with
@@ -20,4 +20,16 @@ def test_kernels_equal_plain_twins():
                                     L=4, W=3, B=40, pairs=1500)
     # 9 modes x (Fp, Fp2), K7 x 3 widths, K8 complete and incomplete
     assert len(errs) == 18 + 3 + 2
+    assert not {k: v for k, v in errs.items() if v}
+
+
+@pytest.mark.cuda
+def test_exchange_butterfly_equals_twin():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    errs, launches = chip_smoke.check_exchange(torch.device("cuda", 0),
+                                               B=40, S=200)
+    # u = 0, 1 x (random tw, R mod q); 1, 2, 3, 5 chunks x two u layouts
+    assert len(errs) == 4 + 8 and launches == 2 * 2 * (1 + 2 + 3 + 5)
     assert not {k: v for k, v in errs.items() if v}

@@ -4,10 +4,11 @@ Each ``.cu`` file builds with ``nvcc`` at first use into its own plain-C
 shared library in ``tpu_zkpool_torch/build/`` (gitignored), loaded with
 ctypes. A library's name carries a hash of the flags, the ``.cu`` and every
 shared header of ``csrc/``, so an edit to any of them builds anew. The
-kernel wrappers (``msm/kernels.py``, ``hash/kernels.py``) share the checks
-and the launch here: tensors must be contiguous int64 on one CUDA device, a
-launcher returns ``cudaGetLastError()`` and a nonzero code raises, and each
-launch adds one to the wrapper's count.
+kernel wrappers (``msm/kernels.py``, ``hash/kernels.py``,
+``msm/tree_kernels.py``, ``parallel/ntt_rdma.py``) share the checks and the
+launch here: tensors must be contiguous, of the kernel's dtype, on one CUDA
+device, a launcher returns ``cudaGetLastError()`` and a nonzero code
+raises, and each launch adds one to the wrapper's count.
 """
 
 from __future__ import annotations
@@ -79,15 +80,15 @@ def load(cu: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
-def check_tensors(name, *tensors):
-    """Raise ``ValueError`` unless the tensors are contiguous int64 on one
-    CUDA device."""
+def check_tensors(name, *tensors, dtype=torch.int64):
+    """Raise ``ValueError`` unless the tensors are contiguous ``dtype``
+    (int64 limbs for K1-K8, int32 words for K9) on one CUDA device."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device, got {dev}")
     for t in tensors:
-        if t.device != dev or t.dtype != torch.int64 or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous int64 tensors on one "
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {dtype} tensors on one "
                              f"device, got {t.dtype} {t.device} "
                              f"contiguous={t.is_contiguous()}")
 

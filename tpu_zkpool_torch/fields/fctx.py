@@ -155,12 +155,8 @@ class FieldCtx:
         flat = [int(v) * self.r_inv % self.modulus for v in vals.reshape(-1)]
         return np.asarray(flat, dtype=object).reshape(vals.shape)
 
-    def zeros(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.zeros(tuple(shape) + (NLIMB,), dtype=torch.int64,
-                           device=device)
-
-    def ones_mont(self, shape=(), device="cpu") -> torch.Tensor:
-        """Montgomery 1 (= R mod p) broadcast to ``shape``."""
+    def ones_mont(self, shape, device) -> torch.Tensor:
+        """Montgomery 1 (= R mod p) broadcast to ``shape``, on ``device``."""
         return self._c(device)["one"].expand(tuple(shape) + (NLIMB,))
 
     # ------------------------------------------------ limb-major primitives

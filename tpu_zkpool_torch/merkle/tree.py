@@ -58,9 +58,11 @@ def build_levels(leaves: torch.Tensor, depth: int = TREE_DEPTH):
         cur = poseidon.hash2(cur[0::2], cur[1::2])
         levels.append(cur)
     root = cur[0]
-    dmont = torch.as_tensor(_default_mont(depth), device=leaves.device)
-    for j in range(len(levels) - 1, depth):
-        root = poseidon.hash2(root, dmont[j])
+    if len(levels) - 1 < depth:
+        # a host copy syncs the current stream: only when defaults fold in
+        dmont = torch.as_tensor(_default_mont(depth), device=leaves.device)
+        for j in range(len(levels) - 1, depth):
+            root = poseidon.hash2(root, dmont[j])
     return levels, root
 
 

@@ -1,2 +1,3 @@
 """Pure-Python (bigint) host code copied from ``tpu_zkpool.refimpl``:
-pairing, Pedersen commitments and Groth16 setup/verify."""
+pairing, Pedersen commitments, Groth16 setup/verify and the RLWE ring's
+schoolbook product."""
