@@ -13,8 +13,11 @@ Phases, one line each:
   2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), K7 for t = 3, 4,
              5, and K8 complete and incomplete, against its plain torch twin
              on the card (equal limb for limb): every mode on small inputs
-             with the special cases, then K1-K7 at the withdraw proof's and
-             the Merkle tree's shapes, timed beside the twin;
+             with the special cases (K1 over several windows, K3 at L = 1,
+             5, 32, 128 with identity, doubling and cancelling lanes), then
+             K1-K7 at the withdraw proof's and the Merkle tree's shapes (K1
+             one launch over 20 windows, K3 at both of its prover shapes),
+             timed beside the twin;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
@@ -51,8 +54,9 @@ Phases, one line each:
              the native oracle; 2^16 leaves in 8 dp shards, subtrees through
              K7 and one root combine, against build_levels;
   5 launches every kernel's launch count on its main path, K1-K6 during
-             phase 4, K7 during phase 6, K8 during phase 8's proofs and K9
-             during phase 9's rdma products (must be > 0); it runs last.
+             phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
+             proofs and K9 during phase 9's rdma products (must be > 0); it
+             runs last.
 Then the "kernels" JSON line, the card line, and the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
 ``tpu_zkpool_torch``: without either it exits non-zero and prints no
@@ -199,7 +203,65 @@ def _special(ncomp, pts):
     return pts
 
 
-def kernel_inputs(ncomp, device, lanes=1024, k=4, L=16, W=4, seed=5):
+WSUM_LS = (1, 5, 32, 128)      # K3's planted step counts (5 is ragged)
+
+
+def prefix_payload(rng, W, k, lanes, signs0):
+    """K1's payload (W, k, lanes), index | neg << 31: window 0 reads row j *
+    lanes + l at step j of lane l with the signs ``signs0``; every other
+    window a seeded permutation of the rows with random signs, step 1
+    repeating step 0's row in every fourth lane with its sign (P = Q) and
+    in the next lane with the other sign (P = -Q)."""
+    n = k * lanes
+    idx = [list(range(n))]
+    sg = [signs0]
+    for _ in range(1, W):
+        perm = list(range(n))
+        rng.shuffle(perm)
+        s = [rng.randrange(2) for _ in range(n)]
+        if k > 1:
+            for l in range(0, lanes - 1, 4):
+                m = lanes + l
+                perm[m], s[m] = perm[l], s[l]
+                perm[m + 1], s[m + 1] = perm[l + 1], 1 - s[l + 1]
+        idx.append(perm)
+        sg.append(s)
+    return torch.tensor([[i | (b << 31) for i, b in zip(p, s)]
+                         for p, s in zip(idx, sg)],
+                        dtype=torch.int64).reshape(W, k, lanes)
+
+
+def wsum_steps(ncomp, L, lanes, rng, seed):
+    """K3 steps (L, lanes, 3, ncomp, 16) with random Z, a pattern per lane
+    (lane % 8): identities planted in random points, all identities, one
+    point repeated (equal partial sums: doublings), pairs B_(2i+1) =
+    -B_(2i) (sums cancel), one point at the top step only, one at step 0
+    only, every other step the identity, all random."""
+    base = _points(ncomp, L * lanes, seed)
+    lane = [[base[l * lanes + m] for l in range(L)] for m in range(lanes)]
+    for m, g in enumerate(lane):
+        kind = m % 8
+        if kind == 0:
+            lane[m] = _special(ncomp, g)
+        elif kind == 1:
+            lane[m] = [None] * L
+        elif kind == 2:
+            lane[m] = [g[0]] * L
+        elif kind == 3:
+            lane[m] = [p if l % 2 == 0 else _neg(ncomp, g[l - 1])
+                       for l, p in enumerate(g)]
+        elif kind == 4:
+            lane[m] = [None] * (L - 1) + [g[0]]
+        elif kind == 5:
+            lane[m] = [g[0]] + [None] * (L - 1)
+        elif kind == 6:
+            lane[m] = [p if l % 2 else None for l, p in enumerate(g)]
+    flat = [lane[m][l] for l in range(L) for m in range(lanes)]
+    return _rows(ncomp, flat, rng).reshape(L, lanes, 3, ncomp, 16)
+
+
+def kernel_inputs(ncomp, device, lanes=1024, k=4, Ls=WSUM_LS, W=4,
+                  wlanes=64, seed=5):
     """Small inputs of every kernel (lane-major pairs across steps carry
     the P = Q / P = -Q cases into the scans)."""
     rng = random.Random(seed + ncomp)
@@ -212,7 +274,7 @@ def kernel_inputs(ncomp, device, lanes=1024, k=4, L=16, W=4, seed=5):
         scan[lanes + l + 1] = _neg(ncomp, scan[l + 1])
     aff = _rows(ncomp, scan, rng, affine=True)[:, :2]
     jac = _rows(ncomp, _special(ncomp, base), rng)
-    signs = _random_bits(rng, (k, lanes), device)
+    signs = [rng.randrange(2) for _ in range(n)]
     dev = lambda t: t.to(device).contiguous()
     a = jac[:lanes]
     b = _rows(ncomp, _special(ncomp, base[lanes:2 * lanes]), rng)
@@ -220,20 +282,15 @@ def kernel_inputs(ncomp, device, lanes=1024, k=4, L=16, W=4, seed=5):
     b[3::11] = _rows(ncomp, [None if p is None else _neg(ncomp, p)
                              for p in _affine(ncomp, a[3::11])], rng)
     return dict(
+        xy=dev(aff),
+        payload=dev(prefix_payload(rng, W, k, lanes, signs)),
         rows_t=dev(aff.reshape(k, lanes, 2, ncomp, 16)),
-        signs=signs,
         tiles_jac=dev(jac.reshape(k, lanes, 3, ncomp, 16)),
-        steps=dev(_rows(ncomp, _special(ncomp, _points(ncomp, L * 64, seed)),
-                        rng).reshape(L, 64, 3, ncomp, 16)),
+        steps={L: dev(wsum_steps(ncomp, L, wlanes, rng, seed + L))
+               for L in Ls},
         a=dev(a), b=dev(b),
         S=dev(jac[:W]),
     )
-
-
-def _random_bits(rng, shape, device):
-    return torch.tensor([[rng.randrange(2) for _ in range(shape[1])]
-                         for _ in range(shape[0])], dtype=torch.int64,
-                        device=device)
 
 
 def _affine(ncomp, rows):
@@ -245,14 +302,18 @@ def _affine(ncomp, rows):
 
 def kernel_cases(inp):
     """(name, variant, kernel call, plain call) for every kernel mode."""
-    r, s, tj = inp["rows_t"], inp["signs"], inp["tiles_jac"]
+    xy, pv = inp["xy"], inp["payload"]
+    r, tj = inp["rows_t"], inp["tiles_jac"]
+    wsums = [(f"L={L}", (lambda st=st: kernels.wsum(st)),
+              (lambda st=st: grid.wsum_plain(st)))
+             for L, st in inp["steps"].items()]
     return [
         ("prefix_rows", "complete",
-         lambda: kernels.prefix_rows(r, s, True),
-         lambda: grid.prefix_rows_plain(r, s, True)),
+         lambda: kernels.prefix_rows(xy, pv, True),
+         lambda: grid.prefix_rows_plain(xy, pv, True)),
         ("prefix_rows", "incomplete",
-         lambda: kernels.prefix_rows(r, s, False),
-         lambda: grid.prefix_rows_plain(r, s, False)),
+         lambda: kernels.prefix_rows(xy, pv, False),
+         lambda: grid.prefix_rows_plain(xy, pv, False)),
         ("prefix", "mixed",
          lambda: kernels.prefix(r, True, True),
          lambda: grid.prefix_plain(r, True, True)),
@@ -262,9 +323,7 @@ def kernel_cases(inp):
         ("prefix", "jacobian",
          lambda: kernels.prefix(tj, False, True),
          lambda: grid.prefix_plain(tj, False, True)),
-        ("wsum", "",
-         lambda: kernels.wsum(inp["steps"]),
-         lambda: grid.wsum_plain(inp["steps"])),
+    ] + [("wsum", v, kern, plain) for v, kern, plain in wsums] + [
         ("addn", "",
          lambda: kernels.addn(inp["a"], inp["b"]),
          lambda: grid.addn_plain(inp["a"], inp["b"])),
@@ -298,14 +357,16 @@ def tree_pairs(M, device, seed=8):
     return rows[0], rows[1], torch.tensor(fl, device=device)
 
 
-def check_kernels(device, lanes=1024, k=4, L=16, W=4, B=256, pairs=4096):
-    """Every kernel mode, Fp and Fp2, K7 for t = 3, 4, 5 at batch B, and K8
-    in both modes on ``pairs`` planted pairs, against its plain twin on
+def check_kernels(device, lanes=1024, k=4, Ls=WSUM_LS, W=4, wlanes=64,
+                  B=256, pairs=4096):
+    """Every kernel mode, Fp and Fp2 (K1 over W windows, K3 at each L of
+    ``Ls`` on ``wlanes`` lanes), K7 for t = 3, 4, 5 at batch B, and K8 in
+    both modes on ``pairs`` planted pairs, against its plain twin on
     ``device``. Returns {(name, ncomp or t, variant): max |kernel - plain|
     over the limbs and flags}."""
     errs = {}
     for ncomp in (1, 2):
-        inp = kernel_inputs(ncomp, device, lanes, k, L, W)
+        inp = kernel_inputs(ncomp, device, lanes, k, Ls, W, wlanes)
         for name, variant, kern, plain in kernel_cases(inp):
             got, want = kern(), plain()
             if got.is_cuda:
@@ -421,6 +482,11 @@ def _cuda_ms(fn, reps, warm=True):
     return t0.elapsed_time(t1) / reps, out
 
 
+def _times_err(t):
+    """A timed row's max |kernel - twin|, with its second shape's."""
+    return max(t["max_abs_err"], t.get("level2", {}).get("max_abs_err", 0))
+
+
 def _host_ms(fn, reps=1):
     """(mean ms of ``reps`` calls by the host clock, synchronized around
     them; the last call's output)."""
@@ -433,10 +499,13 @@ def _host_ms(fn, reps=1):
 
 
 def slice_shapes(ncomp):
-    """Each kernel's input shape in the withdraw-scale prover (c = 13,
-    16,384 points per leg = 16 steps of 1,024 lanes, W = 20 windows, half
-    = 4,096 buckets as C = 32 chunks of L = 128)."""
-    return dict(prefix_rows=(16, 1024), prefix=(32, 1024), wsum=(128, 640),
+    """Each kernel's input shape in the withdraw-scale prover (c = 13, W =
+    20 windows; a G1 leg of 16,384 points = 16 steps of 1,024 lanes, the G2
+    leg 9,216 = 9 steps; half = 4,096 buckets as C = 32 chunks of L = 128).
+    K1 is one launch over the W windows; K3 runs at (L, W C) = (128, 640)
+    and once more at (C, 2 W) = (32, 40) (``wsum2``: T and U together)."""
+    return dict(prefix_rows=(20, 16 if ncomp == 1 else 9, 1024),
+                prefix=(32, 1024), wsum=(128, 640), wsum2=(32, 40),
                 addn=81920, scale_add=20, horner=20)
 
 
@@ -447,9 +516,11 @@ def _bound(name, ncomp, shape, clock_hz):
                       for f in ("pmadd", "padd", "pdouble"))
     row = 3 * ncomp * 16 * 8                    # one int64-limb point row
     if name == "prefix_rows":
-        k, lanes = shape
-        muls = k * lanes * madd
-        nbytes = k * lanes * (2 * row // 3 + 8 + row)
+        # one mixed add a (window, step, lane); the N = k * lanes affine
+        # source rows read once, the payload and the prefix rows once
+        W, k, lanes = shape
+        muls = W * k * lanes * madd
+        nbytes = k * lanes * 2 * row // 3 + W * k * lanes * (8 + row)
     elif name == "prefix":
         k, lanes = shape
         muls = k * lanes * add
@@ -489,27 +560,36 @@ def time_kernels(device, clock_hz):
             idx = torch.arange(n, device=device) % src.shape[0]
             return src[idx][:, :C].contiguous()
 
-        k1, l1 = shp["prefix_rows"]
-        rows_t = take(k1 * l1, 2, pool_aff).reshape(k1, l1, 2, ncomp, 16)
-        signs = (torch.arange(k1 * l1, device=device) % 3 == 0).long() \
-            .reshape(k1, l1)
+        W1, k1, l1 = shp["prefix_rows"]
+        n1 = k1 * l1
+        xy = take(n1, 2, pool_aff)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11 + ncomp)
+        perm = torch.stack([torch.randperm(n1, generator=gen, device=device)
+                            for _ in range(W1)])
+        neg = (torch.arange(W1 * n1, device=device) % 3 == 0).long()
+        payload = (perm | (neg.reshape(W1, n1) << 31)).reshape(W1, k1, l1)
         k2, l2 = shp["prefix"]
         tiles = take(k2 * l2).reshape(k2, l2, 3, ncomp, 16)
         L3, l3 = shp["wsum"]
         steps = take(L3 * l3).reshape(L3, l3, 3, ncomp, 16)
+        L3b, l3b = shp["wsum2"]
+        steps2 = take(L3b * l3b).roll(5, 0).reshape(L3b, l3b, 3, ncomp, 16)
         na = shp["addn"]
         a4, b4 = take(na), take(na).roll(1, 0).contiguous()
         n5 = shp["scale_add"]
         a5, b5 = take(n5), take(n5).roll(1, 0).contiguous()
         S6 = take(shp["horner"])
         calls = {
-            "prefix_rows": (lambda: kernels.prefix_rows(rows_t, signs, True),
-                            lambda: grid.prefix_rows_plain(rows_t, signs,
+            "prefix_rows": (lambda: kernels.prefix_rows(xy, payload, True),
+                            lambda: grid.prefix_rows_plain(xy, payload,
                                                            True)),
             "prefix": (lambda: kernels.prefix(tiles, False, True),
                        lambda: grid.prefix_plain(tiles, False, True)),
             "wsum": (lambda: kernels.wsum(steps),
                      lambda: grid.wsum_plain(steps)),
+            "wsum2": (lambda: kernels.wsum(steps2),
+                      lambda: grid.wsum_plain(steps2)),
             "addn": (lambda: kernels.addn(a4, b4),
                      lambda: grid.addn_plain(a4, b4)),
             "scale_add": (lambda: kernels.scale_add(a5, b5, 7),
@@ -520,11 +600,14 @@ def time_kernels(device, clock_hz):
         for name, (kern, plain) in calls.items():
             ms, got = _cuda_ms(kern, 50)
             plain_ms, want = _cuda_ms(plain, 1, warm=False)
-            bound_ms, bound_by = _bound(name, ncomp, shp[name], clock_hz)
+            bound_ms, bound_by = _bound("wsum" if name == "wsum2" else name,
+                                        ncomp, shp[name], clock_hz)
             res[(name, ncomp)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, shape=shp[name],
                 max_abs_err=int((got - want).abs().max().item()))
+        # K3's second shape rides on its row: {"level2": ...}
+        res[("wsum", ncomp)]["level2"] = res.pop(("wsum2", ncomp))
     return res
 
 
@@ -1043,10 +1126,20 @@ def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
     return r1cs, witness
 
 
+# the kernel functions whose device time profile_prove sums over their
+# Fp and Fp2 instantiations
+PROFILED = ("k_prefix_rows", "k_prefix", "k_wsum", "k_addn", "k_scale_add",
+            "k_horner", "k_tree_level")
+
+
 def profile_prove(run):
     """Trace one warm proof with torch.profiler: device busy share of the
-    wall time (kernels of one stream do not overlap, so their summed device
-    time is the busy time) and the kernels with the most device time."""
+    wall time (kernels of one stream do not overlap, so the summed time of
+    the device's own events, kernels and copies, is the busy time), each
+    MSM kernel's device ms and launches, and the device events with the
+    most time. ``all_rows_s`` sums every row, the torch ops' device time
+    too, which repeats their kernels' (an earlier, inflated busy count)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1055,16 +1148,25 @@ def profile_prove(run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, all_us = [], 0
     for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
+        dev_us = e.self_device_time_total
+        all_us += dev_us
+        if dev_us > 0 and e.device_type == DeviceType.CUDA:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    by_kernel = {}            # device ms and launches of each MSM kernel
+    for us, k, n in rows:
+        for kern in PROFILED:
+            if kern + "<" in k:
+                ms, cnt = by_kernel.get(kern, (0.0, 0))
+                by_kernel[kern] = (ms + us / 1e3, cnt + n)
     return dict(wall_s=wall, device_busy_s=busy_s,
                 busy_share=busy_s / wall if wall else None,
+                all_rows_s=all_us / 1e6,
+                by_kernel={k: dict(device_ms=ms, count=n)
+                           for k, (ms, n) in by_kernel.items()},
                 top=[dict(name=k[:80], device_ms=us / 1e3, count=n)
                      for us, k, n in rows[:12]])
 
@@ -1164,11 +1266,13 @@ def main(argv):
     for (name, c), t in times.items():
         label = (f"t={c}" if name == "poseidon" else "G1" if c == 1
                  else "G2")
-        log(2, f"{name} {label} {t['shape']}: "
-               f"max |err| {t['max_abs_err']}, {t['ms']:.4f} ms, plain "
-               f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.5f} ms "
-               f"({t['bound_by']})")
-    bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
+        for u in (t, t.get("level2")):
+            if u:
+                log(2, f"{name} {label} {u['shape']}: "
+                       f"max |err| {u['max_abs_err']}, {u['ms']:.4f} ms, "
+                       f"plain {u['plain_ms']:.2f} ms, bound "
+                       f"{u['bound_ms']:.5f} ms ({u['bound_by']})")
+    bad = {k: _times_err(t) for k, t in times.items() if _times_err(t)}
     if bad:
         raise AssertionError(
             f"kernels differ from plain twins at the slices' shapes: {bad}")
@@ -1259,7 +1363,8 @@ def main(argv):
                     tree_level=tree["launches"],
                     exchange_butterfly=mesh_ntt["rdma_launches"])
     missing = [k for k, v in launches.items() if v <= 0]
-    log(5, f"launches {json.dumps(launches)}")
+    log(5, f"launches {json.dumps(launches)}; a withdraw-shape proof "
+           f"(phase 4) {json.dumps(info['launches_per_proof'])}")
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
@@ -1267,7 +1372,7 @@ def main(argv):
     for (name, _, _), e in errs.items():
         max_err[name] = max(max_err.get(name, 0), e)
     for (name, _), t in times.items():
-        max_err[name] = max(max_err[name], t["max_abs_err"])
+        max_err[name] = max(max_err[name], _times_err(t))
     max_err["poseidon"] = max(max_err["poseidon"], merkle["max_abs_err"])
     # the row of each kernel: G1 for K1-K6, hash2 (the Merkle tree's width)
     # for K7, the prover's level 0 for K8, a chunk at D = 8 for K9

@@ -137,6 +137,17 @@ def test_poseidon_wrapper_rejects_bad_inputs():
                                     device="meta"))
 
 
+def test_rlweq_from_numpy_asks_for_cuda(monkeypatch):
+    from tpu_zkpool_torch.fields import rlweq
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = [0, 1, rlweq.Q - 1]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rlweq.from_numpy_u32(a)
+    t = rlweq.from_numpy_u32(a, device="cpu")
+    assert t.device.type == "cpu" and t.dtype == torch.int32
+    assert t.tolist() == a
+
+
 def test_mesh_and_sharded_ntt_raise_without_cuda(monkeypatch):
     from tpu_zkpool_torch.parallel import Mesh, negacyclic_mul_sharded
     from tpu_zkpool_torch.parallel.multihost import pod_mesh

@@ -17,9 +17,10 @@ def test_kernels_equal_plain_twins():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     import chip_smoke
     errs = chip_smoke.check_kernels(torch.device("cuda", 0), lanes=256, k=3,
-                                    L=4, W=3, B=40, pairs=1500)
-    # 9 modes x (Fp, Fp2), K7 x 3 widths, K8 complete and incomplete
-    assert len(errs) == 18 + 3 + 2
+                                    W=3, wlanes=16, B=40, pairs=1500)
+    # 12 modes (K3 at 4 step counts) x (Fp, Fp2), K7 x 3 widths, K8
+    # complete and incomplete
+    assert len(errs) == 24 + 3 + 2
     assert not {k: v for k, v in errs.items() if v}
 
 

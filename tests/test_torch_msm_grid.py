@@ -197,16 +197,24 @@ def test_prefix_rows_plain_vs_oracle(ncomp):
     pts[5] = pts[1]                       # P + P in lane 1 (steps 0, 1)
     pts[6] = _neg(ncomp, pts[2])          # P = -Q in lane 2
     rows = _jacobian(ncomp, pts, [1 if ncomp == 1 else (1, 0)] * len(pts))
-    rows_t = rows[:, :2].reshape(k, lanes, 2, ncomp, 16).contiguous()
+    xy = rows[:, :2].contiguous()
     signs = torch.tensor([[0, 0, 0, 1], [0, 0, 0, 1], [1, 0, 1, 0]])
-    out = tg.prefix_rows_plain(rows_t, signs, complete=True)
-    got = _affine_rows(ncomp, out)
-    acc = [None] * lanes
-    for j in range(k):
-        for l in range(lanes):
-            p = pts[j * lanes + l]
-            acc[l] = _add(ncomp, acc[l], _neg(ncomp, p) if signs[j, l] else p)
-            assert got[j * lanes + l] == acc[l], (j, l)
+    # window 0 reads row j * lanes + l at step j of lane l; window 1 the
+    # same rows with every sign flipped
+    index = torch.arange(k * lanes).reshape(k, lanes)
+    payload = torch.stack([index | (signs << 31),
+                           index | ((1 - signs) << 31)])
+    out = tg.prefix_rows_plain(xy, payload, complete=True)
+    assert out.shape == (2, k * lanes, 3, ncomp, 16)
+    for w in range(2):
+        got = _affine_rows(ncomp, out[w])
+        acc = [None] * lanes
+        for j in range(k):
+            for l in range(lanes):
+                p = pts[j * lanes + l]
+                acc[l] = _add(ncomp, acc[l],
+                              _neg(ncomp, p) if signs[j, l] != w else p)
+                assert got[l * k + j] == acc[l], (w, j, l)
 
 
 @pytest.mark.parametrize("ncomp", [1, 2])

@@ -47,8 +47,9 @@ def test_butterfly_plain_matches_jax(u_side):
                                                                         Q - 1]
     want = np.asarray(j_rdma._butterfly(jnp.asarray(y), jnp.asarray(other),
                                         jnp.asarray(tw), jnp.int32(u_side)))
-    got = ntt_rdma.butterfly(tq.from_numpy_u32(y), tq.from_numpy_u32(other),
-                             tq.from_numpy_u32(tw), u_side)
+    got = ntt_rdma.butterfly(tq.from_numpy_u32(y, device="cpu"),
+                             tq.from_numpy_u32(other, device="cpu"),
+                             tq.from_numpy_u32(tw, device="cpu"), u_side)
     assert (tq.to_numpy_u32(got) == want).all()
 
 
@@ -60,8 +61,10 @@ def test_chunked_exchange_matches_whole_shard(chunks):
     chunk = -(-rows // chunks)
     assert -(-rows // chunk) == chunks
     mesh = Mesh.virtual((4,), ("sp",), device="cpu")
-    ys = [tq.from_numpy_u32(_q((rows, S), 10 + d)) for d in range(4)]
-    tws = [tq.from_numpy_u32(_q((S,), 20 + d)) for d in range(4)]
+    ys = [tq.from_numpy_u32(_q((rows, S), 10 + d), device="cpu")
+          for d in range(4)]
+    tws = [tq.from_numpy_u32(_q((S,), 20 + d), device="cpu")
+           for d in range(4)]
     u = [True, False, False, True]
     partners = [1, 0, 3, 2]
     outs = ntt_rdma.exchange_butterfly(mesh, ys, tws, u, partners, chunk)
@@ -100,7 +103,8 @@ def _reference():
 def test_sharded_transforms_match_single_device(D, exchange):
     a, b, fwd, mul, school = _reference()
     mesh = Mesh.virtual((D,), ("sp",), device="cpu")
-    ta, tb = tq.from_numpy_u32(a), tq.from_numpy_u32(b)
+    ta = tq.from_numpy_u32(a, device="cpu")
+    tb = tq.from_numpy_u32(b, device="cpu")
     f = forward_sharded(ta, mesh, exchange=exchange)
     assert (tq.to_numpy_u32(f) == fwd).all()
     assert torch.equal(inverse_sharded(f, mesh, exchange=exchange), ta)
@@ -121,5 +125,6 @@ def test_sharded_forward_matches_jax_sharded_rdma():
         jnp.asarray(x), mesh, exchange="rdma", interpret=True))
     tmesh = Mesh.virtual((8,), ("sp",), device="cpu")
     for exchange in ("ppermute", "rdma"):
-        got = forward_sharded(tq.from_numpy_u32(x), tmesh, exchange=exchange)
+        got = forward_sharded(tq.from_numpy_u32(x, device="cpu"), tmesh,
+                              exchange=exchange)
         assert (tq.to_numpy_u32(got) == want).all()

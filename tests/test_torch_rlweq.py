@@ -45,7 +45,8 @@ def test_constants_match_jax():
 def test_binary_ops_match_jax(op):
     a, b = _pairs()
     want = np.asarray(getattr(jq, op)(jnp.asarray(a), jnp.asarray(b)))
-    got = getattr(tq, op)(tq.from_numpy_u32(a), tq.from_numpy_u32(b))
+    got = getattr(tq, op)(tq.from_numpy_u32(a, device="cpu"),
+                          tq.from_numpy_u32(b, device="cpu"))
     assert got.dtype == torch.int32
     assert (tq.to_numpy_u32(got) == want).all()
 
@@ -55,7 +56,7 @@ def test_unary_ops_match_jax(op):
     a, _ = _pairs(seed=4)
     args = (12345,) if op == "pow_const" else ()
     want = np.asarray(getattr(jq, op)(jnp.asarray(a), *args))
-    got = getattr(tq, op)(tq.from_numpy_u32(a), *args)
+    got = getattr(tq, op)(tq.from_numpy_u32(a, device="cpu"), *args)
     assert (tq.to_numpy_u32(got) == want).all()
 
 
@@ -83,7 +84,8 @@ def test_forward_inverse_mul_match_jax(n):
     y = rng.integers(0, Q, (4, n), dtype=np.uint32)
     x[0, :len(EDGE)] = EDGE
     fwd, inv, mul = _jax_fns()
-    tx, ty = tq.from_numpy_u32(x), tq.from_numpy_u32(y)
+    tx = tq.from_numpy_u32(x, device="cpu")
+    ty = tq.from_numpy_u32(y, device="cpu")
     f = tn.forward(tx)
     assert (tq.to_numpy_u32(f) == np.asarray(fwd(jnp.asarray(x)))).all()
     assert (tq.to_numpy_u32(tn.inverse(tx))

@@ -11,23 +11,46 @@
 //
 // Design. The TPU ran each scan as a sequential grid whose steps carried the
 // accumulator in VMEM scratch; GPU blocks run in no order and carry nothing,
-// so the sequential axis becomes a loop inside one thread and the
-// accumulator stays in registers: one thread per lane for K1-K3, one per row
-// for K4/K5, a single thread for K6 (W x (c doublings + 1 add), a serial
-// tail of ~280 point ops). The (8, 128) lane tiling is not carried over.
+// so a sequential axis becomes a loop inside a thread and the accumulator
+// stays in registers. The (8, 128) lane tiling is not carried over.
 //
 // Bound (chip_smoke.py computes it for every call): an Fp product is 264
 // 32-bit multiply-adds (CIOS), an Fp2 product 3 of them and an Fp2 square
 // 2; a point row is 384 B (768 B for G2) of int64 16-bit limbs, four times
-// its packed size. At that layout the two kernels that read each row once
-// for one formula over Fp, K1 (a mixed add per row) and K4 (a general add),
-// are bound by bytes; K2 and K3 (scans), K5 and K6 (doubling chains) and
-// every kernel over Fp2 are bound by operations. Packed 8 x 32-bit storage
-// would quarter the bytes and leave all of them bound by operations. With
-// one thread per lane these first kernels fill at most `lanes` threads
-// (1,024 on the MSM's path), far below the card's occupancy, so they run
-// far above either bound; more lanes per SM, packed storage and inlined
-// products are later work.
+// its packed size. K4 over Fp is bound by bytes; every other kernel, and
+// every kernel over Fp2, by operations. What holds them far above either
+// bound is latency: a point add is ~16 dependent out-of-line products, so a
+// thread that walks a chain of n adds takes n times one add's latency
+// (~13 us over Fp with a warp or two a scheduler), and a launch with fewer
+// warps than the card holds leaves it idle. So each design cuts the longest
+// chain of dependent adds and fills the SMs with independent warps.
+//
+// K1 (k_prefix_rows): one thread per (window, lane), every window of a
+// slice in one launch (20 x 1,024 threads on the prover's path, where one
+// launch a window gave 1,024). Each thread walks its lane's k steps in
+// order, as the TPU did (the association, and so every limb, is the
+// JAX prefix_signed's), loading its own rows from the affine source by the
+// payload's index and negating Y by its sign bit: no gathered copy of the
+// rows is made. It writes the prefix in sorted order (row l * k + j of
+// window w), so the boundary gathers index it directly. Chain: k mixed
+// adds. Bound: operations (one mixed add a row), then the output's bytes.
+//
+// K3 (k_wsum): one warp per lane. The L steps split into T = min(L, 32)
+// segments of s (a power of two, steps past L are identities); thread t
+// runs its segment serially from the top (a = a + B, w = w + a), a
+// Kogge-Stone scan over the warp's shuffles gives the suffix sums S_t, each
+// thread adds 2^log2s S_t to w_t, and a shuffle tree sums the w_t into
+// tot. Chain at L = 128: 8 + 5 + 2 + 1 + 5 = 21 dependent adds or
+// doublings, where one thread per lane walked 256, on 640 warps where 640
+// threads ran. The total work roughly doubles; the card has room for it.
+// Every add is complete: empty buckets are the identity and equal or
+// opposite partial sums occur. The schedule (T, log2 s) comes from the
+// wrapper (grid.wsum_schedule), which the plain twin follows add for add.
+//
+// K2 (k_prefix) keeps one thread per lane, K4/K5 one per row, K6 a single
+// thread (W x (c doublings + 1 add), a serial tail of ~280 point ops);
+// their redesign is later work, as are packed storage and inlined
+// products.
 //
 // Interface: plain C, int64 16-bit-limb rows as the torch wrappers hold them
 // (tpu_zkpool_torch/msm/kernels.py), launched on the caller's stream; each
@@ -42,27 +65,34 @@
 namespace zk {
 
 constexpr int kBlock = 128;
+constexpr int kWarp = 32;
 
 __host__ __device__ constexpr int elems(int nc) { return nc * 16; }
 
-// K1: per-lane inclusive prefix of mixed adds over k steps of gathered
-// affine rows (k, lanes, 2, NC, 16), Y negated where signs != 0.
+// K1: per (window, lane) inclusive prefix of mixed adds over k steps. xy
+// (N, 2, NC, 16) affine source rows; payload (W, k, lanes), index | neg <<
+// 31, Y negated where neg is set; out (W, k * lanes, 3, NC, 16) in sorted
+// order: row l * k + j of window w holds step j of lane l.
 template <class F, bool COMPLETE>
-__global__ void k_prefix_rows(const int64_t* __restrict__ rows,
-                              const int64_t* __restrict__ signs,
-                              int64_t* __restrict__ out, int k, int lanes) {
+__global__ void __launch_bounds__(kBlock)
+    k_prefix_rows(const int64_t* __restrict__ xy,
+                  const int64_t* __restrict__ payload,
+                  int64_t* __restrict__ out, int W, int k, int lanes) {
   constexpr int E = elems(F::NC);
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
+  int g = blockIdx.x * blockDim.x + threadIdx.x;  // w * lanes + l
+  if (g >= W * lanes) return;
+  int w = g / lanes, l = g - w * lanes;
+  const int64_t* pw = payload + (size_t)w * k * lanes + l;
+  int64_t* ow = out + ((size_t)w * k * lanes + (size_t)l * k) * 3 * E;
   Jac<F> acc = jac_zero<F>();
   for (int j = 0; j < k; ++j) {
-    size_t i = (size_t)j * lanes + l;
-    const int64_t* q = rows + i * 2 * E;
+    int64_t p = pw[(size_t)j * lanes];
+    const int64_t* q = xy + (size_t)(p & 0x7FFFFFFF) * 2 * E;
     typename F::T x = F::load(q);
     typename F::T y = F::load(q + E);
-    if (signs[i] != 0) y = F::sub(F::zero(), y);
+    if (p >> 31) y = F::sub(F::zero(), y);
     acc = pmadd<F, COMPLETE>(acc, x, y);
-    jac_store<F>(out + i * 3 * E, acc);
+    jac_store<F>(ow + (size_t)j * 3 * E, acc);
   }
 }
 
@@ -87,22 +117,59 @@ __global__ void k_prefix(const int64_t* __restrict__ in,
   }
 }
 
-// K3: weighted suffix sum over L steps of (L, lanes, 3, NC, 16), fed from
-// step L-1 down to 0: acc = sum B_l, tot = sum (l + 1) B_l. Always complete
-// (an empty bucket makes tot meet acc).
+// Point P of the thread d lanes up the warp (every thread of the warp
+// calls it; the value is P's own where t + d >= 32, and unused there).
 template <class F>
-__global__ void k_wsum(const int64_t* __restrict__ in,
-                       int64_t* __restrict__ out, int L, int lanes) {
+__device__ __forceinline__ Jac<F> shfl_down(Jac<F> P, int d) {
+  constexpr int NW = sizeof(Jac<F>) / sizeof(uint32_t);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&P);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) w[i] = __shfl_down_sync(0xffffffffu, w[i], d);
+  return P;
+}
+
+// K3: weighted suffix sum over L steps of (L, lanes, 3, NC, 16): acc = sum
+// B_l, tot = sum (l + 1) B_l, one warp per lane on the schedule (T, log2s)
+// of grid.wsum_schedule (design note above). Always complete (an empty
+// bucket makes w meet a).
+template <class F>
+__global__ void __launch_bounds__(kBlock)
+    k_wsum(const int64_t* __restrict__ in, int64_t* __restrict__ out, int L,
+           int lanes, int T, int log2s) {
   constexpr int E = elems(F::NC);
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  Jac<F> acc = jac_zero<F>(), tot = jac_zero<F>();
-  for (int j = L - 1; j >= 0; --j) {
-    acc = padd<F, true>(acc, jac_load<F>(in + ((size_t)j * lanes + l) * 3 * E));
-    tot = padd<F, true>(tot, acc);
+  const int t = threadIdx.x % kWarp;
+  const int l = blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp;
+  if (l >= lanes) return;  // the whole warp
+  const int s = 1 << log2s;
+  // 1. this thread's segment, steps t s .. t s + s - 1, from the top down
+  Jac<F> a = jac_zero<F>(), w = jac_zero<F>();
+  if (t < T) {
+    for (int j = s - 1; j >= 0; --j) {
+      int st = t * s + j;
+      if (st >= L) continue;  // padding: a is still O, so w stays O
+      a = padd<F, true>(a, jac_load<F>(in + ((size_t)st * lanes + l) * 3 * E));
+      w = padd<F, true>(w, a);
+    }
   }
-  jac_store<F>(out + (size_t)l * 3 * E, acc);
-  jac_store<F>(out + ((size_t)lanes + l) * 3 * E, tot);
+  // 2. inclusive suffix scan of a over the T threads: a_0 = acc
+  for (int d = 1; d < T; d <<= 1) {
+    Jac<F> o = shfl_down<F>(a, d);
+    if (t + d < T) a = padd<F, true>(a, o);
+  }
+  // 3. x = w + 2^log2s S, S = the exclusive suffix a_(t+1)
+  Jac<F> S = shfl_down<F>(a, 1);
+  if (t + 1 >= T) S = jac_zero<F>();
+  for (int i = 0; i < log2s; ++i) S = pdouble<F>(S);
+  Jac<F> x = padd<F, true>(w, S);
+  // 4. tree sum of x over the T threads into thread 0
+  for (int d = 1; d < T; d <<= 1) {
+    Jac<F> o = shfl_down<F>(x, d);
+    if (t % (2 * d) == 0 && t + d < T) x = padd<F, true>(x, o);
+  }
+  if (t == 0) {
+    jac_store<F>(out + (size_t)l * 3 * E, a);
+    jac_store<F>(out + ((size_t)lanes + l) * 3 * E, x);
+  }
 }
 
 // K4: row-parallel complete a + b.
@@ -154,18 +221,19 @@ using zk::FpField;
 
 extern "C" {
 
-int msm_prefix_rows(const int64_t* rows, const int64_t* signs, int64_t* out,
-                    int k, int lanes, int ncomp, int complete, void* stream) {
+int msm_prefix_rows(const int64_t* xy, const int64_t* payload, int64_t* out,
+                    int W, int k, int lanes, int ncomp, int complete,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = zk::grid_for(lanes);
+  dim3 g = zk::grid_for(W * lanes);
   if (ncomp == 1 && complete)
-    zk::k_prefix_rows<FpField, true><<<g, zk::kBlock, 0, s>>>(rows, signs, out, k, lanes);
+    zk::k_prefix_rows<FpField, true><<<g, zk::kBlock, 0, s>>>(xy, payload, out, W, k, lanes);
   else if (ncomp == 1)
-    zk::k_prefix_rows<FpField, false><<<g, zk::kBlock, 0, s>>>(rows, signs, out, k, lanes);
+    zk::k_prefix_rows<FpField, false><<<g, zk::kBlock, 0, s>>>(xy, payload, out, W, k, lanes);
   else if (complete)
-    zk::k_prefix_rows<Fp2Field, true><<<g, zk::kBlock, 0, s>>>(rows, signs, out, k, lanes);
+    zk::k_prefix_rows<Fp2Field, true><<<g, zk::kBlock, 0, s>>>(xy, payload, out, W, k, lanes);
   else
-    zk::k_prefix_rows<Fp2Field, false><<<g, zk::kBlock, 0, s>>>(rows, signs, out, k, lanes);
+    zk::k_prefix_rows<Fp2Field, false><<<g, zk::kBlock, 0, s>>>(xy, payload, out, W, k, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -192,14 +260,16 @@ int msm_prefix(const int64_t* in, int64_t* out, int k, int lanes, int ncomp,
   return (int)cudaGetLastError();
 }
 
+// One warp a lane: kBlock / kWarp lanes a block. T in [1, 32].
 int msm_wsum(const int64_t* in, int64_t* out, int L, int lanes, int ncomp,
-             void* stream) {
+             int T, int log2s, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = zk::grid_for(lanes);
+  if (T < 1 || T > zk::kWarp) return (int)cudaErrorInvalidValue;
+  dim3 g = zk::grid_for(lanes * zk::kWarp);
   if (ncomp == 1)
-    zk::k_wsum<FpField><<<g, zk::kBlock, 0, s>>>(in, out, L, lanes);
+    zk::k_wsum<FpField><<<g, zk::kBlock, 0, s>>>(in, out, L, lanes, T, log2s);
   else
-    zk::k_wsum<Fp2Field><<<g, zk::kBlock, 0, s>>>(in, out, L, lanes);
+    zk::k_wsum<Fp2Field><<<g, zk::kBlock, 0, s>>>(in, out, L, lanes, T, log2s);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_zkpool_torch import resolve_device
+
 Q = 167772161
 W = 14                    # the JAX CIOS's limb width
 R = 1 << (2 * W)          # Montgomery R = 2^28
@@ -30,9 +32,11 @@ QINV_NEG_R = (-pow(Q, -1, R)) % R             # -q^-1 mod 2^28
 DTYPE = torch.int32
 
 
-def from_numpy_u32(a, device="cpu") -> torch.Tensor:
-    """uint32 values < q (numpy or JAX array) -> int32 tensor on ``device``."""
-    return torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
+def from_numpy_u32(a, device=None) -> torch.Tensor:
+    """uint32 values < q (numpy or JAX array) -> int32 tensor on ``device``
+    (``cuda`` unless the caller names another; raises without a GPU)."""
+    return torch.as_tensor(np.asarray(a).astype(np.int32),
+                           device=resolve_device(device))
 
 
 def to_numpy_u32(t: torch.Tensor) -> np.ndarray:

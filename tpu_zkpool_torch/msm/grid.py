@@ -8,11 +8,15 @@ Pipeline per slice of points, the same as the JAX package's:
    keys per column, the packed index | sign payload gathered alongside),
 3. bucket sums via a chunk-contiguous inclusive prefix scan: ``lanes``
    chunks of ``k = N / lanes`` sorted points, one mixed Jacobian + affine add
-   per step (kernel K1, ``prefix_rows``) - the O(N * W) bulk,
+   per step - the O(N * W) bulk, every window in one launch of kernel K1
+   (``prefix_rows``), which gathers its rows by the payload and writes the
+   prefix in sorted order,
 4. cross-chunk prefix in two 32-step levels (K2, ``prefix``), bucket values
-   from boundary differences (K4, ``addn``),
+   from boundary differences (K4, ``addn``) at the bucket starts, found for
+   all windows by one batched ``searchsorted`` (no host sync),
 5. bucket reduction sum_j j * B_j with the weighted-suffix identity (K3,
-   ``wsum``, then K5, ``scale_add``),
+   ``wsum``: one launch over the W C chunks, one over their 2 W totals;
+   then K5, ``scale_add``),
 6. the Horner window combine (K6, ``horner``).
 
 With ``tree=True`` a G1 MSM replaces steps 3-4 by the batched-affine
@@ -21,8 +25,8 @@ kernel K8, ``tree_level``); G2 keeps the prefix path.
 
 Each of K1-K6 is a CUDA kernel (``csrc/msm_grid.cu``, wrappers in
 ``msm/kernels.py``) with a plain PyTorch twin here (``*_plain``). A CPU tensor
-goes to the twin, a CUDA tensor to the kernel. Sorting, the bucket histogram
-and the gathers are torch ops, as they were XLA glue in JAX.
+goes to the twin, a CUDA tensor to the kernel. Sorting, the bucket starts
+and the boundary gathers are torch ops, as they were XLA glue in JAX.
 
 Point rows are ``int64[n, 3, ncomp, 16]``: Jacobian (X, Y, Z) Montgomery
 limbs, ncomp = 1 (Fp, G1) or 2 (Fp2, G2), Z = 0 the identity.
@@ -224,21 +228,29 @@ def _zero_point(ncomp, lanes, device):
                        device=device)
 
 
-def prefix_rows_plain(rows_t, signs_t, complete):
-    """K1 twin. rows_t (k, lanes, 2, ncomp, 16) step-major affine rows,
-    signs_t (k, lanes) nonzero where Y negates -> (k, lanes, 3, ncomp, 16)
-    per-lane inclusive prefix sums over the k steps."""
-    k, lanes, _, ncomp, _ = rows_t.shape
+def prefix_rows_plain(xy, payload_t, complete):
+    """K1 twin. xy (N, 2, ncomp, 16) affine source rows; payload_t (W, k,
+    lanes) int64, index | neg << 31 (Y negates where neg is set) ->
+    (W, k * lanes, 3, ncomp, 16): per window, each lane's inclusive prefix
+    of mixed adds over its k steps, in sorted order (row l * k + j = step
+    j of lane l). The steps run one after another with every window and
+    lane batched."""
+    W, k, lanes = payload_t.shape
+    ncomp = xy.shape[2]
     F = _field(ncomp)
-    q = _to_lm(rows_t)                                 # (k, 2, 16, nc, lanes)
-    acc = _zero_point(ncomp, lanes, rows_t.device)
+    pv = payload_t.transpose(0, 1).reshape(k, W * lanes)
+    q = _to_lm(xy[pv & 0x7FFFFFFF])                # (k, 2, 16, nc, W*lanes)
+    neg = (pv >> 31) != 0
+    acc = _zero_point(ncomp, W * lanes, xy.device)
     out = []
     for j in range(k):
         x, y = q[j]
-        y = F.select(signs_t[j] != 0, F.sub(F.zero(y), y), y)
+        y = F.select(neg[j], F.sub(F.zero(y), y), y)
         acc = _pmadd(F, acc, torch.stack([x, y]), complete)
         out.append(acc)
-    return _from_lm(torch.stack(out))
+    pr = _from_lm(torch.stack(out))                # (k, W * lanes, 3, nc, 16)
+    pr = pr.reshape((k, W, lanes) + pr.shape[2:]).permute(1, 2, 0, 3, 4, 5)
+    return pr.reshape((W, lanes * k) + pr.shape[3:])
 
 
 def prefix_plain(tiles, mixed, complete):
@@ -258,17 +270,70 @@ def prefix_plain(tiles, mixed, complete):
     return _from_lm(torch.stack(out))
 
 
+WARP = 32          # K3's segments per lane: one warp's threads
+
+
+def wsum_schedule(L: int):
+    """K3's schedule for L steps, shared by the kernel (through its
+    wrapper) and the twin: (T, log2 s), T = min(L, 32) segments of s steps,
+    s the power of two >= ceil(L / T); steps L .. T s - 1 are identities."""
+    T = min(L, WARP)
+    return T, (-(-L // T) - 1).bit_length()
+
+
 def wsum_plain(steps):
-    """K3 twin. steps (L, lanes, 3, ncomp, 16), fed from step L-1 down to 0:
-    acc = sum_l B_l, tot = sum_l (l + 1) B_l -> (2, lanes, 3, ncomp, 16)."""
+    """K3 twin. steps (L, lanes, 3, ncomp, 16) B_l -> (2, lanes, 3, ncomp,
+    16): acc = sum_l B_l, tot = sum_l (l + 1) B_l, by the kernel's
+    schedule (``wsum_schedule``), add for add in the same operand order:
+
+    1. segment t (steps t s .. t s + s - 1), fed from its top step down:
+       a = a + B, w = w + a; so a_t = its sum, w_t = sum_j (j + 1) B_(ts+j);
+    2. inclusive suffix scan of a_t (Kogge-Stone, d = 1, 2, 4, ...:
+       a_t = a_t + a_(t+d) where t + d < T); acc = a_0;
+    3. x_t = w_t + 2^log2s S_t with S_t = a_(t+1) (the exclusive suffix,
+       the identity at t = T - 1), the power by log2 s doublings;
+    4. tot = x_0 after the tree x_t = x_t + x_(t+d), d = 1, 2, 4, ...
+       (t a multiple of 2d, t + d < T).
+
+    tot = sum_t (w_t + s S_t) = sum_l (l + 1) B_l, since sum_t S_t counts
+    a_u u times. Identity operands pass through the complete adds
+    unchanged, so padding steps change no value."""
     L, lanes, _, ncomp, _ = steps.shape
     F = _field(ncomp)
-    q = _to_lm(steps)
-    acc = tot = _zero_point(ncomp, lanes, steps.device)
-    for j in range(L - 1, -1, -1):
-        acc = _padd(F, acc, q[j])
-        tot = _padd(F, tot, acc)
-    return _from_lm(torch.stack([acc, tot]))
+    T, log2s = wsum_schedule(L)
+    s = 1 << log2s
+    pad = _pad_rows(steps, T * s).reshape((T, s, lanes) + steps.shape[2:])
+    q = _to_lm(pad.transpose(0, 1).reshape((s, T * lanes) + steps.shape[2:]))
+    a = w = _zero_point(ncomp, T * lanes, steps.device)
+    for j in range(s - 1, -1, -1):
+        a = _padd(F, a, q[j])
+        w = _padd(F, w, a)
+
+    def seg(P):                                    # (3, 16, nc, T', lanes)
+        return P.reshape(P.shape[:3] + (-1, lanes))
+
+    def flat(P):
+        return P.reshape(P.shape[:3] + (-1,))
+
+    a, w = seg(a), seg(w)
+    d = 1
+    while d < T:
+        a = torch.cat([seg(_padd(F, flat(a[..., :T - d, :]),
+                                 flat(a[..., d:, :]))), a[..., T - d:, :]], 3)
+        d *= 2
+    S = torch.cat([a[..., 1:, :], torch.zeros_like(a[..., :1, :])], 3)
+    S = flat(S)
+    for _ in range(log2s):
+        S = _pdouble(F, S)
+    x = seg(_padd(F, flat(w), S))
+    d = 1
+    while d < T:
+        lo = x[..., 0:T - d:2 * d, :]
+        hi = x[..., d:T:2 * d, :]
+        x = x.clone()
+        x[..., 0:T - d:2 * d, :] = seg(_padd(F, flat(lo), flat(hi)))
+        d *= 2
+    return _from_lm(torch.stack([a[..., 0, :], x[..., 0, :]]))
 
 
 def addn_plain(a, b):
@@ -452,40 +517,35 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     if W > 32:
         raise ValueError(f"c={c} gives {W} windows of {nbits} bits; the "
                          "level-1 cross-chunk prefix holds at most 32")
-    # step-major payload: row j * lanes + l = sorted position l * k + j
-    svals_t = svals.reshape(lanes, k, W).permute(2, 1, 0)   # (W, k, lanes)
+    # step-major payload: [w, j, l] = sorted position l * k + j of window w
+    svals_t = svals.reshape(lanes, k, W).permute(2, 1, 0).contiguous()
+    # every window in one K1 launch, its rows gathered in the kernel; the
+    # prefix comes back in sorted order (W * N rows)
+    prs = kernels.prefix_rows(xy, svals_t, complete).reshape((W * N,) + pt)
 
-    nq = half + 2                                  # boundary queries 0..half+1
-    zero1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    # starts[w, v] = #keys < v in window w, v = 0 .. half + 1: the keys are
+    # sorted per window, so one batched search finds them without a sync
+    nq = half + 2
+    starts = torch.searchsorted(
+        skeys.T.contiguous(),
+        torch.arange(nq, device=dev).expand(W, nq).contiguous())
+    wi = torch.arange(W, device=dev)[:, None]
+    idx = (starts - 1).clamp(0, N - 1)
+    WV = prs[(wi * N + idx).reshape(-1)]                   # (W * nq,)
+    CID = idx // k
+    ZM = starts == 0
     last = (torch.arange(lanes, device=dev) + 1) * k - 1
-    WV, CID, ZM, TOT = [], [], [], []
-    for w in range(W):
-        pv = svals_t[w].reshape(-1)
-        rs_t = xyf[pv & 0x7FFFFFFF].reshape(k, lanes, 2, ncomp, NLIMB)
-        sg_t = (pv >> 31).reshape(k, lanes)
-        # starts[v] = #keys < v
-        counts = torch.bincount(skeys[:, w], minlength=half + 1)
-        starts = torch.cat([zero1, torch.cumsum(counts, 0)])[:nq]
-        pr = kernels.prefix_rows(rs_t, sg_t, complete)
-        prs = pr.transpose(0, 1).reshape((N,) + pt)          # sorted order
-        idx = (starts - 1).clamp(0, N - 1)
-        WV.append(prs[idx])
-        CID.append(idx // k)
-        ZM.append(starts == 0)
-        TOT.append(prs[last])
-    WV, CID, ZM, TOT = (torch.stack(v) for v in (WV, CID, ZM, TOT))
+    TOT = prs[(wi * N + last).reshape(-1)]                  # (W * lanes,)
 
     # ---- cross-chunk exclusive prefix of the `lanes` chunk totals, all
     # windows batched into lanes: level 1 groups the chunks of window w
     # into GA groups of 32; flat row (w*GA + g)*32 + e = w*lanes + g*32 + e.
     GA = lanes // 32
-    l1 = _prefix_chunks(_pad_rows(TOT.reshape((W * lanes,) + pt),
-                                  lanes * 32), 32)
+    l1 = _prefix_chunks(_pad_rows(TOT, lanes * 32), 32)
     gtot = l1[torch.arange(W * GA, device=dev) * 32 + 31]
     l2 = _prefix_chunks(_pad_rows(gtot, lanes * GA), GA)
 
     # excl[w, chunk = g*32 + e] = l1[e-1 @ lane w*GA + g] + l2[g-1 @ lane w]
-    wi = torch.arange(W, device=dev)[:, None]
     ch = torch.arange(lanes, device=dev)[None, :]
     g, e = ch // 32, ch % 32
     a_idx = ((wi * GA + g) * 32 + (e - 1)).reshape(-1)
@@ -498,7 +558,7 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
 
     # ---- E[i] at bucket boundaries; B_j = E[start_{j+1}] - E[start_j] ----
     ex_at = excl[(wi * lanes + CID).reshape(-1)]
-    E = kernels.addn(ex_at, WV.reshape((W * nq,) + pt))
+    E = kernels.addn(ex_at, WV)
     E = E.reshape((W, nq) + pt)
     E = torch.where(ZM[:, :, None, None, None], 0, E)
     lo = rows_neg_y(E[:, 1:-1].reshape((W * half,) + pt))
@@ -517,12 +577,11 @@ def _reduce_buckets(B, W, half, C, L):
     T = T.reshape((W, C) + pt)
     U = U.reshape((W, C) + pt)
     if C > 1:
-        # lanes = W, steps = C
-        accT, uT = kernels.wsum(T.transpose(0, 1).contiguous())
-        accU, _ = kernels.wsum(U.transpose(0, 1).contiguous())
+        # one launch over 2W lanes (T's windows, then U's), steps = C
+        acc, tot = kernels.wsum(torch.cat([T, U]).transpose(0, 1).contiguous())
         # sum_m m T_m = (sum (m+1) T_m) - (sum T_m)
-        mT = kernels.addn(uT, rows_neg_y(accT))
-        sU = accU
+        mT = kernels.addn(tot[:W], rows_neg_y(acc[:W]))
+        sU = acc[W:]
     else:
         mT = torch.zeros_like(U[:, 0])
         sU = U[:, 0].contiguous()

@@ -46,9 +46,9 @@ def _load():
     if _lib is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _lib = cuda_build.load(SOURCE, dict(
-            msm_prefix_rows=[P, P, P, I, I, I, I, P],
+            msm_prefix_rows=[P, P, P, I, I, I, I, I, P],
             msm_prefix=[P, P, I, I, I, I, I, P],
-            msm_wsum=[P, P, I, I, I, P],
+            msm_wsum=[P, P, I, I, I, I, I, P],
             msm_addn=[P, P, P, I, I, P],
             msm_scale_add=[P, P, P, I, I, I, P],
             msm_horner=[P, P, I, I, I, P]))
@@ -62,21 +62,28 @@ def _point_rows(name, t, ndim, C=3):
     return t.shape[-2]
 
 
-def prefix_rows(rows_t, signs_t, complete: bool):
-    """K1. rows_t (k, lanes, 2, ncomp, 16) step-major affine rows, signs_t
-    (k, lanes) nonzero where Y negates -> (k, lanes, 3, ncomp, 16)."""
-    if rows_t.device.type == "cpu":
-        return grid.prefix_rows_plain(rows_t, signs_t, complete)
-    cuda_build.check_tensors("prefix_rows", rows_t, signs_t)
-    nc = _point_rows("prefix_rows", rows_t, 5, C=2)
-    k, lanes = rows_t.shape[:2]
-    if tuple(signs_t.shape) != (k, lanes):
-        raise ValueError(f"prefix_rows: signs shape {tuple(signs_t.shape)}")
-    out = torch.empty((k, lanes, 3, nc, 16), dtype=torch.int64,
-                      device=rows_t.device)
+def prefix_rows(xy, payload_t, complete: bool):
+    """K1, every window in one launch. xy (N, 2, ncomp, 16) affine source
+    rows, payload_t (W, k, lanes) int64 index | neg << 31 (each index < N)
+    -> (W, k * lanes, 3, ncomp, 16) per-lane inclusive prefixes in sorted
+    order (row l * k + j = step j of lane l)."""
+    # shapes are checked on the CPU as on the card
+    nc = _point_rows("prefix_rows", xy, 4, C=2)
+    if payload_t.dim() != 3 or payload_t.dtype != torch.int64:
+        raise ValueError(f"prefix_rows: payload {payload_t.dtype} "
+                         f"{tuple(payload_t.shape)}, want int64 (W, k, lanes)")
+    if xy.shape[0] > 1 << 31:
+        raise ValueError(f"prefix_rows: {xy.shape[0]} rows; the payload "
+                         "indexes at most 2^31")
+    if xy.device.type == "cpu":
+        return grid.prefix_rows_plain(xy, payload_t, complete)
+    cuda_build.check_tensors("prefix_rows", xy, payload_t)
+    W, k, lanes = payload_t.shape
+    out = torch.empty((W, k * lanes, 3, nc, 16), dtype=torch.int64,
+                      device=xy.device)
     cuda_build.launch(LAUNCHES, "prefix_rows", out.device,
-                      _load().msm_prefix_rows, rows_t.data_ptr(),
-                      signs_t.data_ptr(), out.data_ptr(), k, lanes, nc,
+                      _load().msm_prefix_rows, xy.data_ptr(),
+                      payload_t.data_ptr(), out.data_ptr(), W, k, lanes, nc,
                       int(complete))
     return out
 
@@ -102,16 +109,19 @@ def prefix(tiles, mixed: bool, complete: bool):
 
 def wsum(steps):
     """K3. steps (L, lanes, 3, ncomp, 16) -> (2, lanes, 3, ncomp, 16):
-    [sum_l B_l, sum_l (l + 1) B_l]."""
+    [sum_l B_l, sum_l (l + 1) B_l], one warp a lane on the schedule of
+    ``grid.wsum_schedule(L)``."""
     if steps.device.type == "cpu":
         return grid.wsum_plain(steps)
     cuda_build.check_tensors("wsum", steps)
     nc = _point_rows("wsum", steps, 5)
     L, lanes = steps.shape[:2]
+    T, log2s = grid.wsum_schedule(L)
     out = torch.empty((2, lanes, 3, nc, 16), dtype=torch.int64,
                       device=steps.device)
     cuda_build.launch(LAUNCHES, "wsum", out.device, _load().msm_wsum,
-                      steps.data_ptr(), out.data_ptr(), L, lanes, nc)
+                      steps.data_ptr(), out.data_ptr(), L, lanes, nc, T,
+                      log2s)
     return out
 
 
