@@ -8,22 +8,33 @@
 Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
   1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel, the
-             affine-tree kernel and the NTT exchange kernel, g++ the native
-             host library, all five started together;
-  2 kernels  each kernel K1-K6, for Fp (G1) and Fp2 (G2), K7 for t = 3, 4,
-             5, and K8 complete and incomplete, against its plain torch twin
-             on the card (equal limb for limb): every mode on small inputs
-             with the special cases (K1 over several windows, K3 at L = 1,
-             5, 32, 128 with identity, doubling and cancelling lanes), then
-             K1-K7 at the withdraw proof's and the Merkle tree's shapes (K1
-             one launch over 20 windows, K3 at both of its prover shapes),
-             timed beside the twin;
+             affine-tree kernel, the NTT exchange kernel and the product
+             microbenchmark, g++ the native host library, all six started
+             together;
+  2 kernels  the product microbenchmark first (one thread, a dependent
+             chain of 4,096 Fp and Fp2 products: out of line, inlined C,
+             inlined PTX carry chains, three chains interleaved, PTX out
+             of line, three chains on three lanes of a warp; us a product,
+             every form on the same limbs); then each kernel
+             K1-K6, for Fp (G1) and Fp2 (G2), K7 at every width t = 2 ..
+             17, and K8 complete and incomplete, against its plain torch
+             twin on the card (equal limb for limb): every mode on small
+             inputs with the special cases (K1 over several windows; K2 at
+             k = 1, 5, 32, 64, mixed, mixed-incomplete and Jacobian, and K3
+             at L = 1, 5, 32, 128, with identity, doubling and cancelling
+             lanes; K6 on planted identity, doubling, cancelling and equal
+             windows), then K1-K7 at the withdraw proof's and the Merkle
+             tree's shapes (K1 one launch over 20 windows, K2 and K3 at
+             both of their prover shapes), timed beside the twin, the bound
+             and (K2, K6) the chain floor; K7 alone at every width;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
              rows, domain 2^14): setup, one cold and three warm proofs, each
              verified and a tampered input rejected, prove_batch (B = 4)
-             against prove(seed + i), per-phase times;
+             against prove(seed + i), per-phase times; the H(X) NTT stages
+             under torch.cuda.set_sync_debug_mode("error") (no host sync),
+             and h_ntt and upload over four more proofs;
   6 merkle   the depth-16 tree at full capacity: build_levels over 2^16
              seeded leaves on the card (16 K7 launches), every level against
              the plain twin and 64 sampled nodes per level against the host
@@ -65,6 +76,7 @@ result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import random
@@ -73,13 +85,15 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from tpu_zkpool_torch import native_bridge
+from tpu_zkpool_torch import cuda_build, native_bridge
 from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
+from tpu_zkpool_torch.groth16 import domain
 from tpu_zkpool_torch.groth16 import prove as tp
 from tpu_zkpool_torch.hash import kernels as hkern
 from tpu_zkpool_torch.hash import poseidon
@@ -260,8 +274,59 @@ def wsum_steps(ncomp, L, lanes, rng, seed):
     return _rows(ncomp, flat, rng).reshape(L, lanes, 3, ncomp, 16)
 
 
+PREFIX_KS = (1, 5, 32, 64)     # K2's planted step counts (5 is ragged)
+
+
+def prefix_affine(ncomp, k, lanes, seed):
+    """K2's mixed-mode input (k, lanes, 2, ncomp, 16), affine, a pattern per
+    lane (lane % 4): one point repeated (every add a doubling), P and -P
+    alternating (the prefix cancels to O and restarts), random with step j
+    + 1 repeating step j at every third j, all random."""
+    base = _points(ncomp, k * lanes, seed)
+    lane = [[base[l * lanes + m] for l in range(k)] for m in range(lanes)]
+    for m, g in enumerate(lane):
+        kind = m % 4
+        if kind == 0:
+            lane[m] = [g[0]] * k
+        elif kind == 1:
+            lane[m] = [g[0] if l % 2 == 0 else _neg(ncomp, g[0])
+                       for l in range(k)]
+        elif kind == 2:
+            lane[m] = [g[l - 1] if l % 3 == 1 else p
+                       for l, p in enumerate(g)]
+    flat = [lane[m][l] for l in range(k) for m in range(lanes)]
+    rows = _rows(ncomp, flat, random.Random(seed), affine=True)
+    return rows[:, :2].reshape(k, lanes, 2, ncomp, 16).contiguous()
+
+
+def horner_windows(ncomp, W, c, seed):
+    """K6's planted window sums {variant: (S (W, 3, ncomp, 16), c)}: random
+    points; every S_w the identity; the top two windows identities with
+    random nonzero X and Y; S_(W-2) = 2^c S_(W-1) (the add after the top
+    window's doublings takes the doubling branch) and S_(W-4) the negated
+    sum it meets (that add cancels to O); every S_w equal at c = 0 (a
+    doubling at every add). W >= 4."""
+    rng = random.Random(seed)
+    ks = [rng.randrange(1, FR_MOD) for _ in range(W)]
+    ks[W - 2] = ks[W - 1] << c                  # scalars of the sums met
+    acc = ((ks[W - 1] << (2 * c + 1)) + ks[W - 3]) << c
+    ks[W - 4] = -acc
+    mul = (native_bridge.g1_gen_mul_batch if ncomp == 1
+           else native_bridge.g2_gen_mul_batch)
+    pts = mul([k % FR_MOD for k in ks])
+    rand = _rows(ncomp, _points(ncomp, W, seed + 1), rng)
+    top = rand.clone()
+    top[W - 2:, :2] = torch.as_tensor(FP.to_mont(
+        [[[rng.randrange(1, FP_MOD) for _ in range(ncomp)]
+          for _ in range(2)] for _ in range(2)]))
+    top[W - 2:, 2] = 0
+    return {"random": (rand, c), "identity": (torch.zeros_like(rand), c),
+            "top-identity": (top, c), "doubling": (_rows(ncomp, pts, rng), c),
+            "equal": (_rows(ncomp, [pts[0]] * W, rng), 0)}
+
+
 def kernel_inputs(ncomp, device, lanes=1024, k=4, Ls=WSUM_LS, W=4,
-                  wlanes=64, seed=5):
+                  wlanes=64, seed=5, Ks=PREFIX_KS, HW=6):
     """Small inputs of every kernel (lane-major pairs across steps carry
     the P = Q / P = -Q cases into the scans)."""
     rng = random.Random(seed + ncomp)
@@ -284,12 +349,15 @@ def kernel_inputs(ncomp, device, lanes=1024, k=4, Ls=WSUM_LS, W=4,
     return dict(
         xy=dev(aff),
         payload=dev(prefix_payload(rng, W, k, lanes, signs)),
-        rows_t=dev(aff.reshape(k, lanes, 2, ncomp, 16)),
-        tiles_jac=dev(jac.reshape(k, lanes, 3, ncomp, 16)),
+        tiles={(kk, mixed): dev(
+            prefix_affine(ncomp, kk, wlanes, seed + 3 * kk) if mixed
+            else wsum_steps(ncomp, kk, wlanes, rng, seed + 2 * kk))
+            for kk in Ks for mixed in (True, False)},
         steps={L: dev(wsum_steps(ncomp, L, wlanes, rng, seed + L))
                for L in Ls},
         a=dev(a), b=dev(b),
-        S=dev(jac[:W]),
+        horner={v: (dev(S), c) for v, (S, c) in horner_windows(
+            ncomp, HW, 13, seed + 40).items()},
     )
 
 
@@ -303,10 +371,19 @@ def _affine(ncomp, rows):
 def kernel_cases(inp):
     """(name, variant, kernel call, plain call) for every kernel mode."""
     xy, pv = inp["xy"], inp["payload"]
-    r, tj = inp["rows_t"], inp["tiles_jac"]
+    prefixes = [(f"k={k} {'mixed' if mixed else 'jacobian'}{m}",
+                 (lambda t=t, mixed=mixed, c=c: kernels.prefix(t, mixed, c)),
+                 (lambda t=t, mixed=mixed, c=c: grid.prefix_plain(t, mixed,
+                                                                  c)))
+                for (k, mixed), t in inp["tiles"].items()
+                for c, m in ((True, ""), (False, "-incomplete"))
+                if mixed or c]
     wsums = [(f"L={L}", (lambda st=st: kernels.wsum(st)),
               (lambda st=st: grid.wsum_plain(st)))
              for L, st in inp["steps"].items()]
+    horners = [(f"{v} c={c}", (lambda S=S, c=c: kernels.horner(S, c)),
+                (lambda S=S, c=c: grid.horner_plain(S, c)))
+               for v, (S, c) in inp["horner"].items()]
     return [
         ("prefix_rows", "complete",
          lambda: kernels.prefix_rows(xy, pv, True),
@@ -314,26 +391,15 @@ def kernel_cases(inp):
         ("prefix_rows", "incomplete",
          lambda: kernels.prefix_rows(xy, pv, False),
          lambda: grid.prefix_rows_plain(xy, pv, False)),
-        ("prefix", "mixed",
-         lambda: kernels.prefix(r, True, True),
-         lambda: grid.prefix_plain(r, True, True)),
-        ("prefix", "mixed-incomplete",
-         lambda: kernels.prefix(r, True, False),
-         lambda: grid.prefix_plain(r, True, False)),
-        ("prefix", "jacobian",
-         lambda: kernels.prefix(tj, False, True),
-         lambda: grid.prefix_plain(tj, False, True)),
-    ] + [("wsum", v, kern, plain) for v, kern, plain in wsums] + [
+    ] + [("prefix", v, kern, plain) for v, kern, plain in prefixes] + [
+        ("wsum", v, kern, plain) for v, kern, plain in wsums] + [
         ("addn", "",
          lambda: kernels.addn(inp["a"], inp["b"]),
          lambda: grid.addn_plain(inp["a"], inp["b"])),
         ("scale_add", "s=7",
          lambda: kernels.scale_add(inp["a"], inp["b"], 7),
          lambda: grid.scale_add_plain(inp["a"], inp["b"], 7)),
-        ("horner", "c=13",
-         lambda: kernels.horner(inp["S"], 13),
-         lambda: grid.horner_plain(inp["S"], 13)),
-    ]
+    ] + [("horner", v, kern, plain) for v, kern, plain in horners]
 
 
 def tree_pairs(M, device, seed=8):
@@ -358,15 +424,16 @@ def tree_pairs(M, device, seed=8):
 
 
 def check_kernels(device, lanes=1024, k=4, Ls=WSUM_LS, W=4, wlanes=64,
-                  B=256, pairs=4096):
-    """Every kernel mode, Fp and Fp2 (K1 over W windows, K3 at each L of
-    ``Ls`` on ``wlanes`` lanes), K7 for t = 3, 4, 5 at batch B, and K8 in
+                  B=256, pairs=4096, Ks=PREFIX_KS):
+    """Every kernel mode, Fp and Fp2 (K1 over W windows; K2 at each k of
+    ``Ks`` and K3 at each L of ``Ls``, on ``wlanes`` planted lanes; K6 on
+    planted windows), K7 at every width t = 2 .. 17 at batch B, and K8 in
     both modes on ``pairs`` planted pairs, against its plain twin on
     ``device``. Returns {(name, ncomp or t, variant): max |kernel - plain|
     over the limbs and flags}."""
     errs = {}
     for ncomp in (1, 2):
-        inp = kernel_inputs(ncomp, device, lanes, k, Ls, W, wlanes)
+        inp = kernel_inputs(ncomp, device, lanes, k, Ls, W, wlanes, Ks=Ks)
         for name, variant, kern, plain in kernel_cases(inp):
             got, want = kern(), plain()
             if got.is_cuda:
@@ -388,6 +455,65 @@ def check_kernels(device, lanes=1024, k=4, Ls=WSUM_LS, W=4, wlanes=64,
         errs[("tree_level", 1, "complete" if complete else "incomplete")] = \
             max(int((g - w).abs().max().item()) for g, w in zip(got, want))
     return errs
+
+
+# ------------------------------------------------- product microbenchmark
+
+MUL_FORMS = ("a out-of-line", "b inlined C", "c inlined PTX",
+             "d 3 chains C", "d 3 chains PTX", "e out-of-line PTX",
+             "f 3 chains on 3 lanes")
+# the forms K2 and K6 run: K2 one thread's fp_mul_fast (e), K6 a level of
+# products on the lanes of one warp (f)
+K2_FORM, K6_FORM = 5, 6
+
+
+def time_products(device, n=4096, reps=3):
+    """One thread (form f: one warp) walking a dependent chain of n
+    Montgomery products (``csrc/mul_bench.cu``), Fp and Fp2, in each of the
+    seven forms: the best of ``reps`` launches by CUDA events, in us a
+    product (a step of the three-chain forms holds three products:
+    ``us_step`` is the step, ``us`` the step over 3) and in clock64 cycles
+    a step. Every form must end on the limbs of form (a). Returns {(ncomp,
+    form): dict}."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = cuda_build.load("mul_bench.cu", {"mul_chain": [P, P, P, I, I, I,
+                                                         P]})
+    rng = random.Random(55)
+    res = {}
+    for ncomp in (1, 2):
+        pair = FP.to_mont([[[rng.randrange(FP_MOD) for _ in range(ncomp)]
+                            for _ in range(2)]])[0]
+        inp = torch.as_tensor(np.stack([pair] * 3), device=device)
+        want = None
+        for form in range(len(MUL_FORMS)):
+            out = torch.empty((3, ncomp, 16), dtype=torch.int64,
+                              device=device)
+            cyc = torch.zeros(1, dtype=torch.int64, device=device)
+            times = []
+            for _ in range(reps + 1):              # the first one warms up
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                rc = lib.mul_chain(inp.data_ptr(), out.data_ptr(),
+                                   cyc.data_ptr(), n, ncomp, form,
+                                   ctypes.c_void_p(torch.cuda.current_stream(
+                                       device).cuda_stream))
+                t1.record()
+                torch.cuda.synchronize()
+                if rc:
+                    raise RuntimeError(f"mul_chain form {form}: CUDA error "
+                                       f"{rc}")
+                times.append(t0.elapsed_time(t1))
+            best = min(times[1:])
+            if want is None:
+                want = out[0].clone()
+            step_us = best * 1e3 / n
+            per = 3 if form in (3, 4, 6) else 1
+            res[(ncomp, form)] = dict(
+                form=MUL_FORMS[form], us=step_us / per, us_step=step_us,
+                cycles_step=int(cyc.item()) / n,
+                max_abs_err=int((out - want).abs().max().item()))
+    return res
 
 
 # ------------------------------------------------------------ Poseidon K7
@@ -453,7 +579,7 @@ def time_poseidon(device, clock_hz, B=1 << 15):
     hash2 x 32,768): its output against the plain twin's on the same inputs,
     and the ms of both."""
     res = {}
-    for t in hkern.WIDTHS:
+    for t in (3, 4, 5):
         x = random_mont((B, t - 1), device, seed=70 + t)
         ms, got = _cuda_ms(lambda: hkern.hash_tiles(x, t), 50)
         plain_ms, want = _cuda_ms(lambda: poseidon.hash_n_plain(x), 1,
@@ -463,6 +589,14 @@ def time_poseidon(device, clock_hz, B=1 << 15):
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             shape=(B, t - 1), max_abs_err=int((got - want).abs().max().item()))
     return res
+
+
+def time_poseidon_widths(device, B=1 << 15):
+    """K7 alone at every width t = 2 .. 17, B hashes: {t: ms} (CUDA
+    events, 20 launches)."""
+    return {t: _cuda_ms(lambda x=random_mont((B, t - 1), device, seed=80 + t):
+                        hkern.hash_tiles(x, t), 20)[0]
+            for t in hkern.WIDTHS}
 
 
 # ------------------------------------------------------------ timings
@@ -502,11 +636,32 @@ def slice_shapes(ncomp):
     """Each kernel's input shape in the withdraw-scale prover (c = 13, W =
     20 windows; a G1 leg of 16,384 points = 16 steps of 1,024 lanes, the G2
     leg 9,216 = 9 steps; half = 4,096 buckets as C = 32 chunks of L = 128).
-    K1 is one launch over the W windows; K3 runs at (L, W C) = (128, 640)
-    and once more at (C, 2 W) = (32, 40) (``wsum2``: T and U together)."""
+    K1 is one launch over the W windows; K2 runs on the real lanes, (k,
+    lanes) = (32, W * 1,024 / 32) = (32, 640) and (``prefix2``) (32, W) =
+    (32, 20); K3 at (L, W C) = (128, 640) and once more at (C, 2 W) = (32,
+    40) (``wsum2``: T and U together)."""
     return dict(prefix_rows=(20, 16 if ncomp == 1 else 9, 1024),
-                prefix=(32, 1024), wsum=(128, 640), wsum2=(32, 40),
-                addn=81920, scale_add=20, horner=20)
+                prefix=(32, 640), prefix2=(32, 20), wsum=(128, 640),
+                wsum2=(32, 40), addn=81920, scale_add=20, horner=20)
+
+
+# Dependent product levels of each point formula (csrc/point.cuh).
+LEVELS = {"pdouble": 3, "padd": 5, "pmadd": 5}
+
+
+def chain_floor(name, shape, mul_us, c=13):
+    """(levels, floor ms) of K2 or K6: the dependent product levels on
+    the kernel's longest chain times the time of one level (``mul_us``,
+    the microbenchmark's: K6 form f, a level's products on a warp's lanes;
+    K2 form e, one product). K6: (W - 1) c doublings and W adds; K2: a
+    segment's s - 1 adds, ceil(log2 T) scan adds and the carry add."""
+    if name == "horner":
+        levels = (shape - 1) * c * LEVELS["pdouble"] + shape * LEVELS["padd"]
+    else:
+        T, log2s = grid.prefix_schedule(shape[0])
+        adds = (1 << log2s) - 1 + (T - 1).bit_length() + (T > 1)
+        levels = adds * LEVELS["padd"]
+    return levels, levels * mul_us / 1e3
 
 
 def _bound(name, ncomp, shape, clock_hz):
@@ -544,10 +699,11 @@ def _bound(name, ncomp, shape, clock_hz):
                                        else "bytes")
 
 
-def time_kernels(device, clock_hz):
+def time_kernels(device, clock_hz, products):
     """Every kernel at the slice's shapes: its output against the plain
     twin's on the same inputs (``max_abs_err`` over the limbs), and the ms
-    of both."""
+    of both; K2 and K6 also their chain floor from ``products`` (the
+    microbenchmark's, in the form K2 and K6 run)."""
     rng = random.Random(3)
     res = {}
     for ncomp in (1, 2):
@@ -571,6 +727,8 @@ def time_kernels(device, clock_hz):
         payload = (perm | (neg.reshape(W1, n1) << 31)).reshape(W1, k1, l1)
         k2, l2 = shp["prefix"]
         tiles = take(k2 * l2).reshape(k2, l2, 3, ncomp, 16)
+        k2b, l2b = shp["prefix2"]
+        tiles2 = take(k2b * l2b).roll(3, 0).reshape(k2b, l2b, 3, ncomp, 16)
         L3, l3 = shp["wsum"]
         steps = take(L3 * l3).reshape(L3, l3, 3, ncomp, 16)
         L3b, l3b = shp["wsum2"]
@@ -586,6 +744,8 @@ def time_kernels(device, clock_hz):
                                                            True)),
             "prefix": (lambda: kernels.prefix(tiles, False, True),
                        lambda: grid.prefix_plain(tiles, False, True)),
+            "prefix2": (lambda: kernels.prefix(tiles2, False, True),
+                        lambda: grid.prefix_plain(tiles2, False, True)),
             "wsum": (lambda: kernels.wsum(steps),
                      lambda: grid.wsum_plain(steps)),
             "wsum2": (lambda: kernels.wsum(steps2),
@@ -600,14 +760,21 @@ def time_kernels(device, clock_hz):
         for name, (kern, plain) in calls.items():
             ms, got = _cuda_ms(kern, 50)
             plain_ms, want = _cuda_ms(plain, 1, warm=False)
-            bound_ms, bound_by = _bound("wsum" if name == "wsum2" else name,
-                                        ncomp, shp[name], clock_hz)
-            res[(name, ncomp)] = dict(
+            base = name.rstrip("2")
+            bound_ms, bound_by = _bound(base, ncomp, shp[name], clock_hz)
+            res[(name, ncomp)] = r = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, shape=shp[name],
                 max_abs_err=int((got - want).abs().max().item()))
-        # K3's second shape rides on its row: {"level2": ...}
-        res[("wsum", ncomp)]["level2"] = res.pop(("wsum2", ncomp))
+            if base == "prefix":
+                r["chain_levels"], r["floor_ms"] = chain_floor(
+                    base, shp[name], products[(ncomp, K2_FORM)]["us"])
+            elif base == "horner":
+                r["chain_levels"], r["floor_ms"] = chain_floor(
+                    base, shp[name], products[(ncomp, K6_FORM)]["us_step"])
+        # K2's and K3's second shapes ride on their rows: {"level2": ...}
+        for name in ("prefix", "wsum"):
+            res[(name, ncomp)]["level2"] = res.pop((name + "2", ncomp))
     return res
 
 
@@ -1171,6 +1338,39 @@ def profile_prove(run):
                      for us, k, n in rows[:12]])
 
 
+def h_ntt_check(dpk, r1cs, w, runs=4, seed=60):
+    """The H(X) NTT stages of ``dpk``'s domain (``prove._h_pipeline``:
+    the inverse NTT, the coset forward NTT, the quotient and the coset
+    inverse NTT, all FieldCtx ops on the card) on seeded evaluations under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any host
+    sync, after one warm call outside it (the tables' and constants' first
+    upload); the two outputs must be equal. Then ``runs`` proofs with the
+    device synchronized around each phase: the seconds of ``h_ntt`` and
+    ``upload`` in each."""
+    dev, n = dpk.device, dpk.pk.n_domain
+    ev = random_mont((3, n), dev, seed)
+    tinv = random_mont((), dev, seed + 1)
+    tables = domain.tables(n, dev)
+    want = tp._h_pipeline(ev, tinv, tables, False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tp._h_pipeline(ev, tinv, tables, False)
+        err = None
+    except RuntimeError as e:
+        got, err = None, str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    info = dict(sync_free=err is None, sync_error=err,
+                equal=got is not None and torch.equal(got, want))
+    for i in range(runs):
+        ph = {}
+        tp.prove(dpk, r1cs, w, seed=seed + 2 + i, timings=ph)
+        for k in ("h_ntt", "upload"):
+            info.setdefault(k + "_s", []).append(ph[k])
+    return info
+
+
 def phase_prove(device, profile=False):
     info = {}
     t0 = time.perf_counter()
@@ -1202,6 +1402,7 @@ def phase_prove(device, profile=False):
     per_proof = {k: v // 4 for k, v in kernels.LAUNCHES.items()}
     phases = {}          # one more proof, synchronized around each phase
     tp.prove(dpk, r1cs, w, seed=11, timings=phases)
+    info["h_ntt"] = h_ntt_check(dpk, r1cs, w)
     if profile:
         info["profile"] = profile_prove(lambda: tp.prove(dpk, r1cs, w,
                                                          seed=12))
@@ -1217,6 +1418,38 @@ def phase_prove(device, profile=False):
                 phases_s=phases, launches=launches,
                 launches_per_proof=per_proof)
     return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof)
+
+
+def ptxas_summary(text, kernels=("k_prefix<", "k_horner<", "k_poseidon<")):
+    """{kernel instantiation: registers, spill stores, stack bytes, ptxas
+    ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
+    name starts with one of ``kernels`` (K2, K6 and K7 by default)."""
+    import re
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            dem = subprocess.run(["c++filt", m.group(1)], capture_output=True,
+                                 text=True).stdout.strip()
+            name = dem.split("(")[0].replace("zk::", "").removeprefix(
+                "void ")
+            name = name if name.startswith(kernels) else None
+            continue
+        if name is None:
+            continue
+        r = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and "stack" not in r:
+            r.update(stack=int(m.group(1)), spill_stores=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = int(m.group(1))
+        m = re.search(r"Compile time = ([\d.]+) ms", line)
+        if m:
+            r["ptxas_ms"] = float(m.group(1))
+            name = None
+    return out
 
 
 def main(argv):
@@ -1240,20 +1473,39 @@ def main(argv):
     # ---- 1: build (one nvcc per kernel source and g++, started together)
     t0 = time.perf_counter()
     flags = ["-Xptxas", "-v"]
-    cus = dict(msm=kernels, poseidon=hkern, tree=tkern, ntt=ntt_rdma)
+    cus = dict(msm=kernels.SOURCE, poseidon=hkern.SOURCE,
+               tree=tkern.SOURCE, ntt=ntt_rdma.SOURCE, mul="mul_bench.cu")
+    def timed(cu):
+        t = time.perf_counter()
+        return cuda_build.build(cu, flags) + (time.perf_counter() - t,)
+
     with ThreadPoolExecutor(len(cus) + 1) as ex:
-        futs = {k: ex.submit(m.build, flags) for k, m in cus.items()}
+        futs = {k: ex.submit(timed, cu) for k, cu in cus.items()}
         futs["host"] = ex.submit(native_bridge.get_lib)
         built = {k: f.result() for k, f in futs.items()}
     ptxas = "".join(built[k][1] or "" for k in cus)
     if ptxas:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write(ptxas)
-    log(1, "built " + ", ".join(os.path.basename(built[k][0]) for k in cus)
+    for name, r in ptxas_summary(ptxas).items():
+        log(1, f"{name}: {r.get('registers')} registers, "
+               f"{r.get('spill_stores')} B spill stores, {r.get('stack')} B "
+               f"stack, ptxas {r.get('ptxas_ms')} ms")
+    log(1, "built " + ", ".join(f"{os.path.basename(built[k][0])} "
+                                f"({built[k][2]:.1f} s)" for k in cus)
            + f" in {time.perf_counter() - t0:.1f} s"
            + ("" if ptxas else " (cached)"))
 
-    # ---- 2: kernels vs plain twins, small then at the slices' shapes
+    # ---- 2: the product microbenchmark, then kernels vs plain twins,
+    # small then at the slices' shapes
+    products = time_products(device)
+    for (ncomp, form), r in products.items():
+        log(2, f"product {'Fp' if ncomp == 1 else 'Fp2'} ({r['form']}): "
+               f"{r['us']:.4f} us a product, {r['us_step']:.4f} us "
+               f"({r['cycles_step']:.0f} cycles) a step, max |err| "
+               f"{r['max_abs_err']}")
+    if any(r["max_abs_err"] for r in products.values()):
+        raise AssertionError("the product forms disagree")
     t0 = time.perf_counter()
     errs = check_kernels(device)
     bad = {k: v for k, v in errs.items() if v}
@@ -1261,17 +1513,23 @@ def main(argv):
            f"{not bad} ({time.perf_counter() - t0:.1f} s)")
     if bad:
         raise AssertionError(f"kernels differ from plain twins: {bad}")
-    times = time_kernels(device, clock_hz)
+    times = time_kernels(device, clock_hz, products)
     times.update(time_poseidon(device, clock_hz))
     for (name, c), t in times.items():
         label = (f"t={c}" if name == "poseidon" else "G1" if c == 1
                  else "G2")
         for u in (t, t.get("level2")):
             if u:
+                floor = (f", chain floor {u['floor_ms']:.4f} ms "
+                         f"({u['chain_levels']} product levels)"
+                         if "floor_ms" in u else "")
                 log(2, f"{name} {label} {u['shape']}: "
                        f"max |err| {u['max_abs_err']}, {u['ms']:.4f} ms, "
                        f"plain {u['plain_ms']:.2f} ms, bound "
-                       f"{u['bound_ms']:.5f} ms ({u['bound_by']})")
+                       f"{u['bound_ms']:.5f} ms ({u['bound_by']}){floor}")
+    widths = time_poseidon_widths(device)
+    log(2, "poseidon ms at 32,768 hashes by width t: "
+           + json.dumps({t: round(ms, 4) for t, ms in widths.items()}))
     bad = {k: _times_err(t) for k, t in times.items() if _times_err(t)}
     if bad:
         raise AssertionError(
@@ -1288,6 +1546,9 @@ def main(argv):
     log(4, "prove " + json.dumps(info))
     if not (info["verified"] and info["batch_ok"]):
         raise AssertionError("proof check failed")
+    if not (info["h_ntt"]["sync_free"] and info["h_ntt"]["equal"]):
+        raise AssertionError(f"the H(X) NTT stages synced the host or "
+                             f"changed: {info['h_ntt']}")
 
     # ---- 6: the depth-16 Merkle tree through K7
     merkle = phase_merkle(device, clock_hz)

@@ -97,3 +97,70 @@ def test_constants_and_roundtrips(name):
     assert (packed == jl.pack_limbs16(limbs.astype(np.uint32))).all()
     unpacked = tl.unpack_limbs16(torch.as_tensor(packed.astype(np.int64)))
     _same(jl.unpack_limbs16_jnp(jnp.asarray(packed)), unpacked)
+
+
+# ------------------------------------------- the sync-free carry of _norm
+
+def _ripple(cols, wrap):
+    """The value of limb columns (n, B) int64, carried limb by limb with
+    Python ints -> canonical limbs (n, B) (mod 2^(16 n) when ``wrap``)."""
+    n = cols.shape[0]
+    out = []
+    for b in range(cols.shape[1]):
+        v = sum(int(c) << (16 * i) for i, c in enumerate(cols[:, b]))
+        assert wrap or v < 1 << (16 * n)
+        v %= 1 << (16 * n)
+        out.append([(v >> (16 * i)) & 0xFFFF for i in range(n)])
+    return torch.tensor(out, dtype=torch.int64).T
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_norm_resolves_every_ripple(wrap):
+    M = tl.MASK
+    cases = [
+        [M + 1] + [M] * 16,           # a ripple across all 17 limbs
+        [M + 1] + [M] * 15 + [0],     # lands on 2^256 exactly
+        [M] * 16 + [0],               # nothing to carry
+        [0] * 17,
+        [M + 1, 0, M + 1, M, M, 3] + [M] * 11,
+    ]
+    rng = random.Random(5 if wrap else 6)
+    for _ in range(400):              # limbs in [0, 2^16], mostly 2^16 or M
+        cases.append([rng.choice([M + 1, M, M, rng.randrange(M)])
+                      for _ in range(17)])
+    cols = torch.tensor(cases, dtype=torch.int64).T
+    if not wrap:
+        cols[16] = 0                  # the value fits the 17 limbs
+    got = tf._norm(cols.clone(), 1, wrap=wrap)
+    assert torch.equal(got, _ripple(cols, wrap))
+    # columns up to 2^37 take 3 passes first
+    big = torch.tensor([[rng.randrange(1 << 37) for _ in range(64)]
+                        for _ in range(17)], dtype=torch.int64)
+    if not wrap:
+        big[15:] = 0
+    assert torch.equal(tf._norm(big.clone(), 3, wrap=wrap),
+                       _ripple(big, wrap))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_add_sub_landing_on_p_and_2_256(name):
+    T = getattr(tf, name)
+    p = T.modulus
+    pairs = [(p - 1, 1), (1, p - 1), (p - 2, 1), (0, 0)]
+    a = torch.as_tensor(tl.ints_to_limbs([x for x, _ in pairs]))
+    b = torch.as_tensor(tl.ints_to_limbs([y for _, y in pairs]))
+    # a + b = p reduces to 0; a - a = a - a + 2^256 - 2^256 lands on 2^256
+    assert list(tl.limbs_to_ints(T.add(a, b))) == [0, 0, p - 1, 0]
+    assert list(tl.limbs_to_ints(T.sub(a, a))) == [0] * 4
+    assert list(tl.limbs_to_ints(T.sub(b, a))) == [
+        (y - x) % p for x, y in pairs]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_lm_ops_never_read_the_host(name):
+    # a meta tensor has no values: any host read (bool, item) raises
+    T = getattr(tf, name)
+    a = torch.empty((16, 8), dtype=torch.int64, device="meta")
+    for op in (T.lm_add, T.lm_sub, T.lm_mul):
+        out = op(a, a)
+        assert out.shape == (16, 8) and out.device.type == "meta"

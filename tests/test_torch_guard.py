@@ -127,13 +127,19 @@ def test_poseidon_wrapper_rejects_bad_inputs():
     meta = torch.empty((4, 2, 16), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.hash_tiles(meta, 3)
-    with pytest.raises(ValueError, match="not t = 2"):
+    # K7 is built for every width t = 2 .. 17: t = 2 and t = 6 pass the
+    # width check and stop at the device check; t = 18 has no parameters
+    assert kernels.WIDTHS == tuple(range(2, 18))
+    with pytest.raises(ValueError, match="CUDA"):
         kernels.hash_tiles(meta[:, :1], 2)
     # a width that does not match the rows raises on the CPU as on the card
     with pytest.raises(ValueError, match=r"want \(B, 4, 16\)"):
         kernels.hash_tiles(torch.zeros((4, 2, 16), dtype=torch.int64), 5)
-    with pytest.raises(ValueError, match="not t = 6"):
+    with pytest.raises(ValueError, match="CUDA"):
         poseidon.hash_n(torch.empty((4, 5, 16), dtype=torch.int64,
+                                    device="meta"))
+    with pytest.raises(ValueError, match="not t = 18"):
+        poseidon.hash_n(torch.empty((4, 17, 16), dtype=torch.int64,
                                     device="meta"))
 
 

@@ -18,9 +18,10 @@ def test_kernels_equal_plain_twins():
     import chip_smoke
     errs = chip_smoke.check_kernels(torch.device("cuda", 0), lanes=256, k=3,
                                     W=3, wlanes=16, B=40, pairs=1500)
-    # 12 modes (K3 at 4 step counts) x (Fp, Fp2), K7 x 3 widths, K8
-    # complete and incomplete
-    assert len(errs) == 24 + 3 + 2
+    # 25 modes (K1 2, K2 at 4 step counts x 3 modes, K3 at 4 step counts,
+    # K4, K5, K6 on 5 planted window sets) x (Fp, Fp2), K7 at the 16 widths
+    # t = 2 .. 17, K8 complete and incomplete
+    assert len(errs) == 50 + 16 + 2
     assert not {k: v for k, v in errs.items() if v}
 
 

@@ -148,18 +148,98 @@ __device__ __forceinline__ bool mont_is_zero(const Mont<M>& a) {
   return o == 0;
 }
 
-// Montgomery product a * b * 2^-256 mod p (CIOS).
-template <class M>
-__device__ __forceinline__ Mont<M> mont_mul(const Mont<M>& a, const Mont<M>& b) {
-  uint32_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
+// ------------------------------------------------------- product forms
+//
+// mont_mul_n: N independent Montgomery products in one thread, CIOS row i
+// of every product issued before row i + 1 of any. FORM selects the row:
+//   kRowC   64-bit C accumulators (the compiler's IMAD.WIDE chains), the
+//           arithmetic of mont_mul;
+//   kRowPtx 32-bit PTX carry chains (mad.lo.cc / madc.hi.cc / addc).
+// Both give mont_mul's canonical limbs. chip_smoke.py's microbenchmark
+// (csrc/mul_bench.cu) times them on an H100: one thread's product is bound
+// by the issue of its multiply-adds, not by its carry chain's latency
+// (three interleaved products cost 2.8-3.7 times one), inlining gains
+// nothing consistent over the out-of-line call (0.65-0.70 us an Fp
+// product either way), and the inlined PTX row is the faster single
+// product (0.61 us). So K2 and K6 run one out-of-line product of the PTX
+// row, fp_mul_fast, and K6 spreads a level's independent products over the
+// lanes of a warp (FpWarp, Fp2Warp below), where three products cost about
+// one (0.74 us). ZK_HOST_TEST builds the header with a C++ compiler for
+// testing on a machine without a GPU: the PTX helpers then emulate the
+// carry flag.
+
+constexpr int kRowC = 0;
+constexpr int kRowPtx = 1;
+
+#ifdef ZK_HOST_TEST
+inline thread_local uint32_t zk_cc = 0;  // the emulated carry flag
+__device__ __forceinline__ uint32_t cc_op(uint64_t s, bool set) {
+  if (set) zk_cc = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return cc_op((uint64_t)(uint32_t)((uint64_t)a * b) + c, true);
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return cc_op((uint64_t)(uint32_t)((uint64_t)a * b) + c + zk_cc, true);
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return cc_op((((uint64_t)a * b) >> 32) + c, true);
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return cc_op((((uint64_t)a * b) >> 32) + c + zk_cc, true);
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  return cc_op((uint64_t)a + b + zk_cc, true);
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  return cc_op((uint64_t)a + b + zk_cc, false);
+}
+#else
+// Each chain runs as consecutive volatile asm statements (their order is
+// kept), the carry flag passing from one to the next.
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+#endif
+
+// One CIOS row of t (10 words, t < 2p on entry): t = (t + a b_i + m p) /
+// 2^32 with m = (t + a b_i) n0 mod 2^32; t < 2p again on exit.
+template <class M, int FORM>
+__device__ __forceinline__ void cios_row(uint32_t t[10], const Mont<M>& a,
+                                         uint32_t bi) {
+  if constexpr (FORM == kRowC) {
     uint64_t c = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      c += (uint64_t)t[j] + (uint64_t)a.v[j] * b.v[i];
+      c += (uint64_t)t[j] + (uint64_t)a.v[j] * bi;
       t[j] = (uint32_t)c;
       c >>= 32;
     }
@@ -177,11 +257,61 @@ __device__ __forceinline__ Mont<M> mont_mul(const Mont<M>& a, const Mont<M>& b) 
     c += t[8];
     t[7] = (uint32_t)c;
     t[8] = t[9] + (uint32_t)(c >> 32);
-  }
-  Mont<M> r;
+  } else {
+    // t += a b_i: the low halves into words 0..7, then the high halves
+    // into words 1..8 (t < 2^255 + 2^288 fits 10 words)
+    t[0] = mad_lo_cc(a.v[0], bi, t[0]);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = t[i];
-  return mont_reduce_once(r);  // t < 2p < 2^255, so t[8] == 0
+    for (int j = 1; j < 8; ++j) t[j] = madc_lo_cc(a.v[j], bi, t[j]);
+    t[8] = addc_cc(t[8], 0);
+    t[9] = addc(0, 0);
+    t[1] = mad_hi_cc(a.v[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j + 1] = madc_hi_cc(a.v[j], bi, t[j + 1]);
+    t[9] = addc(t[9], 0);
+    // t += m p, word 0 becomes zero; then shift down one word
+    uint32_t m = t[0] * M::n0;
+    t[0] = mad_lo_cc(m, M::p(0), t[0]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = madc_lo_cc(m, M::p(j), t[j]);
+    t[8] = addc_cc(t[8], 0);
+    t[9] = addc(t[9], 0);
+    t[1] = mad_hi_cc(m, M::p(0), t[1]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j + 1] = madc_hi_cc(m, M::p(j), t[j + 1]);
+    t[9] = addc(t[9], 0);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) t[j] = t[j + 1];
+  }
+}
+
+// r[k] = a[k] b[k] 2^-256 mod p, k < N, canonical; rows interleaved.
+template <class M, int FORM, int N>
+__device__ __forceinline__ void mont_mul_n(Mont<M>* r, const Mont<M>* a,
+                                           const Mont<M>* b) {
+  uint32_t t[N][10];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int i = 0; i < 10; ++i) t[k][i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < N; ++k) cios_row<M, FORM>(t[k], a[k], b[k].v[i]);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[k].v[i] = t[k][i];
+    r[k] = mont_reduce_once(r[k]);  // t < 2p < 2^255: t[8] == 0
+  }
+}
+
+// Montgomery product a * b * 2^-256 mod p (CIOS, 64-bit C accumulators).
+template <class M>
+__device__ __forceinline__ Mont<M> mont_mul(const Mont<M>& a, const Mont<M>& b) {
+  Mont<M> r;
+  mont_mul_n<M, kRowC, 1>(&r, &a, &b);
+  return r;
 }
 
 // acc += a * b, the full 512-bit product, unreduced. The caller keeps the
@@ -303,17 +433,21 @@ __device__ __forceinline__ void fr_store(int64_t* p, const Fr& a) {
 }
 
 // ------------------------------------------------------------ field traits
+//
+// kWarp: the trait computes a dependency level's products through muls
+// across a warp's lanes (FpWarp, Fp2Warp); point.cuh's level() otherwise
+// calls mul once a product.
 
 struct FpField {
   using T = Fp;
   static constexpr int NC = 1;
+  static constexpr bool kWarp = false;
   __device__ static T zero() { return fp_zero(); }
   __device__ static T one() { return fp_one(); }
   __device__ static T add(const T& a, const T& b) { return fp_add(a, b); }
   __device__ static T sub(const T& a, const T& b) { return fp_sub(a, b); }
   __device__ static T dbl(const T& a) { return fp_dbl(a); }
   __device__ static T mul(const T& a, const T& b) { return fp_mul(a, b); }
-  __device__ static T sqr(const T& a) { return fp_mul(a, a); }
   __device__ static bool is_zero(const T& a) { return fp_is_zero(a); }
   __device__ static T load(const int64_t* p) { return fp_load(p); }
   __device__ static void store(int64_t* p, const T& a) { fp_store(p, a); }
@@ -323,10 +457,13 @@ struct Fp2 {
   Fp c0, c1;
 };
 
-// Fp2 = Fp[u]/(u^2 + 1), Karatsuba as tpu_zkpool/msm/grid.py:_Fp2.mul.
-struct Fp2Field {
+// Fp2 = Fp[u]/(u^2 + 1) over the base traits B (their product), Karatsuba
+// as tpu_zkpool/msm/grid.py:_Fp2.mul.
+template <class B>
+struct Fp2Over {
   using T = Fp2;
   static constexpr int NC = 2;
+  static constexpr bool kWarp = false;
   __device__ static T zero() { return {fp_zero(), fp_zero()}; }
   __device__ static T one() { return {fp_one(), fp_zero()}; }
   __device__ static T add(const T& a, const T& b) {
@@ -337,12 +474,11 @@ struct Fp2Field {
   }
   __device__ static T dbl(const T& a) { return {fp_dbl(a.c0), fp_dbl(a.c1)}; }
   __device__ static T mul(const T& a, const T& b) {
-    Fp t0 = fp_mul(a.c0, b.c0);
-    Fp t1 = fp_mul(a.c1, b.c1);
-    Fp t2 = fp_mul(fp_add(a.c0, a.c1), fp_add(b.c0, b.c1));
+    Fp t0 = B::mul(a.c0, b.c0);
+    Fp t1 = B::mul(a.c1, b.c1);
+    Fp t2 = B::mul(fp_add(a.c0, a.c1), fp_add(b.c0, b.c1));
     return {fp_sub(t0, t1), fp_sub(fp_sub(t2, t0), t1)};
   }
-  __device__ static T sqr(const T& a) { return mul(a, a); }
   __device__ static bool is_zero(const T& a) {
     return fp_is_zero(a.c0) && fp_is_zero(a.c1);
   }
@@ -352,6 +488,83 @@ struct Fp2Field {
   __device__ static void store(int64_t* p, const T& a) {
     fp_store(p, a.c0);
     fp_store(p + 16, a.c1);
+  }
+};
+
+using Fp2Field = Fp2Over<FpField>;
+
+// ------------------------------------------------ the traits of K2 and K6
+
+// The row form of fp_mul_fast: the faster inlined single product of the
+// microbenchmark (form c against form b); out of line it matches fp_mul
+// over Fp and is ~7% faster inside an Fp2 product (forms e and a).
+constexpr int kFastRow = kRowPtx;
+
+// Out of line, as fp_mul: one copy of the product's code, which a kernel
+// calls from every formula (inlined everywhere, the formulas outgrew the
+// instruction cache: K6 ran 1.95 ms over Fp and 12.3 ms over Fp2 against
+// 1.76 and 6.08 out of line, on the H100).
+__device__ __noinline__ Fp fp_mul_fast(const Fp a, const Fp b) {
+  Fp r;
+  mont_mul_n<FpMod, kFastRow, 1>(&r, &a, &b);
+  return r;
+}
+
+// FpField and Fp2Field on fp_mul_fast: the same values (K2).
+struct FpFieldFast : FpField {
+  __device__ static T mul(const T& a, const T& b) { return fp_mul_fast(a, b); }
+};
+
+using Fp2FieldFast = Fp2Over<FpFieldFast>;
+
+// Word w of lane `src`'s Fp, for every lane of the warp.
+__device__ __forceinline__ Fp shfl_fp(Fp a, int src) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a.v[i] = __shfl_sync(0xffffffffu, a.v[i], src);
+  return a;
+}
+
+// The warp traits of K6: every lane of one warp holds the same values, and
+// muls<M> computes a dependency level's M independent products r[i] = a[i]
+// b[i] with one product a lane (lane i; over Fp2, lane 3 i + c computes
+// Karatsuba product c of pair i), then hands every product to every lane
+// by shuffles. The values are mul's, so the formulas give the same limbs
+// on these traits as on FpField and Fp2Field. The whole warp calls it.
+struct FpWarp : FpFieldFast {
+  static constexpr bool kWarp = true;
+  template <int M>
+  __device__ static void muls(T (&r)[M], const T (&a)[M], const T (&b)[M]) {
+    const int k = min((int)(threadIdx.x % 32), M - 1);
+    T x = a[0], y = b[0];
+#pragma unroll
+    for (int i = 1; i < M; ++i)
+      if (k == i) x = a[i], y = b[i];
+    const T p = fp_mul_fast(x, y);
+#pragma unroll
+    for (int i = 0; i < M; ++i) r[i] = shfl_fp(p, i);
+  }
+};
+
+struct Fp2Warp : Fp2FieldFast {
+  static constexpr bool kWarp = true;
+  template <int M>
+  __device__ static void muls(T (&r)[M], const T (&a)[M], const T (&b)[M]) {
+    const int lane = threadIdx.x % 32;
+    const int k = min(lane / 3, M - 1), c = lane % 3;
+    Fp x = a[0].c0, y = b[0].c0;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (k != i) continue;
+      x = c == 0 ? a[i].c0 : c == 1 ? a[i].c1 : fp_add(a[i].c0, a[i].c1);
+      y = c == 0 ? b[i].c0 : c == 1 ? b[i].c1 : fp_add(b[i].c0, b[i].c1);
+    }
+    const Fp p = fp_mul_fast(x, y);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Fp t0 = shfl_fp(p, 3 * i), t1 = shfl_fp(p, 3 * i + 1),
+         t2 = shfl_fp(p, 3 * i + 2);
+      r[i] = {fp_sub(t0, t1), fp_sub(fp_sub(t2, t0), t1)};
+    }
   }
 };
 

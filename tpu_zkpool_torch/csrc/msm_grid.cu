@@ -47,10 +47,43 @@
 // opposite partial sums occur. The schedule (T, log2 s) comes from the
 // wrapper (grid.wsum_schedule), which the plain twin follows add for add.
 //
-// K2 (k_prefix) keeps one thread per lane, K4/K5 one per row, K6 a single
-// thread (W x (c doublings + 1 add), a serial tail of ~280 point ops);
-// their redesign is later work, as are packed storage and inlined
-// products.
+// K2 (k_prefix): one warp per lane, K3's split. The k steps form T = min(k,
+// 32) segments of s (grid.prefix_schedule); thread t writes its segment's
+// inclusive prefix serially (its first step taken as is: the add from the
+// identity changes no limb but for an identity input, which becomes O), a
+// Kogge-Stone scan over the warp's shuffles gives the inclusive segment
+// totals, and thread t >= 1 adds the total of segment t - 1 into its s
+// outputs. Chain at k = 32: 0 + 5 + 1 = 6 adds, where one thread per lane
+// walked 32; only the real lanes are launched (640 and 20 warps on the
+// prover's path, where 1,024 threads ran twice). `mixed` selects affine
+// input and mixed segment adds, `complete` the segment adds' doubling
+// branch; the scan and carry adds are complete always (equal and opposite
+// partial sums occur).
+//
+// K6 (k_horner): one warp, design (B) of the two weighed. Horner's chain is
+// inherently serial (any addition chain for 2^(c (W - 1)) needs c (W - 1)
+// doublings in sequence), so only each op's time can shrink. The product
+// microbenchmark (chip_smoke.py, phase 2) decides how: one thread's product
+// is bound by the issue of its multiply-adds, not by its carry chain's
+// latency (three products interleaved in one thread took 2.8-3.7 times
+// one), so (A), one thread issuing a level's products together, gains
+// nothing; and inlining the product into the formulas outgrew the
+// instruction cache. A warp instruction costs the same with one lane active
+// or 32, so (B) gives each of a level's independent products its own lane
+// (lane i product i; over Fp2 lane 3 i + c Karatsuba product c of pair i,
+// up to 12 lanes), one out-of-line product a level, and shuffles hand every
+// lane every result (field.cuh FpWarp / Fp2Warp through point.cuh's
+// level()): a doubling costs 3 product times, an add 5, where one thread paid
+// 7 and 16 (21 and 48 over Fp2). Every lane holds the same values, so every
+// branch is uniform; lane 0 stores. The c doublings of the top window are
+// skipped (acc is still the literal identity, and pdouble(0, 0, 0) = (0,
+// 0, 0)); nothing after the first add is skipped, since an identity S_w
+// may carry nonzero X and Y. Chain at W = 20, c = 13: 19 x 13 doublings
+// and 20 adds, 841 product levels.
+//
+// K2 and K6 run fp_mul_fast (field.cuh), the out-of-line product of PTX
+// carry chains. K4/K5 keep one thread per row and fp_mul; packed storage
+// is later work.
 //
 // Interface: plain C, int64 16-bit-limb rows as the torch wrappers hold them
 // (tpu_zkpool_torch/msm/kernels.py), launched on the caller's stream; each
@@ -96,24 +129,68 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// Point P of the thread d lanes down the warp (every thread of the warp
+// calls it; the value is P's own where t < d, and unused there).
+template <class F>
+__device__ __forceinline__ Jac<F> shfl_up(Jac<F> P, int d) {
+  constexpr int NW = sizeof(Jac<F>) / sizeof(uint32_t);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&P);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) w[i] = __shfl_up_sync(0xffffffffu, w[i], d);
+  return P;
+}
+
+// K2's complete adds, one out-of-line copy for its three call sites (three
+// inlined copies doubled msm_grid.cu's build time and spilled over Fp2).
+template <class F>
+__device__ __noinline__ Jac<F> padd_call(const Jac<F> P, const Jac<F> Q) {
+  return padd<F, true>(P, Q);
+}
+
 // K2: per-lane inclusive prefix over k steps of (k, lanes, C, NC, 16); C = 2
-// (affine, mixed adds) or 3 (Jacobian, general adds).
+// (affine, mixed segment adds) or 3 (Jacobian, general adds); one warp per
+// lane on the schedule (T, log2s) of grid.prefix_schedule (design note).
 template <class F, bool MIXED, bool COMPLETE>
-__global__ void k_prefix(const int64_t* __restrict__ in,
-                         int64_t* __restrict__ out, int k, int lanes) {
+__global__ void __launch_bounds__(kBlock)
+    k_prefix(const int64_t* __restrict__ in, int64_t* __restrict__ out, int k,
+             int lanes, int T, int log2s) {
   constexpr int E = elems(F::NC);
   constexpr int C = MIXED ? 2 : 3;
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  Jac<F> acc = jac_zero<F>();
-  for (int j = 0; j < k; ++j) {
-    size_t i = (size_t)j * lanes + l;
+  const int t = threadIdx.x % kWarp;
+  const int l = blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp;
+  if (l >= lanes) return;  // the whole warp
+  const int s = 1 << log2s;
+  // 1. segment t, steps t s .. min(t s + s, k) - 1: its inclusive prefix
+  // into out (a segment past k is empty and its total the identity)
+  const int j0 = t * s, j1 = min(j0 + s, k);
+  Jac<F> a = jac_zero<F>();
+  for (int j = j0; j < j1; ++j) {
+    const size_t i = (size_t)j * lanes + l;
     const int64_t* q = in + i * C * E;
-    if constexpr (MIXED)
-      acc = pmadd<F, COMPLETE>(acc, F::load(q), F::load(q + E));
-    else
-      acc = padd<F, COMPLETE>(acc, jac_load<F>(q));
-    jac_store<F>(out + i * 3 * E, acc);
+    if constexpr (MIXED) {
+      typename F::T x = F::load(q), y = F::load(q + E);
+      a = j == j0 ? Jac<F>{x, y, F::one()} : pmadd<F, COMPLETE>(a, x, y);
+    } else {
+      Jac<F> Q = jac_load<F>(q);
+      if (j > j0)
+        a = padd_call<F>(a, Q);
+      else if (!F::is_zero(Q.Z))  // O + Q: an identity Q becomes O
+        a = Q;
+    }
+    jac_store<F>(out + i * 3 * E, a);
+  }
+  // 2. inclusive scan of the segment totals over the T threads
+  for (int d = 1; d < T; d <<= 1) {
+    Jac<F> o = shfl_up<F>(a, d);
+    if (t >= d && t < T) a = padd_call<F>(o, a);
+  }
+  // 3. the total of segments 0 .. t - 1 into this segment's outputs
+  Jac<F> cy = shfl_up<F>(a, 1);
+  if (t >= 1 && t < T) {
+    for (int j = j0; j < j1; ++j) {
+      int64_t* o = out + ((size_t)j * lanes + l) * 3 * E;
+      jac_store<F>(o, padd_call<F>(cy, jac_load<F>(o)));
+    }
   }
 }
 
@@ -198,18 +275,21 @@ __global__ void k_scale_add(const int64_t* __restrict__ a,
   jac_store<F>(out + o, padd<F, true>(P, jac_load<F>(b + o)));
 }
 
-// K6: Horner sum_w 2^(c w) S_w over (W, 3, NC, 16), one thread.
+// K6: Horner sum_w 2^(c w) S_w over (W, 3, NC, 16), one warp on the warp
+// traits (design note): from the top window down, c doublings (none at the
+// top), then one complete add; lane 0 stores.
 template <class F>
-__global__ void k_horner(const int64_t* __restrict__ S,
-                         int64_t* __restrict__ out, int W, int c) {
+__global__ void __launch_bounds__(kWarp)
+    k_horner(const int64_t* __restrict__ S, int64_t* __restrict__ out, int W,
+             int c) {
   constexpr int E = elems(F::NC);
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  Jac<F> acc = jac_zero<F>();
-  for (int t = W - 1; t >= 0; --t) {
+  Jac<F> acc =
+      padd<F, true>(jac_zero<F>(), jac_load<F>(S + (size_t)(W - 1) * 3 * E));
+  for (int t = W - 2; t >= 0; --t) {
     for (int d = 0; d < c; ++d) acc = pdouble<F>(acc);
     acc = padd<F, true>(acc, jac_load<F>(S + (size_t)t * 3 * E));
   }
-  jac_store<F>(out, acc);
+  if (threadIdx.x == 0) jac_store<F>(out, acc);
 }
 
 inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
@@ -217,7 +297,11 @@ inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
 }  // namespace zk
 
 using zk::Fp2Field;
+using zk::Fp2FieldFast;
+using zk::Fp2Warp;
 using zk::FpField;
+using zk::FpFieldFast;
+using zk::FpWarp;
 
 extern "C" {
 
@@ -237,25 +321,27 @@ int msm_prefix_rows(const int64_t* xy, const int64_t* payload, int64_t* out,
   return (int)cudaGetLastError();
 }
 
-// mixed: complete or not; Jacobian: complete only (the wrapper checks).
+// One warp a lane, T in [1, 32]. mixed: complete or not; Jacobian:
+// complete only (the wrapper checks).
 int msm_prefix(const int64_t* in, int64_t* out, int k, int lanes, int ncomp,
-               int mixed, int complete, void* stream) {
+               int mixed, int complete, int T, int log2s, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = zk::grid_for(lanes);
+  if (T < 1 || T > zk::kWarp) return (int)cudaErrorInvalidValue;
+  dim3 g = zk::grid_for(lanes * zk::kWarp);
   if (ncomp == 1) {
     if (mixed && complete)
-      zk::k_prefix<FpField, true, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes);
+      zk::k_prefix<FpFieldFast, true, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes, T, log2s);
     else if (mixed)
-      zk::k_prefix<FpField, true, false><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes);
+      zk::k_prefix<FpFieldFast, true, false><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes, T, log2s);
     else
-      zk::k_prefix<FpField, false, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes);
+      zk::k_prefix<FpFieldFast, false, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes, T, log2s);
   } else {
     if (mixed && complete)
-      zk::k_prefix<Fp2Field, true, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes);
+      zk::k_prefix<Fp2FieldFast, true, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes, T, log2s);
     else if (mixed)
-      zk::k_prefix<Fp2Field, true, false><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes);
+      zk::k_prefix<Fp2FieldFast, true, false><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes, T, log2s);
     else
-      zk::k_prefix<Fp2Field, false, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes);
+      zk::k_prefix<Fp2FieldFast, false, true><<<g, zk::kBlock, 0, s>>>(in, out, k, lanes, T, log2s);
   }
   return (int)cudaGetLastError();
 }
@@ -298,10 +384,11 @@ int msm_scale_add(const int64_t* a, const int64_t* b, int64_t* out, int n,
 int msm_horner(const int64_t* S, int64_t* out, int W, int ncomp, int c,
                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (W < 1) return (int)cudaErrorInvalidValue;
   if (ncomp == 1)
-    zk::k_horner<FpField><<<1, 1, 0, s>>>(S, out, W, c);
+    zk::k_horner<FpWarp><<<1, zk::kWarp, 0, s>>>(S, out, W, c);
   else
-    zk::k_horner<Fp2Field><<<1, 1, 0, s>>>(S, out, W, c);
+    zk::k_horner<Fp2Warp><<<1, zk::kWarp, 0, s>>>(S, out, W, c);
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,13 @@
 // Z3 = 0); identity operands (Z = 0) are always handled. The selects keep
 // grid.py's order (doubling, then P == -Q, then P = O, then Q = O), so the
 // results equal the plain torch twin limb for limb.
+//
+// Each formula computes its products one dependency level at a time, as
+// the twin's ``muls`` groups them (pdouble 3 levels, pmadd and padd 5),
+// through level(): on the warp traits (K6) a level's products run on
+// separate lanes, on the others one after another. A square is mul(a, a),
+// and a Montgomery product is canonical, so neither the order nor the lane
+// changes a limb.
 #pragma once
 
 #include "field.cuh"
@@ -38,21 +45,36 @@ __device__ __forceinline__ void jac_store(int64_t* row, const Jac<F>& P) {
   F::store(row + 2 * E, P.Z);
 }
 
+// r[i] = a[i] b[i], i < M: one dependency level's independent products.
+template <class F, int M>
+__device__ __forceinline__ void level(typename F::T (&r)[M],
+                                     const typename F::T (&a)[M],
+                                     const typename F::T (&b)[M]) {
+  if constexpr (F::kWarp) {
+    F::template muls<M>(r, a, b);
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) r[i] = F::mul(a[i], b[i]);
+  }
+}
+
 template <class F>
 __device__ Jac<F> pdouble(const Jac<F>& P) {
   using T = typename F::T;
-  T A = F::sqr(P.X);
-  T B = F::sqr(P.Y);
-  T C = F::sqr(B);
-  T xb = F::add(P.X, B);
-  T D = F::dbl(F::sub(F::sub(F::sqr(xb), A), C));
-  T E = F::add(F::dbl(A), A);
-  T Fq = F::sqr(E);
-  T X3 = F::sub(Fq, F::dbl(D));
-  T C8 = F::dbl(F::dbl(F::dbl(C)));
-  T Y3 = F::sub(F::mul(E, F::sub(D, X3)), C8);
-  T Z3 = F::dbl(F::mul(P.Y, P.Z));
-  return {X3, Y3, Z3};
+  T l1[3];  // A = X^2, B = Y^2, Y Z
+  level<F, 3>(l1, {P.X, P.Y, P.Y}, {P.X, P.Y, P.Z});
+  const T A = l1[0], B = l1[1];
+  const T xb = F::add(P.X, B);
+  const T E = F::add(F::dbl(A), A);
+  T l2[3];  // C = B^2, (X + B)^2, E^2
+  level<F, 3>(l2, {B, xb, E}, {B, xb, E});
+  const T C = l2[0];
+  const T D = F::dbl(F::sub(F::sub(l2[1], A), C));
+  const T X3 = F::sub(l2[2], F::dbl(D));
+  const T C8 = F::dbl(F::dbl(F::dbl(C)));
+  T l3[1];  // E (D - X3)
+  level<F, 1>(l3, {E}, {F::sub(D, X3)});
+  return {X3, F::sub(l3[0], C8), F::dbl(l1[2])};
 }
 
 // _finish: Q is affine (Z2 = 1, never the identity) when QAFF.
@@ -79,39 +101,42 @@ template <class F, bool COMPLETE>
 __device__ Jac<F> pmadd(const Jac<F>& P, const typename F::T& X2,
                         const typename F::T& Y2) {
   using T = typename F::T;
-  T Z1Z1 = F::sqr(P.Z);
-  T U2 = F::mul(X2, Z1Z1);
-  T S2 = F::mul(Y2, F::mul(P.Z, Z1Z1));
-  T H = F::sub(U2, P.X);
-  T r = F::sub(S2, P.Y);
-  T HH = F::sqr(H);
-  T HHH = F::mul(H, HH);
-  T V = F::mul(P.X, HH);
-  T X3 = F::sub(F::sub(F::sqr(r), HHH), F::dbl(V));
-  T Y3 = F::sub(F::mul(r, F::sub(V, X3)), F::mul(P.Y, HHH));
-  T Z3 = F::mul(P.Z, H);
+  T l1[1];  // Z1Z1
+  level<F, 1>(l1, {P.Z}, {P.Z});
+  T l2[2];  // U2 = X2 Z1Z1, Z1 Z1Z1
+  level<F, 2>(l2, {X2, P.Z}, {l1[0], l1[0]});
+  const T H = F::sub(l2[0], P.X);
+  T l3[3];  // S2 = Y2 Z1^3, HH = H^2, Z3 = Z1 H
+  level<F, 3>(l3, {Y2, H, P.Z}, {l2[1], H, H});
+  const T r = F::sub(l3[0], P.Y);
+  T l4[3];  // HHH = H HH, V = X1 HH, r^2
+  level<F, 3>(l4, {H, P.X, r}, {l3[1], l3[1], r});
+  const T X3 = F::sub(F::sub(l4[2], l4[0]), F::dbl(l4[1]));
+  T l5[2];  // r (V - X3), Y1 HHH
+  level<F, 2>(l5, {r, P.Y}, {F::sub(l4[1], X3), l4[0]});
   Jac<F> Q = {X2, Y2, F::one()};
-  return finish<F, COMPLETE, true>(P, Q, {X3, Y3, Z3}, H, r);
+  return finish<F, COMPLETE, true>(P, Q, {X3, F::sub(l5[0], l5[1]), l3[2]},
+                                   H, r);
 }
 
 template <class F, bool COMPLETE>
 __device__ Jac<F> padd(const Jac<F>& P, const Jac<F>& Q) {
   using T = typename F::T;
-  T Z1Z1 = F::sqr(P.Z);
-  T Z2Z2 = F::sqr(Q.Z);
-  T U1 = F::mul(P.X, Z2Z2);
-  T U2 = F::mul(Q.X, Z1Z1);
-  T S1 = F::mul(P.Y, F::mul(Q.Z, Z2Z2));
-  T S2 = F::mul(Q.Y, F::mul(P.Z, Z1Z1));
-  T H = F::sub(U2, U1);
-  T r = F::sub(S2, S1);
-  T HH = F::sqr(H);
-  T HHH = F::mul(H, HH);
-  T V = F::mul(U1, HH);
-  T X3 = F::sub(F::sub(F::sqr(r), HHH), F::dbl(V));
-  T Y3 = F::sub(F::mul(r, F::sub(V, X3)), F::mul(S1, HHH));
-  T Z3 = F::mul(F::mul(P.Z, Q.Z), H);
-  return finish<F, COMPLETE, false>(P, Q, {X3, Y3, Z3}, H, r);
+  T l1[3];  // Z1Z1, Z2Z2, Z1 Z2
+  level<F, 3>(l1, {P.Z, Q.Z, P.Z}, {P.Z, Q.Z, Q.Z});
+  T l2[4];  // U1 = X1 Z2Z2, U2 = X2 Z1Z1, Z2 Z2Z2, Z1 Z1Z1
+  level<F, 4>(l2, {P.X, Q.X, Q.Z, P.Z}, {l1[1], l1[0], l1[1], l1[0]});
+  const T H = F::sub(l2[1], l2[0]);
+  T l3[4];  // S1 = Y1 Z2^3, S2 = Y2 Z1^3, HH = H^2, Z3 = Z1 Z2 H
+  level<F, 4>(l3, {P.Y, Q.Y, H, l1[2]}, {l2[2], l2[3], H, H});
+  const T r = F::sub(l3[1], l3[0]);
+  T l4[3];  // HHH = H HH, V = U1 HH, r^2
+  level<F, 3>(l4, {H, l2[0], r}, {l3[2], l3[2], r});
+  const T X3 = F::sub(F::sub(l4[2], l4[0]), F::dbl(l4[1]));
+  T l5[2];  // r (V - X3), S1 HHH
+  level<F, 2>(l5, {r, l3[0]}, {F::sub(l4[1], X3), l4[0]});
+  return finish<F, COMPLETE, false>(P, Q, {X3, F::sub(l5[0], l5[1]), l3[3]},
+                                    H, r);
 }
 
 }  // namespace zk

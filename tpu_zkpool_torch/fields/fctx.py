@@ -11,8 +11,9 @@ each limb is one contiguous slice. Every op is a fixed, short sequence of
 tensor ops, with no loop over the batch and no limb-by-limb carry chain:
 
 - a carry chain is resolved by :func:`_norm`: split-and-shift passes over
-  all limbs at once, as many as the column bound needs, plus one more only
-  where a ripple carry is left;
+  all limbs at once, as many as the column bound needs, then every ripple
+  carry left at once through one packed binary sum (no host read, so no
+  device op waits on the host);
 - Montgomery multiplication is the three-product form: T = a*b, m = (T mod
   R) * (-p^-1) mod R, (T + m*p) / R, then one conditional subtraction. The
   two constant products are float64 matrix products, exact because every
@@ -49,19 +50,32 @@ def _pad1(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _shifts(n: int, nd: int, device) -> torch.Tensor:
+    """Limb indices 0 .. n-1 shaped (n, 1, ..., 1) to broadcast over nd dims."""
+    return torch.arange(n, device=device).view((n,) + (1,) * (nd - 1))
+
+
 def _norm(x: torch.Tensor, passes: int, wrap: bool = False) -> torch.Tensor:
-    """Carry-normalize nonnegative int64 columns (n, *B) into canonical
-    16-bit limbs. The value must fit the n limbs, or ``wrap`` drops what
-    carries out of the top (reduction mod 2^(16 n)).
+    """Carry-normalize nonnegative int64 columns (n, *B), n <= 17, into
+    canonical 16-bit limbs. The value must fit the n limbs, or ``wrap``
+    drops what carries out of the top (reduction mod 2^(16 n)).
 
     ``passes`` split-and-shift passes bring every column into [0, 2^16] (1
-    for columns < 2^17 + 2, 3 for columns < 2^37); a column left at exactly
-    2^16 (a ripple carry, rare on any data) takes one more pass each."""
-    while True:
-        x = _passes(x, passes, wrap)
-        if not bool((x > MASK).any()):
-            return x
-        passes = 1
+    for columns < 2^17, 3 for columns < 2^37). What is left is a ripple: a
+    limb at 2^16 generates a carry (bit i of G), a limb at 2^16 - 1
+    propagates one (bit i of P). In the binary sum (G | P) + G every ripple
+    resolves at once: the carry into limb i is bit i of ((G | P) + G) ^ P.
+    With r = max(x - (2^16 - 2), 0), which is 2 at a generate and 1 at a
+    propagate, (G | P) + G = sum_i r_i 2^i and P = sum_i (r_i & 1) 2^i. A
+    fixed sequence of tensor ops, so a device tensor never waits on the
+    host."""
+    x = _passes(x, passes, wrap)
+    sh = _shifts(x.shape[0], x.dim(), x.device)
+    r = (x - (MASK - 1)).clamp_(min=0)
+    carry = ((((r << sh).sum(0) ^ ((r & 1) << sh).sum(0)).unsqueeze(0) >> sh)
+             & 1)
+    return (x + carry) & MASK
 
 
 def _passes(x: torch.Tensor, passes: int, wrap: bool = False) -> torch.Tensor:

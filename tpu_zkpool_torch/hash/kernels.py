@@ -7,8 +7,9 @@ TPU's (nb, t-1, 16, 8, 128) tiles of 1,024 hashes. The wrapper:
 
 - raises ``ValueError`` on either device for inputs not shaped (B, t-1, 16);
 - sends a CPU tensor to the plain twin, ``poseidon.hash_n_plain`` (any t);
-- raises ``ValueError`` for a width t the kernel is not built for (3, 4, 5)
-  and for anything but a contiguous int64 CUDA tensor;
+- raises ``ValueError`` for a width t the kernel is not built for (it is
+  built for every width the parameters cover, t = 2 .. 17) and for anything
+  but a contiguous int64 CUDA tensor;
 - allocates the output, launches on the current stream with the width's
   tables (``poseidon.tables``), raises if the launch reported an error, and
   adds one to ``LAUNCHES["poseidon"]``.
@@ -25,7 +26,7 @@ from tpu_zkpool_torch.fields.limbs import NLIMB
 from tpu_zkpool_torch.hash import poseidon
 
 SOURCE = "poseidon.cu"
-WIDTHS = (3, 4, 5)
+WIDTHS = tuple(range(2, 18))   # t = 2 .. 17: N_ROUNDS_P covers them
 
 # Launches since the last reset (the main path's evidence that it ran
 # through the kernel).

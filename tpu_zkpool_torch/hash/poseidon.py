@@ -120,8 +120,8 @@ def hash_n(inputs: torch.Tensor) -> torch.Tensor:
     """Poseidon hash of int64[..., n, 16] Montgomery inputs -> [..., 16].
 
     circomlib convention: state = [0, *inputs], output = state[0] after one
-    permutation. Runs where the inputs are: K7 on a CUDA tensor (n = 2, 3
-    or 4; other widths raise ``ValueError``), the plain twin on the CPU."""
+    permutation. Runs where the inputs are: K7 on a CUDA tensor (n = 1 ..
+    16; other widths raise ``ValueError``), the plain twin on the CPU."""
     n = inputs.shape[-2]
     flat = inputs.reshape((-1, n, NLIMB)).contiguous()
     out = kernels.hash_tiles(flat, n + 1)

@@ -11,7 +11,8 @@ Pipeline per slice of points, the same as the JAX package's:
    per step - the O(N * W) bulk, every window in one launch of kernel K1
    (``prefix_rows``), which gathers its rows by the payload and writes the
    prefix in sorted order,
-4. cross-chunk prefix in two 32-step levels (K2, ``prefix``), bucket values
+4. cross-chunk prefix in two levels (K2, ``prefix``: W * lanes / 32 lanes
+   of 32 steps, then W lanes of lanes / 32), bucket values
    from boundary differences (K4, ``addn``) at the bucket starts, found for
    all windows by one batched ``searchsorted`` (no host sync),
 5. bucket reduction sum_j j * B_j with the weighted-suffix identity (K3,
@@ -254,23 +255,69 @@ def prefix_rows_plain(xy, payload_t, complete):
 
 
 def prefix_plain(tiles, mixed, complete):
-    """K2 twin. tiles (k, lanes, C, ncomp, 16), C = 2 (affine, mixed adds)
-    or 3 (Jacobian, general adds) -> (k, lanes, 3, ncomp, 16) inclusive
-    prefix sums over the k steps."""
+    """K2 twin. tiles (k, lanes, C, ncomp, 16), C = 2 (affine input, mixed
+    segment adds) or 3 (Jacobian, general adds) -> (k, lanes, 3, ncomp, 16)
+    inclusive prefix sums over the k steps, by the kernel's schedule
+    (``prefix_schedule``: T segments of s steps), add for add in the same
+    operand order:
+
+    1. segment t (steps t s .. t s + s - 1, those below k) serially: its
+       first step as is (an identity Jacobian input as O, as O + Q gives
+       it; an affine input with Z = 1), then a = a + q (``complete`` sets
+       the doubling branch of these adds);
+    2. inclusive scan of the segment totals a_t (Kogge-Stone, d = 1, 2,
+       4, ...: a_t = a_(t-d) + a_t where t >= d);
+    3. each output of segment t >= 1 becomes a_(t-1) + its segment prefix.
+
+    The scan and carry adds are complete. A segment past k is empty, its
+    total the identity, which passes through a complete add unchanged."""
     k, lanes, C, ncomp, _ = tiles.shape
     if C != (2 if mixed else 3):
         raise ValueError(f"prefix: {C} coordinates for mixed={mixed}")
     F = _field(ncomp)
-    q = _to_lm(tiles)
-    acc = _zero_point(ncomp, lanes, tiles.device)
-    out = []
-    for j in range(k):
-        acc = (_pmadd if mixed else _padd)(F, acc, q[j], complete)
-        out.append(acc)
-    return _from_lm(torch.stack(out))
+    T, log2s = prefix_schedule(k)
+    s = 1 << log2s
+    pad = _pad_rows(tiles, T * s).reshape((T, s, lanes) + tiles.shape[2:])
+    q = _to_lm(pad.transpose(0, 1).reshape((s, T * lanes) + tiles.shape[2:]))
+    # valid[j] over the T * lanes batch: step t s + j < k
+    step = torch.arange(T, device=tiles.device)[:, None] * s
+    live = (step + torch.arange(s, device=tiles.device) < k).T
+    live = live.repeat_interleave(lanes, 1)            # (s, T * lanes)
+    zero = _zero_point(ncomp, T * lanes, tiles.device)
+    pre = []
+    for j in range(s):
+        x = q[j]
+        if j == 0:
+            a = (torch.cat([x, F.one(x[0])[None]]) if mixed
+                 else F.select(F.is_zero(x[2]), zero, x)).where(live[0], zero)
+        else:
+            a = (_pmadd(F, a, x, complete) if mixed
+                 else _padd(F, a, x)).where(live[j], a)
+        pre.append(a)
+
+    def seg(P):                                    # (3, 16, nc, T', lanes)
+        return P.reshape(P.shape[:3] + (-1, lanes))
+
+    def flat(P):
+        return P.reshape(P.shape[:3] + (-1,))
+
+    a = seg(a)
+    d = 1
+    while d < T:
+        a = torch.cat([a[..., :d, :], seg(_padd(F, flat(a[..., :T - d, :]),
+                                                flat(a[..., d:, :])))], 3)
+        d *= 2
+    # (3, 16, nc, s, T, lanes): segment prefixes, then the carries for t >= 1
+    P = torch.stack(pre, 3).reshape((3, NLIMB, ncomp, s, T, lanes))
+    if T > 1:
+        cy = a[..., :T - 1, :].unsqueeze(3).expand(-1, -1, -1, s, -1, -1)
+        add = _padd(F, flat(cy), flat(P[..., 1:, :]))
+        P = torch.cat([P[..., :1, :], add.reshape(cy.shape)], 4)
+    out = P.permute(4, 3, 5, 0, 2, 1).reshape((T * s, lanes, 3, ncomp, NLIMB))
+    return out[:k].contiguous()
 
 
-WARP = 32          # K3's segments per lane: one warp's threads
+WARP = 32          # K2's and K3's segments per lane: one warp's threads
 
 
 def wsum_schedule(L: int):
@@ -279,6 +326,13 @@ def wsum_schedule(L: int):
     s the power of two >= ceil(L / T); steps L .. T s - 1 are identities."""
     T = min(L, WARP)
     return T, (-(-L // T) - 1).bit_length()
+
+
+def prefix_schedule(k: int):
+    """K2's schedule for k steps, shared by the kernel (through its
+    wrapper) and the twin: the split of ``wsum_schedule``, (T, log2 s)
+    with T = min(k, 32) segments of s = 2^log2s >= ceil(k / T) steps."""
+    return wsum_schedule(k)
 
 
 def wsum_plain(steps):
@@ -540,10 +594,11 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     # ---- cross-chunk exclusive prefix of the `lanes` chunk totals, all
     # windows batched into lanes: level 1 groups the chunks of window w
     # into GA groups of 32; flat row (w*GA + g)*32 + e = w*lanes + g*32 + e.
+    # K2 runs on the real lanes only: W * GA of 32 steps, then W of GA.
     GA = lanes // 32
-    l1 = _prefix_chunks(_pad_rows(TOT, lanes * 32), 32)
+    l1 = _prefix_chunks(TOT, 32)
     gtot = l1[torch.arange(W * GA, device=dev) * 32 + 31]
-    l2 = _prefix_chunks(_pad_rows(gtot, lanes * GA), GA)
+    l2 = _prefix_chunks(gtot, GA)
 
     # excl[w, chunk = g*32 + e] = l1[e-1 @ lane w*GA + g] + l2[g-1 @ lane w]
     ch = torch.arange(lanes, device=dev)[None, :]

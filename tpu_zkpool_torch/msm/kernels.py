@@ -47,7 +47,7 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         _lib = cuda_build.load(SOURCE, dict(
             msm_prefix_rows=[P, P, P, I, I, I, I, I, P],
-            msm_prefix=[P, P, I, I, I, I, I, P],
+            msm_prefix=[P, P, I, I, I, I, I, I, I, P],
             msm_wsum=[P, P, I, I, I, I, I, P],
             msm_addn=[P, P, P, I, I, P],
             msm_scale_add=[P, P, P, I, I, I, P],
@@ -90,8 +90,10 @@ def prefix_rows(xy, payload_t, complete: bool):
 
 def prefix(tiles, mixed: bool, complete: bool):
     """K2. tiles (k, lanes, C, ncomp, 16), C = 2 when ``mixed`` (affine
-    input, mixed adds) else 3 (Jacobian, complete adds only) -> (k, lanes,
-    3, ncomp, 16) inclusive prefix sums."""
+    input, mixed segment adds) else 3 (Jacobian, complete adds only) -> (k,
+    lanes, 3, ncomp, 16) inclusive prefix sums, one warp a lane on the
+    schedule of ``grid.prefix_schedule(k)``. ``complete`` sets the segment
+    adds' doubling branch; the scan and carry adds are always complete."""
     if tiles.device.type == "cpu":
         return grid.prefix_plain(tiles, mixed, complete)
     cuda_build.check_tensors("prefix", tiles)
@@ -99,11 +101,12 @@ def prefix(tiles, mixed: bool, complete: bool):
     if not mixed and not complete:
         raise ValueError("prefix: the Jacobian scan takes complete adds only")
     k, lanes = tiles.shape[:2]
+    T, log2s = grid.prefix_schedule(k)
     out = torch.empty((k, lanes, 3, nc, 16), dtype=torch.int64,
                       device=tiles.device)
     cuda_build.launch(LAUNCHES, "prefix", out.device, _load().msm_prefix,
                       tiles.data_ptr(), out.data_ptr(), k, lanes, nc,
-                      int(mixed), int(complete))
+                      int(mixed), int(complete), T, log2s)
     return out
 
 
@@ -157,8 +160,8 @@ def scale_add(a, b, log2s: int):
 
 
 def horner(S, c: int):
-    """K6. S (W, 3, ncomp, 16) window sums -> sum_w 2^(c w) S_w as one row
-    (3, ncomp, 16)."""
+    """K6. S (W, 3, ncomp, 16) window sums, W >= 1 -> sum_w 2^(c w) S_w as
+    one row (3, ncomp, 16), by Horner's rule in one thread."""
     if S.device.type == "cpu":
         return grid.horner_plain(S, c)
     cuda_build.check_tensors("horner", S)
