@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``tpu_zkpool_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; exits non-zero on a failure
-    python3 chip_smoke.py --profile  # also trace one warm proof of each path
+    python3 chip_smoke.py --profile  # also trace warm proofs, a build, an MSM
     python3 chip_smoke.py --out DIR  # details directory (default chip_smoke_out/)
 
 Phases, one line each:
@@ -15,18 +15,27 @@ Phases, one line each:
              chain of 4,096 Fp and Fp2 products: out of line, inlined C,
              inlined PTX carry chains, three chains interleaved, PTX out
              of line, three chains on three lanes of a warp; us a product,
-             every form on the same limbs); then each kernel
-             K1-K6, for Fp (G1) and Fp2 (G2), K7 at every width t = 2 ..
-             17, and K8 complete and incomplete, against its plain torch
-             twin on the card (equal limb for limb): every mode on small
-             inputs with the special cases (K1 over several windows; K2 at
-             k = 1, 5, 32, 64, mixed, mixed-incomplete and Jacobian, and K3
-             at L = 1, 5, 32, 128, with identity, doubling and cancelling
-             lanes; K6 on planted identity, doubling, cancelling and equal
-             windows), then K1-K7 at the withdraw proof's and the Merkle
-             tree's shapes (K1 one launch over 20 windows, K2 and K3 at
-             both of their prover shapes), timed beside the twin, the bound
-             and (K2, K6) the chain floor; K7 alone at every width;
+             every form on the same limbs), then the inverse
+             microbenchmark (one thread, 16 inversions x <- 1/x + y as
+             Fermat with fp_mul, Fermat with a 4-bit window and dedicated
+             squares, and safegcd; 4,096 squares by fp_mul and by fp_sqr;
+             us a step, each form on the same limbs); then each kernel
+             K1-K6, for Fp (G1) and Fp2 (G2), K7 and K8, against its plain
+             torch twin on the card (equal limb for limb): every mode on
+             small inputs with the special cases (K1 over several windows;
+             K2 at k = 1, 5, 32, 64, mixed, mixed-incomplete and Jacobian,
+             and K3 at L = 1, 5, 32, 128, with identity, doubling and
+             cancelling lanes; K6 on planted identity, doubling, cancelling
+             and equal windows; K7 at every width t = 2 .. 17 in each
+             layout built for it, and for t = 2, 3, 5, 17 at B = 1, 2,
+             31, 64, 4,096 and 32,768 in the wrapper's layout, with 0, 1
+             and r - 1 planted; K8 complete and incomplete at M = 1 once a
+             planted kind, 40, 1,023, 1,025, 4,096 and the prover's level
+             0, with doublings, cancelling pairs, each infinity flag and
+             zero denominators planted), then K1-K7 at the withdraw proof's and
+             the Merkle tree's shapes (K1 one launch over 20 windows, K2 and
+             K3 at both of their prover shapes), timed beside the twin, the
+             bound and (K2, K6, K7) the chain floor; K7 alone at every width;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
@@ -40,13 +49,16 @@ Phases, one line each:
              the plain twin and 64 sampled nodes per level against the host
              oracle; a MerkleTree on the card of 256 host inserts, its
              device-built root against its frontier root, 8 proofs verified
-             and a tampered one rejected; warm ms of the 2^16 build;
+             and a tampered one rejected; warm ms of the 2^16 build; K7
+             at each level's width as the wrapper runs it and in both
+             layouts, beside its chain floor;
   7 chain    bench.py's Poseidon throughput shape: a hash2 chain, batch 2^15
              x 4, warm best of 3, in hashes/s, sampled outputs against the
              host oracle;
   8 tree     ``tree=True``: K8 at the prover's level 0 (20 x 8,192 pairs)
-             against its twin, timed beside it and its bound, then alone at
-             each of the leg's 14 level widths; phase 3's 2^18 G1 MSM and a
+             against its twin, timed beside it, its bound and its chain
+             floor, then alone at each of the leg's 14 level widths beside
+             their bounds and floors; phase 3's 2^18 G1 MSM and a
              2^14 MSM with all-equal scalars against the native oracle;
              phase 4's key with tree=True: one cold and three warm proofs,
              verified, a tampered input rejected, the seed-7 proof equal to
@@ -68,6 +80,8 @@ Phases, one line each:
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
              proofs and K9 during phase 9's rdma products (must be > 0); it
              runs last.
+``--profile`` traces one warm proof of each path, one warm 2^16 build and
+one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository's
 ``tpu_zkpool_torch``: without either it exits non-zero and prints no
@@ -402,59 +416,113 @@ def kernel_cases(inp):
     ] + [("horner", v, kern, plain) for v, kern, plain in horners]
 
 
-def tree_pairs(M, device, seed=8):
+# K8's planted kinds: pair i is of kind (i + offset) % 16 (the rest random)
+TREE_KINDS = {1: "P = Q", 2: "P = -Q", 3: "INF_L", 4: "INF_R", 5: "both INF",
+              6: "x equal, y unrelated", 7: "P = Q under INF_L",
+              8: "P = -Q under INF_R", 9: "P = Q under both"}
+
+
+def tree_pairs(M, device, seed=8, offset=0, pool_n=4096):
     """M pairs for K8: affine Montgomery rows L, R int64[M, 32] (x limbs,
-    then y limbs) and flags int64[M] (1 = L is infinity, 2 = R is). In every
-    block of 16 pairs: P = Q, P = -Q, INF_L, INF_R, both, x equal with an
-    unrelated y, and P = Q or P = -Q under an INF bit; the rest random."""
+    then y limbs) and flags int64[M] (1 = L is infinity, 2 = R is), L and R
+    distinct points of a pool of min(2M, pool_n) seeded points, with pair i
+    of kind (i + offset) % 16 planted as ``TREE_KINDS`` says: a doubling, a
+    cancelling pair (a zero denominator in complete mode; P = Q gives one in
+    incomplete mode), each infinity flag, x equal with an unrelated y, and
+    the doubling or cancelling under an INF bit."""
+    n = min(2 * M, pool_n)
     rng = random.Random(seed)
-    pts = _points(1, 2 * M, seed)
-    Lp, Rp, fl = pts[:M], pts[M:], [0] * M
-    for i in range(0, M - 9, 16):
-        Rp[i + 1] = Lp[i + 1]                               # P = Q
-        Rp[i + 2] = _neg(1, Lp[i + 2])                      # P = -Q
-        fl[i + 3], fl[i + 4], fl[i + 5] = 1, 2, 3           # INF_L, INF_R, both
-        Rp[i + 6] = (Lp[i + 6][0], rng.randrange(FP_MOD))   # x equal only
-        Rp[i + 7], fl[i + 7] = Lp[i + 7], 1
-        Rp[i + 8], fl[i + 8] = _neg(1, Lp[i + 8]), 2
-        Rp[i + 9], fl[i + 9] = Lp[i + 9], 3
-    rows = [torch.as_tensor(FP.to_mont([[x, y] for x, y in side]))
-            .reshape(M, 32).to(device) for side in (Lp, Rp)]
-    return rows[0], rows[1], torch.tensor(fl, device=device)
+    pool = torch.as_tensor(FP.to_mont(_points(1, n, seed))).reshape(n, 32)
+    i = torch.arange(M)
+    L = pool[(2 * i) % n]
+    R = pool[(2 * i + 1) % n]
+    negL = torch.cat([L[:, :16], FP.neg(L[:, 16:])], 1)
+    kind = (i + offset) % 16
+    fl = torch.zeros(M, dtype=torch.int64)
+    for k, rows, f in ((1, L, 0), (2, negL, 0), (7, L, 1), (8, negL, 2),
+                       (9, L, 3)):
+        R = torch.where((kind == k)[:, None], rows, R)
+        fl = torch.where(kind == k, f, fl)
+    for k, f in ((3, 1), (4, 2), (5, 3)):
+        fl = torch.where(kind == k, f, fl)
+    six = (kind == 6).nonzero().flatten()
+    if len(six):
+        ys = torch.as_tensor(FP.to_mont([rng.randrange(FP_MOD)
+                                         for _ in range(len(six))]))
+        R[six] = torch.cat([L[six, :16], ys], 1)
+    return L.to(device), R.contiguous().to(device), fl.to(device)
+
+
+# K7's batch sizes and widths held through the wrapper's layout choice
+POSEIDON_BS = (1, 2, 31, 64, 4096, 1 << 15)
+POSEIDON_TS = (2, 3, 5, 17)
+# K8's pair counts held in both modes (with M = 1 once a planted kind)
+TREE_MS = (40, 1023, 1025)
 
 
 def check_kernels(device, lanes=1024, k=4, Ls=WSUM_LS, W=4, wlanes=64,
-                  B=256, pairs=4096, Ks=PREFIX_KS):
+                  B=256, pairs=4096, Ks=PREFIX_KS, poseidon_bs=POSEIDON_BS,
+                  tree_ms=TREE_MS + ("level0",)):
     """Every kernel mode, Fp and Fp2 (K1 over W windows; K2 at each k of
     ``Ks`` and K3 at each L of ``Ls``, on ``wlanes`` planted lanes; K6 on
-    planted windows), K7 at every width t = 2 .. 17 at batch B, and K8 in
-    both modes on ``pairs`` planted pairs, against its plain twin on
-    ``device``. Returns {(name, ncomp or t, variant): max |kernel - plain|
+    planted windows), against its plain twin on ``device``: K7 at every
+    width t = 2 .. 17 at batch B in each layout built for it, and at each
+    batch of ``poseidon_bs`` for t = 2, 3, 5, 17 in the layout the wrapper
+    picks; K8 in both modes at M = 1 once a planted kind, at each M of
+    ``tree_ms`` ("level0": the prover's level 0, 163,840 pairs) and at
+    ``pairs``. Returns {(name, ncomp or t, variant): max |kernel - plain|
     over the limbs and flags}."""
     errs = {}
+
+    def held(key, got, want):
+        if got[0].is_cuda:
+            torch.cuda.synchronize()
+        errs[key] = max(int((g - w).abs().max().item())
+                        for g, w in zip(got, want))
+
     for ncomp in (1, 2):
         inp = kernel_inputs(ncomp, device, lanes, k, Ls, W, wlanes, Ks=Ks)
         for name, variant, kern, plain in kernel_cases(inp):
-            got, want = kern(), plain()
-            if got.is_cuda:
-                torch.cuda.synchronize()
-            errs[(name, ncomp, variant)] = int(
-                (got - want).abs().max().item())
+            held((name, ncomp, variant), [kern()], [plain()])
+    sms = _sms(device)
     for t in hkern.WIDTHS:
         x = poseidon_special(t, B, device)
-        got, want = hkern.hash_tiles(x, t), poseidon.hash_n_plain(x)
-        if got.is_cuda:
-            torch.cuda.synchronize()
-        errs[("poseidon", t, "special")] = int((got - want).abs().max().item())
-    Lr, Rr, fl = tree_pairs(pairs, device)
-    for complete in (True, False):
-        got = tkern.tree_level(Lr, Rr, fl, complete)
-        want = affine_tree.tree_level_plain(Lr, Rr, fl, complete)
-        if got[0].is_cuda:
-            torch.cuda.synchronize()
-        errs[("tree_level", 1, "complete" if complete else "incomplete")] = \
-            max(int((g - w).abs().max().item()) for g, w in zip(got, want))
+        want = poseidon.hash_n_plain(x)
+        for lay in _layouts(t):
+            held(("poseidon", t, f"B={B} {_layout_name(lay)}"),
+                 [hkern._launch(x, t, lay, 32)], [want])
+    for t in POSEIDON_TS:
+        for b in poseidon_bs:
+            x = poseidon_special(t, b, device)
+            lay = _layout_name(hkern.layout(b, t, sms)[0])
+            held(("poseidon", t, f"B={b} {lay}"), [hkern.hash_tiles(x, t)],
+                 [poseidon.hash_n_plain(x)])
+    cases = [(1, o) for o in TREE_KINDS] + [
+        (tree_widths()[0] if m == "level0" else m, 0)
+        for m in tree_ms + (pairs,)]
+    for M, offset in cases:
+        Lr, Rr, fl = tree_pairs(M, device, offset=offset)
+        for complete in (True, False):
+            held(("tree_level", 1, f"M={M}"
+                  + (f" {TREE_KINDS[offset]}" if M == 1 else "")
+                  + (" complete" if complete else " incomplete")),
+                 tkern.tree_level(Lr, Rr, fl, complete),
+                 affine_tree.tree_level_plain(Lr, Rr, fl, complete))
     return errs
+
+
+def _layouts(t):
+    """K7's built layouts of width t: G lanes a hash, and one thread a hash
+    up to THREAD_MAX_T."""
+    return (hkern.group_lanes(t),) + ((0,) if t <= hkern.THREAD_MAX_T else ())
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _layout_name(lanes):
+    return f"lanes G={lanes}" if lanes else "thread"
 
 
 # ------------------------------------------------- product microbenchmark
@@ -516,6 +584,49 @@ def time_products(device, n=4096, reps=3):
     return res
 
 
+INV_FORMS = ("i Fermat, fp_mul", "ii Fermat, 4-bit window and squares",
+             "iii safegcd", "square by fp_mul", "square by fp_sqr")
+K8_INV_FORM = 2      # K8 runs fp_inv, form (iii)
+
+
+def time_inverses(device, n_inv=16, n_sqr=4096, reps=3):
+    """One thread walking a dependent chain (``csrc/mul_bench.cu``
+    inv_chain): n_inv inversions x <- x^-1 + y in each form, (i) Fermat
+    with fp_mul, (ii) Fermat with a 4-bit window and dedicated squares,
+    (iii) field.cuh's safegcd (K8's); then n_sqr squares x <- x^2 by fp_mul
+    and by fp_sqr. The best of ``reps`` launches by CUDA events, in us a
+    step and clock64 cycles a step. Forms (ii) and (iii) must end on form (i)'s
+    limbs, the dedicated square on fp_mul's. Returns {form: dict}."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = cuda_build.load("mul_bench.cu", {"inv_chain": [P, P, P, I, I, P]})
+    rng = random.Random(56)
+    inp = torch.as_tensor(FP.to_mont([rng.randrange(1, FP_MOD)
+                                      for _ in range(2)]), device=device)
+    res, want = {}, {}
+    for form, name in enumerate(INV_FORMS):
+        n = n_inv if form < 3 else n_sqr
+        out = torch.empty(16, dtype=torch.int64, device=device)
+        cyc = torch.zeros(1, dtype=torch.int64, device=device)
+        times = []
+        for _ in range(reps + 1):                  # the first one warms up
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            rc = lib.inv_chain(inp.data_ptr(), out.data_ptr(), cyc.data_ptr(),
+                               n, form, ctypes.c_void_p(
+                                   torch.cuda.current_stream(device)
+                                   .cuda_stream))
+            t1.record()
+            torch.cuda.synchronize()
+            if rc:
+                raise RuntimeError(f"inv_chain form {form}: CUDA error {rc}")
+            times.append(t0.elapsed_time(t1))
+        ref = want.setdefault(form < 3, out.clone())
+        res[form] = dict(form=name, us=min(times[1:]) * 1e3 / n,
+                         cycles=int(cyc.item()) / n,
+                         max_abs_err=int((out - ref).abs().max().item()))
+    return res
+
+
 # ------------------------------------------------------------ Poseidon K7
 
 def poseidon_special(t, B, device, seed=9):
@@ -574,10 +685,30 @@ def poseidon_bound(t, B, clock_hz):
                                        else "bytes")
 
 
-def time_poseidon(device, clock_hz, B=1 << 15):
+def poseidon_floor(t, lanes, products, inverses):
+    """(product levels, floor ms) of one hash's chain, the latency floor of
+    a launch: in the lane layout R_F full rounds of two squares, a product
+    and the lane's lazy mix (t unreduced products, a reduction a group of
+    5), and 3 product levels a partial round, a level at form f's time (a
+    level's products on the lanes of a warp); one thread a hash runs every
+    multiply-add of the hash in one thread (``poseidon_madds``, in products
+    at form a's time)."""
+    mul = products[(1, 0)]["us"]
+    if not lanes:
+        levels = poseidon_madds(t) / MADDS_PER_FP_MUL
+        return levels, levels * mul / 1e3
+    sqr, lvl = inverses[4]["us"], products[(1, K6_FORM)]["us_step"]
+    mix = (t * MADDS_WIDE + -(-t // 5) * MADDS_REDC) / MADDS_PER_FP_MUL
+    r_p = N_ROUNDS_P[t - 2]
+    us = N_ROUNDS_F * (2 * sqr + mul + mix * mul) + 3 * r_p * lvl
+    return N_ROUNDS_F * (3 + mix) + 3 * r_p, us / 1e3
+
+
+def time_poseidon(device, clock_hz, products, inverses, B=1 << 15):
     """K7 for t = 3, 4, 5 at batch B (the top level of the 2^16 tree is
     hash2 x 32,768): its output against the plain twin's on the same inputs,
-    and the ms of both."""
+    the ms of both, the bound and the chain floor of the layout the wrapper
+    picks."""
     res = {}
     for t in (3, 4, 5):
         x = random_mont((B, t - 1), device, seed=70 + t)
@@ -585,18 +716,38 @@ def time_poseidon(device, clock_hz, B=1 << 15):
         plain_ms, want = _cuda_ms(lambda: poseidon.hash_n_plain(x), 1,
                                   warm=False)
         bound_ms, bound_by = poseidon_bound(t, B, clock_hz)
+        lanes = hkern.layout(B, t, _sms(device))[0]
+        levels, floor_ms = poseidon_floor(t, lanes, products, inverses)
         res[("poseidon", t)] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            shape=(B, t - 1), max_abs_err=int((got - want).abs().max().item()))
+            shape=(B, t - 1), layout=_layout_name(lanes),
+            chain_levels=round(levels, 1), floor_ms=floor_ms,
+            max_abs_err=int((got - want).abs().max().item()))
     return res
 
 
-def time_poseidon_widths(device, B=1 << 15):
+def time_poseidon_widths(device, B=1 << 15, B2=1 << 13):
     """K7 alone at every width t = 2 .. 17, B hashes: {t: ms} (CUDA
-    events, 20 launches)."""
-    return {t: _cuda_ms(lambda x=random_mont((B, t - 1), device, seed=80 + t):
-                        hkern.hash_tiles(x, t), 20)[0]
-            for t in hkern.WIDTHS}
+    events, 20 launches), and {t: {B or B2: each built layout's ms}}."""
+    ms = {t: _cuda_ms(lambda x=random_mont((B, t - 1), device, seed=80 + t):
+                      hkern.hash_tiles(x, t), 20)[0] for t in hkern.WIDTHS}
+    return ms, {t: time_poseidon_layouts(device, t, (B, B2), reps=5)
+                for t in hkern.WIDTHS}
+
+
+def time_poseidon_layouts(device, t, widths, reps=20):
+    """K7 of width t at each batch of ``widths`` in each built layout,
+    and the wrapper's choice: {B: {"lanes": ms, "thread": ms, "chosen":
+    layout}} (CUDA events around a CUDA graph of ``reps`` launches)."""
+    res, sms = {}, _sms(device)
+    for b in widths:
+        x = random_mont((b, t - 1), device, seed=50 + b % 97)
+        res[b] = {_layout_name(lay).split()[0]: _graph_ms(
+            lambda lay=lay: hkern._launch(x, t, lay, hkern.block_size(
+                b * (lay or 1), sms)), reps)[0]
+            for lay in _layouts(t)}
+        res[b]["chosen"] = _layout_name(hkern.layout(b, t, sms)[0])
+    return res
 
 
 # ------------------------------------------------------------ timings
@@ -614,6 +765,19 @@ def _cuda_ms(fn, reps, warm=True):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps, out
+
+
+def _graph_ms(fn, reps):
+    """(mean ms of ``reps`` calls captured in one CUDA graph and replayed:
+    the device's time without the host's launch gaps, the last call's
+    output). ``fn`` runs once outside the graph first."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    return _cuda_ms(graph.replay, 3)[0] / reps, out
 
 
 def _times_err(t):
@@ -818,9 +982,11 @@ def phase_msm(device):
     return out, g1
 
 
-def phase_merkle(device, clock_hz, log2n=16, inserts=256, samples=64):
+def phase_merkle(device, clock_hz, products, inverses, log2n=16,
+                 inserts=256, samples=64, profile=False):
     """The depth-16 tree at full capacity on the card, then a MerkleTree of
-    host inserts; the K7 launches of both are this path's count."""
+    host inserts; the K7 launches of both are this path's count.
+    ``profile`` traces one warm 2^16 build."""
     n = 1 << log2n
     leaves = random_mont((n,), device, seed=16)
     hkern.reset_launches()            # the Merkle path starts here
@@ -879,12 +1045,24 @@ def phase_merkle(device, clock_hz, log2n=16, inserts=256, samples=64):
         times.append((time.perf_counter() - t0) * 1e3)
     info.update(build_ms=times, build_ms_best=min(times),
                 bound_ms=poseidon_bound(3, n - 1, clock_hz)[0])
-    # K7 alone at each level's width, 32,768 ... 1 hashes (CUDA events)
-    info["level_ms"] = {}
+    if profile:
+        x = random_mont((n,), device, seed=23)
+        info["profile"] = profile_prove(lambda: build_levels(x, 16))
+    # K7 alone at each level's width, 32,768 ... 1 hashes (CUDA events),
+    # as the wrapper runs it and in each layout, beside the chain floor
+    info["level_ms"], info["level_graph_ms"] = {}, {}
+    info["level_floor_ms"] = {}
     for k in range(1, log2n + 1):
         x = random_mont((n >> k, 2), device, seed=40 + k)
         info["level_ms"][n >> k] = _cuda_ms(lambda: hkern.hash_tiles(x, 3),
                                             20)[0]
+        info["level_graph_ms"][n >> k] = _graph_ms(
+            lambda: hkern.hash_tiles(x, 3), 20)[0]
+        info["level_floor_ms"][n >> k] = poseidon_floor(
+            3, hkern.layout(n >> k, 3, _sms(device))[0], products,
+            inverses)[1]
+    info["level_layouts_ms"] = time_poseidon_layouts(
+        device, 3, [n >> k for k in range(1, log2n + 1)])
     info["ok"] = (err == 0 and bad_nodes == 0 and info["root_is_top"]
                   and build_launches == log2n and info["tree_root_ok"]
                   and info["proofs_ok"] and info["tamper_rejected"])
@@ -944,10 +1122,22 @@ def tree_widths(n=1 << 14, c=13, W=20):
     return [W * p for p in affine_tree.tree_plan(n, 1 << (c - 1))[1]]
 
 
-def time_tree(device, clock_hz, pool_n=4096, seed=91):
+def tree_floor(M, sms, products, inverses):
+    """(product levels, floor ms) of one K8 launch of M pairs: the measured
+    inverse (form iii) plus 2 log2(threads a block) product levels (the
+    product tree up and down, form a), as ``tree_kernels.launch_shape``
+    shapes the launch."""
+    nt = tkern.launch_shape(M, sms)[0]
+    levels = 2 * (nt.bit_length() - 1)
+    return levels, (inverses[K8_INV_FORM]["us"]
+                    + levels * products[(1, 0)]["us"]) / 1e3
+
+
+def time_tree(device, clock_hz, products, inverses, pool_n=4096, seed=91):
     """K8 (complete mode, as the prover runs it) at the prover's level 0:
-    its output against the plain twin's on the same inputs, the ms of both
-    and the bound; then K8 alone at each level's width (CUDA events)."""
+    its output against the plain twin's on the same inputs, the ms of both,
+    the bound and the chain floor; then K8 alone at each level's width
+    (CUDA events) beside its floor."""
     widths = tree_widths()
     M = widths[0]
     pool = torch.as_tensor(FP.to_mont(_points(1, pool_n, seed))) \
@@ -960,11 +1150,20 @@ def time_tree(device, clock_hz, pool_n=4096, seed=91):
     plain_ms, want = _cuda_ms(
         lambda: affine_tree.tree_level_plain(L, R, fl, True), 1, warm=False)
     bound_ms, bound_by = tree_bound(L, R, fl, True, clock_hz)
+    sms = _sms(device)
+    levels, floor_ms = tree_floor(M, sms, products, inverses)
     res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               shape=M, max_abs_err=max(int((g - w).abs().max().item())
-                                        for g, w in zip(got, want)))
-    res["level_ms"] = {m: _cuda_ms(lambda: tkern.tree_level(
-        L[:m], R[:m], fl[:m], True), 20)[0] for m in widths}
+               shape=M, launch_shape=tkern.launch_shape(M, sms),
+               chain_levels=levels, floor_ms=floor_ms,
+               max_abs_err=max(int((g - w).abs().max().item())
+                               for g, w in zip(got, want)))
+    level = lambda m: (lambda: tkern.tree_level(L[:m], R[:m], fl[:m], True))
+    res["level_ms"] = {m: _cuda_ms(level(m), 20)[0] for m in widths}
+    res["level_graph_ms"] = {m: _graph_ms(level(m), 20)[0] for m in widths}
+    res["level_bound_ms"] = {m: tree_bound(L[:m], R[:m], fl[:m], True,
+                                           clock_hz)[0] for m in widths}
+    res["level_floor_ms"] = {m: tree_floor(m, sms, products, inverses)[1]
+                             for m in widths}
     return res
 
 
@@ -980,6 +1179,18 @@ def phase_tree(device, g1, ctx, profile=False):
     warm_ms, res = _host_ms(msm)
     info["msm18"] = dict(cold_ms=cold_ms, warm_ms=warm_ms, ok=tp._g1_affine(
         tuple(t.cpu() for t in res)) == g1["want"])
+    if profile:
+        # one warm 2^18 tree MSM: K8's device ms against the rest (the
+        # other kernels, and torch glue: affine_tree.bucket_sums_tree's
+        # gathers, selects and counts, and the grid pipeline around it)
+        p = profile_prove(msm)
+        k8 = p["by_kernel"].get("k_tree_level", {}).get("device_ms", 0.0)
+        ours = sum(v["device_ms"] for v in p["by_kernel"].values())
+        info["msm18"]["split"] = dict(
+            wall_ms=p["wall_s"] * 1e3, device_ms=p["device_busy_s"] * 1e3,
+            k8_ms=k8, other_kernels_ms=ours - k8,
+            glue_device_ms=p["device_busy_s"] * 1e3 - ours,
+            by_kernel=p["by_kernel"], top=p["top"])
     n = 1 << 14
     k = random.Random(18).randrange(1, FR_MOD)
     pts_dev = tuple(t[:n].contiguous() for t in g1["pts_dev"])
@@ -1296,7 +1507,7 @@ def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
 # the kernel functions whose device time profile_prove sums over their
 # Fp and Fp2 instantiations
 PROFILED = ("k_prefix_rows", "k_prefix", "k_wsum", "k_addn", "k_scale_add",
-            "k_horner", "k_tree_level")
+            "k_horner", "k_tree_level", "k_poseidon", "k_poseidon_lanes")
 
 
 def profile_prove(run):
@@ -1420,10 +1631,11 @@ def phase_prove(device, profile=False):
     return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof)
 
 
-def ptxas_summary(text, kernels=("k_prefix<", "k_horner<", "k_poseidon<")):
+def ptxas_summary(text, kernels=("k_prefix<", "k_horner<", "k_poseidon<",
+                                 "k_poseidon_lanes<", "k_tree_level<")):
     """{kernel instantiation: registers, spill stores, stack bytes, ptxas
     ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
-    name starts with one of ``kernels`` (K2, K6 and K7 by default)."""
+    name starts with one of ``kernels`` (K2, K6, K7 and K8 by default)."""
     import re
     out, name = {}, None
     for line in text.splitlines():
@@ -1506,6 +1718,13 @@ def main(argv):
                f"{r['max_abs_err']}")
     if any(r["max_abs_err"] for r in products.values()):
         raise AssertionError("the product forms disagree")
+    inverses = time_inverses(device)
+    for form, r in inverses.items():
+        log(2, f"inverse Fp ({r['form']}): {r['us']:.4f} us "
+               f"({r['cycles']:.0f} cycles) a step, max |err| "
+               f"{r['max_abs_err']}")
+    if any(r["max_abs_err"] for r in inverses.values()):
+        raise AssertionError("the inverse or square forms disagree")
     t0 = time.perf_counter()
     errs = check_kernels(device)
     bad = {k: v for k, v in errs.items() if v}
@@ -1514,7 +1733,7 @@ def main(argv):
     if bad:
         raise AssertionError(f"kernels differ from plain twins: {bad}")
     times = time_kernels(device, clock_hz, products)
-    times.update(time_poseidon(device, clock_hz))
+    times.update(time_poseidon(device, clock_hz, products, inverses))
     for (name, c), t in times.items():
         label = (f"t={c}" if name == "poseidon" else "G1" if c == 1
                  else "G2")
@@ -1523,13 +1742,17 @@ def main(argv):
                 floor = (f", chain floor {u['floor_ms']:.4f} ms "
                          f"({u['chain_levels']} product levels)"
                          if "floor_ms" in u else "")
+                if "layout" in u:
+                    floor += f", layout {u['layout']}"
                 log(2, f"{name} {label} {u['shape']}: "
                        f"max |err| {u['max_abs_err']}, {u['ms']:.4f} ms, "
                        f"plain {u['plain_ms']:.2f} ms, bound "
                        f"{u['bound_ms']:.5f} ms ({u['bound_by']}){floor}")
-    widths = time_poseidon_widths(device)
+    widths, width_layouts = time_poseidon_widths(device)
     log(2, "poseidon ms at 32,768 hashes by width t: "
            + json.dumps({t: round(ms, 4) for t, ms in widths.items()}))
+    log(2, "poseidon ms by width t in each built layout (a CUDA graph): "
+           + json.dumps(width_layouts))
     bad = {k: _times_err(t) for k, t in times.items() if _times_err(t)}
     if bad:
         raise AssertionError(
@@ -1551,7 +1774,8 @@ def main(argv):
                              f"changed: {info['h_ntt']}")
 
     # ---- 6: the depth-16 Merkle tree through K7
-    merkle = phase_merkle(device, clock_hz)
+    merkle = phase_merkle(device, clock_hz, products, inverses,
+                          profile="--profile" in argv)
     log(6, "merkle " + json.dumps(merkle))
     if not merkle["ok"]:
         raise AssertionError("Merkle tree check failed")
@@ -1563,11 +1787,17 @@ def main(argv):
         raise AssertionError("hash chain differs from the host oracle")
 
     # ---- 8: the affine bucket tree through K8
-    t = times[("tree_level", 1)] = time_tree(device, clock_hz)
-    log(8, f"tree_level G1 {t['shape']}: max |err| {t['max_abs_err']}, "
-           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, bound "
-           f"{t['bound_ms']:.5f} ms ({t['bound_by']}); per level "
-           + json.dumps(t["level_ms"]))
+    t = times[("tree_level", 1)] = time_tree(device, clock_hz, products,
+                                             inverses)
+    log(8, f"tree_level G1 {t['shape']} {t['launch_shape']}: max |err| "
+           f"{t['max_abs_err']}, {t['ms']:.4f} ms, plain "
+           f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.5f} ms "
+           f"({t['bound_by']}), chain floor {t['floor_ms']:.4f} ms (the "
+           f"inverse and {t['chain_levels']} product levels); per level ms "
+           + json.dumps(t["level_ms"]) + ", in a CUDA graph " + json.dumps(
+               t["level_graph_ms"]) + ", bound " + json.dumps(
+               t["level_bound_ms"]) + ", floor " + json.dumps(
+               t["level_floor_ms"]))
     if t["max_abs_err"]:
         raise AssertionError("K8 differs from its plain twin at level 0")
     tree = phase_tree(device, g1, ctx, profile="--profile" in argv)

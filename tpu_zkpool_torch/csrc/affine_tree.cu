@@ -13,26 +13,33 @@
 // for finite operands, xL = xR (complete mode: and yL != yR). Batch
 // inversion yields each exact inverse, so no TPU chunking is copied.
 //
-// Design. One block of 128 threads owns 1,024 consecutive pairs, each thread
-// the 8 pairs t, t + 128, ... of them (neighbouring threads read
-// neighbouring rows). Forward: each thread forms its denominators and their
-// running products P_j, kept in shared memory. Mid: a product tree over the
-// threads' chain totals in shared memory, one Fermat inversion of the block
-// total by thread 0 (exponent p - 2: 253 squarings and 109 products), and a
-// down-sweep that hands each thread the inverse S of its chain total.
-// Backward: each thread walks its pairs from last to first, dinv = S P_{j-1}
-// and S <- S den_j, then lambda, x3, y3 and the selects. The denominators
-// are recomputed from the rows rather than stored. Any M >= 1; the last
-// block masks its tail. No step crosses blocks.
+// Design. A block of nt threads (32 or 128; any power of two up to 128
+// runs) owns nt * per consecutive pairs, thread t the pairs t, t + nt, ...
+// (per <= 8; neighbouring threads read neighbouring rows, 16 bytes a
+// load). The wrapper (msm/tree_kernels.py:launch_shape) picks nt and per
+// from M: about four resident blocks a SM at the prover's level 0 (163,840
+// pairs: 128 threads, 3 pairs each, 427 blocks), and for narrow levels one
+// pair a thread in 32-thread blocks, so a launch's latency is the inverse
+// plus the tree. Forward: each thread forms its denominators and their running
+// products P_j (P_0 .. P_{per-2} in dynamic shared memory, the total in a
+// register). Mid: a product tree over the threads' totals in shared memory
+// (log2 nt levels), one inversion of the block total by thread 0 with
+// field.cuh's constant-time safegcd fp_inv (a Fermat chain, 362 dependent
+// products in one thread, took ~0.25 ms on the H100, a floor under every
+// launch), and a down-sweep that computes each level's two children on two
+// threads (log2 nt levels), handing each thread the inverse S of its chain
+// total.
+// Backward: each thread walks its pairs from last to first, dinv = S
+// P_{j-1} and S <- S den_j, then lambda, x3, y3 and the selects. The
+// denominators are recomputed from the rows rather than stored. Any M >=
+// 1; the last block masks its tail. No step crosses blocks.
 //
 // Bound (chip_smoke.py:tree_bound computes it for every timed call): per
 // pair the rows in and out, 2 x 256 + 8 + 256 + 8 = 784 B of int64 limbs,
 // and 6 Fp products (3 of batch inversion, lambda, lambda^2, lambda (xL -
 // x3)) plus one per doubling, 264 32-bit multiply-adds each. At the
-// prover's widths that is bound by bytes. This design pays one serial
-// Fermat chain (362 dependent products in one thread) per block, a latency
-// floor under every launch whatever M is; one inversion per launch, a
-// faster inverse or a chain spread over a warp's lanes are later work.
+// prover's widths that is bound by bytes. Chain floor of a launch: one
+// inversion plus 2 log2 nt product levels (chip_smoke.py:tree_floor).
 //
 // Interface: plain C, launched on the caller's stream
 // (tpu_zkpool_torch/msm/tree_kernels.py); returns cudaGetLastError().
@@ -45,20 +52,26 @@
 
 namespace zk {
 
-constexpr int kTreeBlock = 128;  // threads per block
-constexpr int kTreePairs = 8;    // pairs per thread
+constexpr int kTreeMaxBlock = 128;  // threads per block, at most
+constexpr int kTreeMaxPairs = 8;    // pairs per thread, at most
 
-// a^(p-2), Montgomery in and out: square-and-multiply from the top bit of
-// p - 2 (bit 253) down. p's low word is odd and above 2, so only word 0
-// of p - 2 differs from p's.
-__device__ Fp fp_inv(const Fp& a) {
-  Fp acc = a;
-  for (int i = 252; i >= 0; --i) {
-    acc = fp_mul(acc, acc);
-    uint32_t w = kP[i >> 5] - (i < 32 ? 2u : 0u);
-    if ((w >> (i & 31)) & 1u) acc = fp_mul(acc, a);
+// 16 limbs (16-byte aligned) <-> an Fp, two limbs a load or store.
+__device__ __forceinline__ Fp fp_load2(const int64_t* p) {
+  const longlong2* q = reinterpret_cast<const longlong2*>(p);
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const longlong2 v = q[i];
+    r.v[i] = (uint32_t)v.x | ((uint32_t)v.y << 16);
   }
-  return acc;
+  return r;
+}
+
+__device__ __forceinline__ void fp_store2(int64_t* p, const Fp& a) {
+  longlong2* q = reinterpret_cast<longlong2*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    q[i] = make_longlong2(a.v[i] & 0xFFFFu, a.v[i] >> 16);
 }
 
 struct PairIn {
@@ -69,10 +82,10 @@ struct PairIn {
 __device__ __forceinline__ PairIn load_pair(const int64_t* L, const int64_t* R,
                                             const int64_t* fl, size_t i) {
   PairIn p;
-  p.xL = fp_load(L + i * 32);
-  p.yL = fp_load(L + i * 32 + 16);
-  p.xR = fp_load(R + i * 32);
-  p.yR = fp_load(R + i * 32 + 16);
+  p.xL = fp_load2(L + i * 32);
+  p.yL = fp_load2(L + i * 32 + 16);
+  p.xR = fp_load2(R + i * 32);
+  p.yR = fp_load2(R + i * 32 + 16);
   uint32_t f = (uint32_t)fl[i];
   p.infL = (f & 1u) != 0;
   p.infR = (f & 2u) != 0;
@@ -101,58 +114,64 @@ __device__ __forceinline__ void pair_terms(const PairIn& p, Fp& den, Fp& num,
   if (fp_is_zero(den) || p.infL || p.infR) den = fp_one();
 }
 
-// L, R, out (M, 32) rows: x limbs then y limbs; fl, ofl (M,).
+// L, R, out (M, 32) rows: x limbs then y limbs; fl, ofl (M,). blockDim.x =
+// nt, a power of two <= kTreeMaxBlock; per pairs a thread; dynamic shared
+// memory (per - 1) * 8 * nt words.
 template <bool COMPLETE>
-__global__ void __launch_bounds__(kTreeBlock)
+__global__ void __launch_bounds__(kTreeMaxBlock, 4)
 k_tree_level(const int64_t* __restrict__ L, const int64_t* __restrict__ R,
              const int64_t* __restrict__ fl, int64_t* __restrict__ out,
-             int64_t* __restrict__ ofl, int M) {
-  __shared__ uint32_t pre[kTreePairs][8][kTreeBlock];  // P_j, word-major
-  __shared__ Fp node[2 * kTreeBlock];                  // product tree
-  const int t = threadIdx.x;
-  const long long first =
-      (long long)blockIdx.x * kTreeBlock * kTreePairs + t;
+             int64_t* __restrict__ ofl, int M, int per) {
+  // P_j, word-major: word k of thread t's P_j at (j * 8 + k) * nt + t
+  ZK_DYNAMIC_SHARED(uint32_t, pre, (kTreeMaxPairs - 1) * 8 * kTreeMaxBlock);
+  __shared__ Fp node[2 * kTreeMaxBlock];  // product tree, root at 1
+  const int nt = blockDim.x, t = threadIdx.x;
+  const long long first = (long long)blockIdx.x * nt * per + t;
   int nj = 0;  // this thread's pairs: j = 0 .. nj-1
   if (first < M) {
-    long long n = (M - 1 - first) / kTreeBlock + 1;
-    nj = n < kTreePairs ? (int)n : kTreePairs;
+    long long n = (M - 1 - first) / nt + 1;
+    nj = n < per ? (int)n : per;
   }
 
   // ---- forward: denominators and their running products
   Fp P = fp_one();
   for (int j = 0; j < nj; ++j) {
-    PairIn p = load_pair(L, R, fl, (size_t)(first + (long long)j * kTreeBlock));
+    PairIn p = load_pair(L, R, fl, (size_t)(first + (long long)j * nt));
     Fp den, num;
     bool inf_pair;
     pair_terms<COMPLETE, false>(p, den, num, inf_pair);
-    P = j ? fp_mul(P, den) : den;
+    if (j) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) pre[j][k][t] = P.v[k];
+      for (int k = 0; k < 8; ++k) pre[((j - 1) * 8 + k) * nt + t] = P.v[k];
+      P = fp_mul(P, den);
+    } else {
+      P = den;
+    }
   }
 
   // ---- mid: product tree over the chain totals, one inversion, down-sweep
-  node[kTreeBlock + t] = P;
+  node[nt + t] = P;
   __syncthreads();
-  for (int h = kTreeBlock / 2; h >= 1; h >>= 1) {
+  for (int h = nt / 2; h >= 1; h >>= 1) {
     if (t < h) node[h + t] = fp_mul(node[2 * (h + t)], node[2 * (h + t) + 1]);
     __syncthreads();
   }
   if (t == 0) node[1] = fp_inv(node[1]);
   __syncthreads();
-  for (int h = 1; h < kTreeBlock; h <<= 1) {
-    if (t < h) {
-      int i = h + t;
-      Fp v = node[i], a = node[2 * i], b = node[2 * i + 1];
-      node[2 * i] = fp_mul(v, b);  // 1/a = 1/(ab) * b
-      node[2 * i + 1] = fp_mul(v, a);
-    }
+  for (int h = 1; h < nt; h <<= 1) {
+    // children 2h .. 4h-1: 1/child = 1/parent * sibling, one a thread
+    const int c = 2 * h + t;
+    Fp v;
+    if (t < 2 * h) v = fp_mul(node[c >> 1], node[c ^ 1]);
+    __syncthreads();
+    if (t < 2 * h) node[c] = v;
     __syncthreads();
   }
-  Fp S = node[kTreeBlock + t];  // 1 / P_{nj-1}
+  Fp S = node[nt + t];  // 1 / P_{nj-1}
 
   // ---- backward: per-pair inverses, lambda, x3, y3, selects
   for (int j = nj - 1; j >= 0; --j) {
-    size_t i = (size_t)(first + (long long)j * kTreeBlock);
+    size_t i = (size_t)(first + (long long)j * nt);
     PairIn p = load_pair(L, R, fl, i);
     Fp den, num;
     bool inf_pair;
@@ -161,7 +180,7 @@ k_tree_level(const int64_t* __restrict__ L, const int64_t* __restrict__ R,
     if (j) {
       Fp Pm1;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) Pm1.v[k] = pre[j - 1][k][t];
+      for (int k = 0; k < 8; ++k) Pm1.v[k] = pre[((j - 1) * 8 + k) * nt + t];
       dinv = fp_mul(S, Pm1);
       S = fp_mul(S, den);
     }
@@ -176,8 +195,8 @@ k_tree_level(const int64_t* __restrict__ L, const int64_t* __restrict__ R,
       x3 = p.xR;
       y3 = p.yR;
     }
-    fp_store(out + i * 32, x3);
-    fp_store(out + i * 32 + 16, y3);
+    fp_store2(out + i * 32, x3);
+    fp_store2(out + i * 32 + 16, y3);
     bool fin = !p.infL && !p.infR;
     ofl[i] = ((p.infL && p.infR) || (fin && inf_pair)) ? 1 : 0;
   }
@@ -187,16 +206,22 @@ k_tree_level(const int64_t* __restrict__ L, const int64_t* __restrict__ R,
 
 extern "C" {
 
+// nt threads a block (a power of two, 32 .. 128), per pairs a thread (1 ..
+// 8), as msm/tree_kernels.py:launch_shape gives them.
 int tree_level(const int64_t* L, const int64_t* R, const int64_t* fl,
-               int64_t* out, int64_t* ofl, int M, int complete, void* stream) {
+               int64_t* out, int64_t* ofl, int M, int complete, int nt,
+               int per, void* stream) {
+  if (nt < 32 || nt > zk::kTreeMaxBlock || (nt & (nt - 1)) || per < 1 ||
+      per > zk::kTreeMaxPairs)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  constexpr int per = zk::kTreeBlock * zk::kTreePairs;
-  dim3 g((M + per - 1) / per);
+  const long long span = (long long)nt * per;
+  dim3 g((unsigned)((M + span - 1) / span));
+  size_t smem = (size_t)(per - 1) * 8 * nt * sizeof(uint32_t);
   if (complete)
-    zk::k_tree_level<true><<<g, zk::kTreeBlock, 0, s>>>(L, R, fl, out, ofl, M);
+    zk::k_tree_level<true><<<g, nt, smem, s>>>(L, R, fl, out, ofl, M, per);
   else
-    zk::k_tree_level<false><<<g, zk::kTreeBlock, 0, s>>>(L, R, fl, out, ofl,
-                                                         M);
+    zk::k_tree_level<false><<<g, nt, smem, s>>>(L, R, fl, out, ofl, M, per);
   return (int)cudaGetLastError();
 }
 

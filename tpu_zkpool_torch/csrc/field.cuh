@@ -29,6 +29,44 @@
 
 #include <cstdint>
 
+#ifdef ZK_HOST_TEST
+// Host rehearsal: g++ -DZK_HOST_TEST builds this header (and a kernel
+// source) for a machine without a GPU. The CUDA keywords go away; a harness
+// that runs a kernel's threads defines ZK_HOST_THREADS and its own
+// threadIdx, blockIdx, blockDim, __syncthreads and shuffles, otherwise one
+// thread of one block is assumed.
+#define __device__
+#define __host__
+#define __constant__
+#define __global__
+#define __shared__ static
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __launch_bounds__(...)
+#include <algorithm>
+using std::max;
+using std::min;
+#ifndef ZK_HOST_THREADS
+struct ZkDim3 {
+  unsigned x, y, z;
+};
+inline ZkDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int, int = 32) { return v; }
+#endif
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+struct alignas(16) longlong2 {
+  long long x, y;
+};
+inline longlong2 make_longlong2(long long x, long long y) { return {x, y}; }
+// dynamic shared memory: a static array of `host_count` elements
+#define ZK_DYNAMIC_SHARED(T, name, host_count) alignas(16) static T name[host_count]
+#else
+#define ZK_DYNAMIC_SHARED(T, name, host_count) \
+  extern __shared__ __align__(16) T name[]
+#endif
+
 namespace zk {
 
 // p = 21888242871839275222246405745257275088696311157297823662689037894645226208583
@@ -367,6 +405,41 @@ __device__ __forceinline__ Mont<M> redc_wide(uint32_t T[16]) {
   return mont_reduce_once(r);  // (T + m p) / 2^256 < 2p < 2^255: hi == 0
 }
 
+// a^2 2^-256 mod p, canonical: the square's 36 distinct word products (the
+// 28 off the diagonal once, then doubled, and the 8 squares), 72
+// multiply-adds where a product's unreduced half takes 128, then redc_wide.
+template <class M>
+__device__ __forceinline__ Mont<M> mont_sqr(const Mont<M>& a) {
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; ++j) {
+      c += (uint64_t)w[i + j] + (uint64_t)a.v[i] * a.v[j];
+      w[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    w[i + 8] = (uint32_t)c;  // word i + 8 is still zero here
+  }
+#pragma unroll
+  for (int k = 15; k > 0; --k) w[k] = (w[k] << 1) | (w[k - 1] >> 31);
+  w[0] <<= 1;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t d = (uint64_t)a.v[i] * a.v[i];
+    c += (uint64_t)w[2 * i] + (uint32_t)d;
+    w[2 * i] = (uint32_t)c;
+    c = (c >> 32) + w[2 * i + 1] + (d >> 32);
+    w[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  return redc_wide<M>(w);  // a^2 < p^2 < p 2^256
+}
+
 // int64[16] 16-bit limbs <-> words.
 template <class M>
 __device__ __forceinline__ Mont<M> mont_load(const int64_t* p) {
@@ -408,6 +481,9 @@ __device__ __noinline__ Fp fp_mul(const Fp a, const Fp b) {
   return mont_mul(a, b);
 }
 
+// Out of line, as fp_mul: the dedicated square.
+__device__ __noinline__ Fp fp_sqr(const Fp a) { return mont_sqr(a); }
+
 __device__ __forceinline__ Fp fp_load(const int64_t* p) {
   return mont_load<FpMod>(p);
 }
@@ -425,6 +501,7 @@ __device__ __forceinline__ Fr fr_add(const Fr& a, const Fr& b) {
 __device__ __noinline__ Fr fr_mul(const Fr a, const Fr b) {
   return mont_mul(a, b);
 }
+__device__ __noinline__ Fr fr_sqr(const Fr a) { return mont_sqr(a); }
 __device__ __forceinline__ Fr fr_load(const int64_t* p) {
   return mont_load<FrMod>(p);
 }
@@ -567,5 +644,172 @@ struct Fp2Warp : Fp2FieldFast {
     }
   }
 };
+
+// ------------------------------------------------------ Fp inversion (K8)
+//
+// fp_inv: a^-1, Montgomery in and out (a != 0; 0 maps to 0), the
+// constant-time safegcd: a fixed count of divsteps with selects by masks,
+// no branch and no early exit on the data, as the JAX kernel's Fermat
+// chain has none. chip_smoke.py's inverse microbenchmark (csrc/mul_bench.cu,
+// with the two Fermat forms it was chosen over) times it and holds it to
+// Fermat's limbs.
+//
+// Bernstein-Yang "safegcd" (Bernstein and Yang, Fast constant-time
+// gcd computation and modular inversion, 2019) in the form of
+// libsecp256k1's constant-time modinv32: values in nine signed 30-bit
+// limbs, divsteps in batches of 30 on the low limbs, each batch a 2x2
+// transition matrix (entries in [-2^30, 2^30]) applied to f, g and to the
+// Bezout coefficients d, e mod p. 20 batches, 600 divsteps: the half-delta
+// divstep needs at most 590 for any modulus and input below 2^256
+// (libsecp256k1's bound for its modinv32 / modinv64, computed with the
+// convex-hull method of Bernstein and Yang, section 11), and p < 2^254.
+// The input aR (Montgomery) inverts to a^-1 R^-1, and one Montgomery
+// product with R^3 mod p gives a^-1 R.
+constexpr int kDivstepBatches = 20;
+constexpr int kDivsteps = 30;
+constexpr int32_t kM30 = 0x3FFFFFFF;
+// p in signed 30-bit limbs, p^-1 mod 2^30, and R^3 mod p in words
+__device__ __constant__ int32_t kP30[9] = {
+    0x187cfd47, 0x3082305b, 0x071ca8d3, 0x205aa45a, 0x01585d97,
+    0x0116da06, 0x1a029b85, 0x139cb84c, 0x00003064};
+constexpr uint32_t kPInv30 = 0x1b799c77u;
+__device__ __constant__ uint32_t kR3[8] = {
+    0xda1530dfu, 0xb1cd6dafu, 0xa7283db6u, 0x62f210e6u,
+    0x0ada0afbu, 0xef7f0b0cu, 0x2d592544u, 0x20fd6e90u};
+
+struct Divsteps {
+  int32_t u, v, q, r;
+};
+
+// 30 divsteps on the low words of f (odd) and g; zeta = -(delta + 1/2).
+// The matrix (u v; q r) maps (f, g) to 2^30 times the new (f, g). Each
+// step: if g is odd, g += f (or -f when zeta < 0, and then f takes the old
+// g); g /= 2. ((a ^ c1) - c1) & c2 is written ((a ^ c1) & c2) - (c1 & c2),
+// one three-input logic op and one three-input add.
+__device__ __forceinline__ int32_t divsteps30(int32_t zeta, uint32_t f,
+                                              uint32_t g, Divsteps& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < kDivsteps; ++i) {
+    const uint32_t c1 = (uint32_t)(zeta >> 31);         // zeta < 0
+    const uint32_t c2 = (uint32_t)((int32_t)(g << 31) >> 31);  // g odd
+    const uint32_t c3 = c1 & c2;  // swap: zeta < 0 and g odd
+    g += ((f ^ c1) & c2) - c3;
+    q += ((u ^ c1) & c2) - c3;
+    r += ((v ^ c1) & c2) - c3;
+    zeta = (zeta ^ (int32_t)c3) - 1;
+    f += g & c3;
+    u = (u + (q & c3)) << 1;
+    v = (v + (r & c3)) << 1;
+    g >>= 1;
+  }
+  t = {(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+  return zeta;
+}
+
+// (f, g) <- (u f + v g, q f + r g) / 2^30, exact.
+__device__ __forceinline__ void update_fg30(int32_t f[9], int32_t g[9],
+                                            const Divsteps& t) {
+  int64_t cf = (int64_t)t.u * f[0] + (int64_t)t.v * g[0];
+  int64_t cg = (int64_t)t.q * f[0] + (int64_t)t.r * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cf += (int64_t)t.u * f[i] + (int64_t)t.v * g[i];
+    cg += (int64_t)t.q * f[i] + (int64_t)t.r * g[i];
+    f[i - 1] = (int32_t)cf & kM30;
+    cf >>= 30;
+    g[i - 1] = (int32_t)cg & kM30;
+    cg >>= 30;
+  }
+  f[8] = (int32_t)cf;
+  g[8] = (int32_t)cg;
+}
+
+// (d, e) <- (u d + v e, q d + r e) / 2^30 mod p, kept in (-2p, p): a
+// multiple of p (md, me, chosen by masks) clears the low 30 bits.
+__device__ __forceinline__ void update_de30(int32_t d[9], int32_t e[9],
+                                            const Divsteps& t) {
+  const int32_t sd = d[8] >> 31, se = e[8] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se);
+  int32_t me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d[0] + (int64_t)t.v * e[0];
+  int64_t ce = (int64_t)t.q * d[0] + (int64_t)t.r * e[0];
+  md -= (int32_t)((kPInv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)kM30);
+  me -= (int32_t)((kPInv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)kM30);
+  cd += (int64_t)kP30[0] * md;
+  ce += (int64_t)kP30[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    cd += (int64_t)t.u * d[i] + (int64_t)t.v * e[i] + (int64_t)kP30[i] * md;
+    ce += (int64_t)t.q * d[i] + (int64_t)t.r * e[i] + (int64_t)kP30[i] * me;
+    d[i - 1] = (int32_t)cd & kM30;
+    cd >>= 30;
+    e[i - 1] = (int32_t)ce & kM30;
+    ce >>= 30;
+  }
+  d[8] = (int32_t)cd;
+  e[8] = (int32_t)ce;
+}
+
+// d in (-2p, p) -> sign * d mod p in [0, p), limbs in [0, 2^30).
+__device__ __forceinline__ void normalize30(int32_t d[9], int32_t sign) {
+  int32_t add = d[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d[i] += kP30[i] & add;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d[i] = (d[i] ^ neg) - neg;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d[i + 1] += d[i] >> 30;
+    d[i] &= kM30;
+  }
+  add = d[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d[i] += kP30[i] & add;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d[i + 1] += d[i] >> 30;
+    d[i] &= kM30;
+  }
+}
+
+__device__ __noinline__ Fp fp_inv(const Fp a) {
+  int32_t f[9], g[9], d[9], e[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {  // g = aR, bits 30 i .. 30 i + 29
+    const int o = 30 * i, k = o >> 5;
+    const uint64_t x = (uint64_t)a.v[k] |
+                       ((uint64_t)(k + 1 < 8 ? a.v[k + 1] : 0u) << 32);
+    g[i] = (int32_t)((x >> (o & 31)) & (uint64_t)kM30);
+    f[i] = kP30[i];
+    d[i] = 0;
+    e[i] = i == 0;
+  }
+  int32_t zeta = -1;  // delta = 1/2
+#pragma unroll 1
+  for (int b = 0; b < kDivstepBatches; ++b) {
+    Divsteps t;
+    zeta = divsteps30(zeta, (uint32_t)f[0], (uint32_t)g[0], t);
+    update_de30(d, e, t);
+    update_fg30(f, g, t);
+  }
+  // g = 0 and f = +-1 now; d = +-(aR)^-1
+  normalize30(d, f[8]);
+  Fp y;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {  // bits 32 k .. 32 k + 31
+    const int o = 32 * k, i = o / 30, s = o % 30;
+    y.v[k] = (uint32_t)(((uint64_t)d[i] >> s) | ((uint64_t)d[i + 1] << (30 - s)));
+  }
+  Fp r3;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r3.v[k] = kR3[k];
+  return fp_mul(y, r3);
+}
 
 }  // namespace zk

@@ -13,11 +13,19 @@
 //         lane i computes product i, shuffles hand every lane all three):
 //         one dependency level of K6.
 // Every latency-bound kernel pays this figure: K6 and K2 on the prover's
-// path, K8's Fermat chain and K7's narrow levels off it. The kernel reads
+// path, K8's tree levels and K7's narrow levels off it. The kernel reads
 // three (x, y) pairs, runs `n` steps, writes the three x (one chain's
 // forms write their x three times) and the clock64 cycles of the loop; the
 // caller times the launch with CUDA events and checks that every form ends
 // on the same limbs.
+//
+// The inverse microbenchmark (inv_chain): one thread walks a dependent
+// chain of n inversions x <- x^-1 + y over Fp in one of three forms, (i)
+// fp_inv_fermat and (ii) fp_inv_window below, (iii) field.cuh's fp_inv
+// (safegcd, the form K8 runs), and, forms 3 and 4, a chain of n squares x
+// <- x^2 by fp_mul(x, x) and by the dedicated fp_sqr. The caller holds
+// forms 1-2 to form 0's limbs and form 4 to form 3's; K8 pays one
+// inversion a block, K7 two squares and a product an S-box.
 //
 // Interface: plain C, launched <<<1, 1>>> (form 6: <<<1, 32>>>) on the
 // caller's stream; returns cudaGetLastError().
@@ -93,9 +101,86 @@ __global__ void k_mul_chain(const int64_t* __restrict__ in,
   cycles[0] = t1 - t0;
 }
 
+// Form (i): a^(p-2) by square-and-multiply from bit 253 down: 253
+// squarings and 109 products, each the out-of-line fp_mul (K8's inverse
+// before safegcd). p's low word is odd and above 2, so only word 0 of p - 2
+// differs from p's.
+__device__ Fp fp_inv_fermat(const Fp& a) {
+  Fp acc = a;
+  for (int i = 252; i >= 0; --i) {
+    acc = fp_mul(acc, acc);
+    uint32_t w = kP[i >> 5] - (i < 32 ? 2u : 0u);
+    if ((w >> (i & 31)) & 1u) acc = fp_mul(acc, a);
+  }
+  return acc;
+}
+
+// Form (ii): a^(p-2) by a fixed 4-bit window: a^0 .. a^15 (14 products),
+// then for each of the 63 lower digits four dedicated squares and one
+// product by the digit's power (none for a zero digit of the public
+// exponent): 252 squares and 14 + 63 - (zero digits) products.
+__device__ Fp fp_inv_window(const Fp& a) {
+  Fp tab[16];
+  tab[0] = fp_one();
+  tab[1] = a;
+  for (int i = 2; i < 16; ++i) tab[i] = fp_mul(tab[i - 1], a);
+  auto digit = [](int d) {
+    uint32_t w = kP[d >> 3] - (d < 8 ? 2u : 0u);
+    return (int)((w >> (4 * (d & 7))) & 15u);
+  };
+  Fp acc = tab[digit(63)];
+  for (int d = 62; d >= 0; --d) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc = fp_sqr(acc);
+    const int e = digit(d);
+    if (e) acc = fp_mul(acc, tab[e]);
+  }
+  return acc;
+}
+
+// in (2, 16): x, y; out (16,); cycles (1,).
+template <int FORM>
+__global__ void k_inv_chain(const int64_t* __restrict__ in,
+                            int64_t* __restrict__ out,
+                            long long* __restrict__ cycles, int n) {
+  Fp x = fp_load(in), y = fp_load(in + 16);
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    if constexpr (FORM == 0) {
+      x = fp_add(fp_inv_fermat(x), y);
+    } else if constexpr (FORM == 1) {
+      x = fp_add(fp_inv_window(x), y);
+    } else if constexpr (FORM == 2) {
+      x = fp_add(fp_inv(x), y);
+    } else if constexpr (FORM == 3) {
+      x = fp_mul(x, x);
+    } else {
+      x = fp_sqr(x);
+    }
+  }
+  long long t1 = clock64();
+  fp_store(out, x);
+  cycles[0] = t1 - t0;
+}
+
 }  // namespace zk
 
 extern "C" {
+
+int inv_chain(const int64_t* in, int64_t* out, long long* cycles, int n,
+              int form, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case 0: zk::k_inv_chain<0><<<1, 1, 0, s>>>(in, out, cycles, n); break;
+    case 1: zk::k_inv_chain<1><<<1, 1, 0, s>>>(in, out, cycles, n); break;
+    case 2: zk::k_inv_chain<2><<<1, 1, 0, s>>>(in, out, cycles, n); break;
+    case 3: zk::k_inv_chain<3><<<1, 1, 0, s>>>(in, out, cycles, n); break;
+    case 4: zk::k_inv_chain<4><<<1, 1, 0, s>>>(in, out, cycles, n); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 int mul_chain(const int64_t* in, int64_t* out, long long* cycles, int n,
               int ncomp, int form, void* stream) {

@@ -10,9 +10,11 @@ TPU's (nb, t-1, 16, 8, 128) tiles of 1,024 hashes. The wrapper:
 - raises ``ValueError`` for a width t the kernel is not built for (it is
   built for every width the parameters cover, t = 2 .. 17) and for anything
   but a contiguous int64 CUDA tensor;
-- allocates the output, launches on the current stream with the width's
-  tables (``poseidon.tables``), raises if the launch reported an error, and
-  adds one to ``LAUNCHES["poseidon"]``.
+- picks the kernel's layout from B, t and the card's SM count
+  (:func:`layout`: one thread a hash where B fills the card, else a group
+  of lanes a hash), allocates the output, launches on the current stream
+  with the width's word tables (``poseidon.kernel_tables``), raises if the
+  launch reported an error, and adds one to ``LAUNCHES["poseidon"]``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,15 @@ WIDTHS = tuple(range(2, 18))   # t = 2 .. 17: N_ROUNDS_P covers them
 # through the kernel).
 LAUNCHES = {"poseidon": 0}
 
+# The lane layout runs up to LANE_HASHES hashes a SM: below that one thread
+# a hash leaves the card's issue slots idle and pays a hash's whole chain
+# of products in one thread (on the H100 the lanes win at t = 3 up to 8,192
+# hashes and lose at 16,384). Above THREAD_MAX_T wires one thread's state
+# outgrows its registers and the lanes win at every batch, so the kernel
+# builds one thread a hash for t <= THREAD_MAX_T only.
+LANE_HASHES = 64
+THREAD_MAX_T = 12
+
 _lib = None
 
 
@@ -49,8 +60,43 @@ def _load():
     if _lib is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _lib = cuda_build.load(SOURCE,
-                               {"poseidon_hash": [P, P, P, P, I, I, P]})
+                               {"poseidon_hash": [P, P, P, I, I, I, I, P]})
     return _lib
+
+
+def group_lanes(t: int) -> int:
+    """G, the lanes of one hash in the lane layout: the least power of two
+    above t (a lane a wire and one for the partial rounds' w x)."""
+    return 1 << t.bit_length()
+
+
+def layout(B: int, t: int, sms: int) -> tuple:
+    """(lanes, block) of K7 for B hashes of width t on a card of ``sms``
+    SMs: lanes = G (:func:`group_lanes`) while B <= LANE_HASHES x sms or
+    t > THREAD_MAX_T, else 0 (one thread a hash); block = the widest of
+    128, 64, 32 threads that still gives every SM four blocks."""
+    wide = B > LANE_HASHES * sms and t <= THREAD_MAX_T
+    lanes = 0 if wide else group_lanes(t)
+    return lanes, block_size(B * (lanes or 1), sms)
+
+
+def block_size(threads: int, sms: int) -> int:
+    """The widest of 128, 64, 32 threads a block that still gives each of
+    ``sms`` SMs four blocks of ``threads``."""
+    return next((n for n in (128, 64) if threads >= 4 * n * sms), 32)
+
+
+def _launch(inputs, t: int, lanes: int, block: int):
+    """K7 in the given layout (``layout``'s choice in ``hash_tiles``)."""
+    B = inputs.shape[0]
+    out = torch.empty((B, NLIMB), dtype=torch.int64, device=inputs.device)
+    if B == 0:
+        return out
+    tab = poseidon.kernel_tables(t, inputs.device)
+    cuda_build.launch(LAUNCHES, "poseidon", out.device,
+                      _load().poseidon_hash, inputs.data_ptr(),
+                      out.data_ptr(), tab.data_ptr(), B, t, lanes, block)
+    return out
 
 
 def hash_tiles(inputs, t: int):
@@ -65,15 +111,8 @@ def hash_tiles(inputs, t: int):
         raise ValueError(f"poseidon: the kernel is built for widths "
                          f"{WIDTHS}, not t = {t}")
     cuda_build.check_tensors("poseidon", inputs)
-    B = inputs.shape[0]
-    out = torch.empty((B, NLIMB), dtype=torch.int64, device=inputs.device)
-    if B == 0:
-        return out
-    rc, m = poseidon.tables(t, inputs.device)
-    cuda_build.launch(LAUNCHES, "poseidon", out.device,
-                      _load().poseidon_hash, inputs.data_ptr(),
-                      out.data_ptr(), rc.data_ptr(), m.data_ptr(), B, t)
-    return out
+    sms = torch.cuda.get_device_properties(inputs.device).multi_processor_count
+    return _launch(inputs, t, *layout(inputs.shape[0], t, sms))
 
 
 def hash2_kernel(a, b):

@@ -15,6 +15,12 @@ The round constants and the MDS matrix are the slice's weights:
 :func:`_mont_tables` derives them from the port's own ``poseidon_params``,
 :func:`load_tables` puts such arrays (the port's, or the JAX package's
 uint32 ones) on a device.
+
+K7 runs the same permutation in the sparse form of the Poseidon paper's
+appendix B (the form circomlib's ``poseidon_opt`` tables encode):
+:func:`sparse_form` derives its tables exactly over Fr, with Python ints,
+from the same dense constants and matrix, and :func:`kernel_tables` packs
+them as 32-bit Montgomery words for the kernel.
 """
 
 from __future__ import annotations
@@ -74,6 +80,109 @@ def load_tables(arrays, device=None) -> Tables:
 def tables(t: int, device: torch.device) -> Tables:
     """The port's own tables for width t on ``device`` (cached)."""
     return load_tables(_mont_tables(t), device)
+
+
+def _mat_inv(A, p):
+    """Inverse of the square matrix A of ints mod p (Gauss-Jordan)."""
+    n = len(A)
+    W = [list(row) + [int(i == j) for j in range(n)]
+         for i, row in enumerate(A)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if W[r][c] % p)
+        W[c], W[piv] = W[piv], W[c]
+        inv = pow(W[c][c], -1, p)
+        W[c] = [v * inv % p for v in W[c]]
+        for r in range(n):
+            if r != c and W[r][c]:
+                f = W[r][c]
+                W[r] = [(a - f * b) % p for a, b in zip(W[r], W[c])]
+    return [row[n:] for row in W]
+
+
+def _mat_mul(A, B, p):
+    return [[sum(a * b for a, b in zip(row, col)) % p for col in zip(*B)]
+            for row in A]
+
+
+class SparseForm(NamedTuple):
+    """The permutation in the Poseidon paper's sparse form (appendix B), as
+    Python ints: every round r of width t adds its constants, applies x^5
+    (to every wire in a full round, to wire 0 in a partial one) and mixes.
+
+    - ``c_full`` (R_F, t): the full rounds' constants in order (the first
+      R_F/2, then the last R_F/2);
+    - ``k`` (R_P,): the partial rounds' constants, wire 0 only;
+    - ``m`` (t, t): the MDS matrix, out_i = sum_j m[i][j] s_j, of every full
+      round but the last of the first half, which mixes with ``pre``;
+    - ``sparse`` (R_P, 2t - 1): partial round r mixes with the matrix
+      [[w, v], [u, I]] stored as [w, v_1 .. v_{t-1}, u_1 .. u_{t-1}]:
+      out_0 = w s_0 + sum_j v_j s_j, out_i = u_i s_0 + s_i.
+    """
+    c_full: list
+    k: list
+    m: list
+    pre: list
+    sparse: list
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_form(t: int) -> SparseForm:
+    """The sparse form of width t, derived exactly from the dense constants
+    and MDS matrix of ``poseidon_params`` (the same function, so the same
+    hashes):
+
+    1. a partial round adds its constants' wires 1.. before an S-box that
+       leaves them alone, so they pass through it and through the mix
+       (M c) into the next round's constants, partial round by partial
+       round, until the first full round of the second half takes them;
+    2. each partial round's matrix W (M for the last) factors as W'' W'
+       with W' = diag(1, W^) (W^ its lower right block) and W'' = [[w_00,
+       w_0^ W^^-1], [w^_0, I]] sparse; W' commutes with the partial round
+       before it (it leaves wire 0 alone), so it moves into that round's
+       matrix, W' M, which factors in turn; the first partial round's W' M
+       is the pre-matrix of the last full round before them."""
+    C, M = poseidon_constants(t)
+    p = FR.modulus
+    r_f, r_p = N_ROUNDS_F, N_ROUNDS_P[t - 2]
+    half = r_f // 2
+    c = [[C[r * t + i] for i in range(t)] for r in range(r_f + r_p)]
+    for r in range(half, half + r_p):
+        tail = [0] + c[r][1:]
+        c[r] = [c[r][0]] + [0] * (t - 1)
+        moved = [sum(m * x for m, x in zip(row, tail)) % p for row in M]
+        c[r + 1] = [(a + b) % p for a, b in zip(c[r + 1], moved)]
+    W, sparse = M, [None] * r_p
+    for r in reversed(range(r_p)):
+        hat = [row[1:] for row in W[1:]]
+        hinv = _mat_inv(hat, p)
+        v = [sum(W[0][1 + k] * hinv[k][j] for k in range(t - 1)) % p
+             for j in range(t - 1)]
+        u = [W[1 + i][0] for i in range(t - 1)]
+        sparse[r] = [W[0][0]] + v + u
+        W = _mat_mul([[1] + [0] * (t - 1)] + [[0] + row for row in hat], M, p)
+    return SparseForm(c[:half] + c[half + r_p:], [c[r][0] for r in range(
+        half, half + r_p)], [list(row) for row in M], W, sparse)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_words(t: int) -> np.ndarray:
+    sf = sparse_form(t)
+    vals = [x for row in sf.c_full for x in row] + list(sf.k) + [
+        x for row in sf.m for x in row] + [x for row in sf.pre for x in row] \
+        + [x for row in sf.sparse for x in row]
+    p, R = FR.modulus, 1 << 256
+    words = [(v * R % p) >> (32 * w) & 0xFFFFFFFF for v in vals
+             for w in range(8)]
+    return np.array(words, dtype=np.uint32).view(np.int32).reshape(-1, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(t: int, device: torch.device) -> torch.Tensor:
+    """K7's tables of width t on ``device``: int32 (E, 8), each row one Fr
+    value in Montgomery form as 8 little-endian 32-bit words, in the order
+    c_full (R_F x t), k (R_P), m (t x t), pre (t x t), sparse (R_P x (2t -
+    1)) of :func:`sparse_form` (cached)."""
+    return torch.as_tensor(_kernel_words(t), device=device).contiguous()
 
 
 def _x5(x):

@@ -11,9 +11,10 @@ The wrapper:
 - sends a CPU tensor to the plain twin, ``affine_tree.tree_level_plain``;
 - checks a CUDA tensor's dtype, shape and contiguity and raises on anything
   the kernel does not take;
-- allocates the outputs with ``torch.empty``, launches on the current
-  stream, raises if the launch reported an error, and adds one to
-  ``LAUNCHES["tree_level"]``.
+- picks the launch shape from M and the card's SM count
+  (:func:`launch_shape`), allocates the outputs with ``torch.empty``,
+  launches on the current stream, raises if the launch reported an error,
+  and adds one to ``LAUNCHES["tree_level"]``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ SOURCE = "affine_tree.cu"
 # Launches since the last reset (the tree path's evidence that it ran
 # through the kernel).
 LAUNCHES = {"tree_level": 0}
+
+# Launch shape: blocks of 128 or 32 threads, at most 8 pairs a thread, sized
+# for about RESIDENT blocks on each SM (the kernel's launch bounds).
+MAX_PAIRS = 8
+RESIDENT = 4
 
 _lib = None
 
@@ -48,8 +54,21 @@ def _load():
     if _lib is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _lib = cuda_build.load(SOURCE,
-                               {"tree_level": [P, P, P, P, P, I, I, P]})
+                               {"tree_level": [P, P, P, P, P, I, I, I, I,
+                                               P]})
     return _lib
+
+
+def launch_shape(M: int, sms: int) -> tuple:
+    """(threads a block, pairs a thread) of K8 for M pairs on a card of
+    ``sms`` SMs: 128-thread blocks once M gives every SM two of them, else
+    32-thread blocks (a narrow level's latency is the inverse plus the
+    product tree, shorter over fewer threads); then as few pairs a thread
+    as fill RESIDENT blocks a SM. On 132 SMs the prover's level 0 (163,840
+    pairs) runs (128, 3), 56,880 pairs (128, 1), 29,500 (32, 2) and a few
+    thousand (32, 1), one pair a thread."""
+    nt = 128 if M >= 2 * 128 * sms else 32
+    return nt, min(MAX_PAIRS, max(1, -(-M // (nt * RESIDENT * sms))))
 
 
 def tree_level(L, R, fl, complete: bool):
@@ -65,11 +84,17 @@ def tree_level(L, R, fl, complete: bool):
         raise ValueError(f"tree_level: want L, R (M, {affine_tree.WORDS2}) "
                          f"and fl (M,), got {tuple(L.shape)}, "
                          f"{tuple(R.shape)}, {tuple(fl.shape)}")
+    if L.data_ptr() % 16 or R.data_ptr() % 16:
+        raise ValueError("tree_level: L and R must start on 16 bytes (the "
+                         "kernel loads two limbs at a time)")
     out = torch.empty_like(L)
     ofl = torch.empty_like(fl)
     if M == 0:
         return out, ofl
+    nt, per = launch_shape(M, torch.cuda.get_device_properties(
+        L.device).multi_processor_count)
     cuda_build.launch(LAUNCHES, "tree_level", out.device, _load().tree_level,
                       L.data_ptr(), R.data_ptr(), fl.data_ptr(),
-                      out.data_ptr(), ofl.data_ptr(), M, int(complete))
+                      out.data_ptr(), ofl.data_ptr(), M, int(complete), nt,
+                      per)
     return out, ofl
