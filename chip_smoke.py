@@ -25,8 +25,11 @@ Phases, one line each:
              small inputs with the special cases (K1 over several windows;
              K2 at k = 1, 5, 32, 64, mixed, mixed-incomplete and Jacobian,
              and K3 at L = 1, 5, 32, 128, with identity, doubling and
-             cancelling lanes; K6 on planted identity, doubling, cancelling
-             and equal windows; K7 at every width t = 2 .. 17 in each
+             cancelling lanes; K4 plain and in seven gathered modes:
+             sentinel rows on either side, the zero mask, neg_b on Y = 0
+             rows, equal and opposite operands; K5 at s = 0, 1, 7 on
+             planted doublings, cancellations and identities; K6 on
+             planted identity, doubling, cancelling and equal windows; K7 at every width t = 2 .. 17 in each
              layout built for it, and for t = 2, 3, 5, 17 at B = 1, 2,
              31, 64, 4,096 and 32,768 in the wrapper's layout, with 0, 1
              and r - 1 planted; K8 complete and incomplete at M = 1 once a
@@ -34,8 +37,11 @@ Phases, one line each:
              0, with doublings, cancelling pairs, each infinity flag and
              zero denominators planted), then K1-K7 at the withdraw proof's and
              the Merkle tree's shapes (K1 one launch over 20 windows, K2 and
-             K3 at both of their prover shapes), timed beside the twin, the
-             bound and (K2, K6, K7) the chain floor; K7 alone at every width;
+             K3 at both of their prover shapes, K4 plain at 81,920 rows and
+             at a real leg's excl, E and B calls, also in a CUDA graph with
+             the card's clocks, power and temperature sampled beside it),
+             timed beside the twin, the bound and (K2, K5, K6, K7) the
+             chain floor; K7 alone at every width;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
@@ -96,6 +102,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -361,6 +368,9 @@ def kernel_inputs(ncomp, device, lanes=1024, k=4, Ls=WSUM_LS, W=4,
     b[3::11] = _rows(ncomp, [None if p is None else _neg(ncomp, p)
                              for p in _affine(ncomp, a[3::11])], rng)
     return dict(
+        addn=addn_planted(ncomp, jac, rng, device),
+        scale={s: tuple(map(dev, scale_planted(ncomp, base[:64], s, rng)))
+               for s in SCALE_SS},
         xy=dev(aff),
         payload=dev(prefix_payload(rng, W, k, lanes, signs)),
         tiles={(kk, mixed): dev(
@@ -373,6 +383,58 @@ def kernel_inputs(ncomp, device, lanes=1024, k=4, Ls=WSUM_LS, W=4,
         horner={v: (dev(S), c) for v, (S, c) in horner_windows(
             ncomp, HW, 13, seed + 40).items()},
     )
+
+
+def addn_planted(ncomp, jac, rng, device):
+    """K4's gathered modes on n = len(jac) rows: the source rows ``src``
+    (``jac`` with identities of nonzero X and Y in rows 5 mod 16 and Y = 0
+    in rows 6 mod 16), a second source ``other`` (the rows reversed), and
+    int64 index vectors of n: ``ia``/``ib`` random with -1 (a row of zeros)
+    at about one in eight, ``same`` (row i: A = B, a doubling; with neg_b a
+    cancelling add), and a bool mask ``zero`` at about one in five."""
+    n = jac.shape[0]
+    src = jac.clone()
+    src[5::16, :2] = torch.as_tensor(FP.to_mont(
+        [[[rng.randrange(1, FP_MOD) for _ in range(ncomp)]
+          for _ in range(2)] for _ in range(len(src[5::16]))]))
+    src[5::16, 2] = 0
+    src[6::16, 1] = 0
+    idx = lambda: torch.tensor([rng.randrange(n) if rng.randrange(8)
+                                else -1 for _ in range(n)])
+    dev = lambda t: t.to(device).contiguous()
+    return dict(src=dev(src), other=dev(src.flip(0)), ia=dev(idx()),
+                ib=dev(idx()), same=dev(torch.arange(n)),
+                zero=dev(torch.tensor([rng.randrange(5) == 0
+                                       for _ in range(n)])))
+
+
+SCALE_SS = (0, 1, 7)           # K5's planted doubling counts
+
+
+def scale_planted(ncomp, pts, s, rng):
+    """K5's rows (a, b) for 2^s a + b, pattern by row % 8: b = 2^s a (the
+    add doubles), b = -2^s a (it cancels), b the identity, a the identity,
+    both identities with nonzero X and Y, random (three kinds)."""
+    add = pr.g1_add if ncomp == 1 else pr.g2_add
+    a, b = list(pts), [pts[(i + 3) % len(pts)] for i in range(len(pts))]
+    for i, p in enumerate(pts):
+        kind = i % 8
+        if kind in (0, 1):
+            q = p
+            for _ in range(s):
+                q = add(q, q)
+            b[i] = q if kind == 0 else _neg(ncomp, q)
+        elif kind == 2:
+            b[i] = None
+        elif kind in (3, 4):
+            a[i] = None
+    ra, rb = _rows(ncomp, a, rng), _rows(ncomp, b, rng)
+    for r in (ra, rb):
+        r[4::8, :2] = torch.as_tensor(FP.to_mont(
+            [[[rng.randrange(1, FP_MOD) for _ in range(ncomp)]
+              for _ in range(2)] for _ in range(len(r[4::8]))]))
+        r[4::8, 2] = 0
+    return ra, rb
 
 
 def _affine(ncomp, rows):
@@ -407,13 +469,35 @@ def kernel_cases(inp):
          lambda: grid.prefix_rows_plain(xy, pv, False)),
     ] + [("prefix", v, kern, plain) for v, kern, plain in prefixes] + [
         ("wsum", v, kern, plain) for v, kern, plain in wsums] + [
-        ("addn", "",
+        ("addn", "plain",
          lambda: kernels.addn(inp["a"], inp["b"]),
          lambda: grid.addn_plain(inp["a"], inp["b"])),
-        ("scale_add", "s=7",
-         lambda: kernels.scale_add(inp["a"], inp["b"], 7),
-         lambda: grid.scale_add_plain(inp["a"], inp["b"], 7)),
+    ] + [("addn", v, (lambda kw=kw: kernels.addn(**kw)),
+          (lambda kw=kw: grid.addn_plain(**kw)))
+         for v, kw in addn_modes(inp["addn"]).items()] + [
+        ("scale_add", f"s={s}",
+         (lambda a=a, b=b, s=s: kernels.scale_add(a, b, s)),
+         (lambda a=a, b=b, s=s: grid.scale_add_plain(a, b, s)))
+        for s, (a, b) in inp["scale"].items()
     ] + [("horner", v, kern, plain) for v, kern, plain in horners]
+
+
+def addn_modes(g):
+    """K4's gathered modes on ``addn_planted``'s rows: {variant: kwargs}."""
+    src, other, same = g["src"], g["other"], g["same"]
+    return {
+        "sentinel a": dict(a=src, b=other, ia=g["ia"]),
+        "sentinel b": dict(a=src, b=other, ib=g["ib"]),
+        "sentinels, zero mask": dict(a=src, b=other, ia=g["ia"], ib=g["ib"],
+                                     zero=g["zero"]),
+        "neg_b (Y = 0 rows)": dict(a=other, b=src, ia=g["ia"], ib=g["ib"],
+                                   neg_b=True),
+        "equal operands": dict(a=src, b=src, ia=same, ib=same),
+        "opposite operands": dict(a=src, b=src, ia=same, ib=same,
+                                  neg_b=True),
+        "plain, neg_b, zero mask": dict(a=src, b=other, neg_b=True,
+                                        zero=g["zero"]),
+    }
 
 
 # K8's planted kinds: pair i is of kind (i + offset) % 16 (the rest random)
@@ -767,22 +851,29 @@ def _cuda_ms(fn, reps, warm=True):
     return t0.elapsed_time(t1) / reps, out
 
 
-def _graph_ms(fn, reps):
-    """(mean ms of ``reps`` calls captured in one CUDA graph and replayed:
-    the device's time without the host's launch gaps, the last call's
-    output). ``fn`` runs once outside the graph first."""
+def _graph_ms(fn, reps, replays=3):
+    """(mean ms of ``reps`` calls captured in one CUDA graph and replayed
+    ``replays`` times: the device's time without the host's launch gaps,
+    the last call's output). ``fn`` runs once outside the graph first."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
             out = fn()
-    return _cuda_ms(graph.replay, 3)[0] / reps, out
+    return _cuda_ms(graph.replay, replays)[0] / reps, out
 
 
 def _times_err(t):
-    """A timed row's max |kernel - twin|, with its second shape's."""
-    return max(t["max_abs_err"], t.get("level2", {}).get("max_abs_err", 0))
+    """A timed row's max |kernel - twin|, with its second shape's and its
+    other modes'."""
+    return max(u["max_abs_err"] for u in _timed(t))
+
+
+def _timed(t):
+    """A timed row and the rows riding on it (second shape, modes)."""
+    return [t] + ([t["level2"]] if "level2" in t else []) + list(
+        t.get("modes", {}).values())
 
 
 def _host_ms(fn, reps=1):
@@ -813,19 +904,49 @@ def slice_shapes(ncomp):
 LEVELS = {"pdouble": 3, "padd": 5, "pmadd": 5}
 
 
-def chain_floor(name, shape, mul_us, c=13):
-    """(levels, floor ms) of K2 or K6: the dependent product levels on
+def chain_floor(name, shape, mul_us, c=13, s=7):
+    """(levels, floor ms) of K2, K5 or K6: the dependent product levels on
     the kernel's longest chain times the time of one level (``mul_us``,
-    the microbenchmark's: K6 form f, a level's products on a warp's lanes;
-    K2 form e, one product). K6: (W - 1) c doublings and W adds; K2: a
-    segment's s - 1 adds, ceil(log2 T) scan adds and the carry add."""
+    the microbenchmark's: K5 and K6 form f, a level's products on a warp's
+    lanes; K2 form e, one product). K6: (W - 1) c doublings and W adds; K5:
+    s doublings and one add; K2: a segment's s - 1 adds, ceil(log2 T) scan
+    adds and the carry add."""
     if name == "horner":
         levels = (shape - 1) * c * LEVELS["pdouble"] + shape * LEVELS["padd"]
+    elif name == "scale_add":
+        levels = s * LEVELS["pdouble"] + LEVELS["padd"]
     else:
         T, log2s = grid.prefix_schedule(shape[0])
         adds = (1 << log2s) - 1 + (T - 1).bit_length() + (T > 1)
         levels = adds * LEVELS["padd"]
     return levels, levels * mul_us / 1e3
+
+
+def addn_work(ncomp, a, b, ia=None, ib=None, neg_b=False, zero=None):
+    """(Fp products, bytes) one K4 call needs on these inputs: a complete
+    add a row the mask leaves; each source row an index reaches read once
+    (a and b as one source where they are one tensor), the indices and the
+    mask read once, every output row written once."""
+    row = 3 * ncomp * 16 * 8
+    n = next((t.shape[0] for t in (ia, ib, zero) if t is not None),
+             a.shape[0])
+    adds = n - (int(zero.sum().item()) if zero is not None else 0)
+    ra, rb = (torch.arange(n, device=a.device) if i is None else i[i >= 0]
+              for i in (ia, ib))
+    rows = (ra.unique().numel() + rb.unique().numel()
+            if a.data_ptr() != b.data_ptr()
+            else torch.cat([ra, rb]).unique().numel())
+    nbytes = (rows + n) * row + 8 * sum(
+        t.shape[0] for t in (ia, ib) if t is not None) + (
+        n if zero is not None else 0)
+    return adds * _fp_products("padd", ncomp), nbytes
+
+
+def _bound_of(muls, nbytes, clock_hz):
+    ops_s = muls * MADDS_PER_FP_MUL / (INT32_LANES * clock_hz)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
 
 
 def _bound(name, ncomp, shape, clock_hz):
@@ -857,10 +978,7 @@ def _bound(name, ncomp, shape, clock_hz):
     else:                                       # horner, W = shape, c = 13
         muls = shape * (13 * dbl + add)
         nbytes = (shape + 1) * row
-    ops_s = muls * MADDS_PER_FP_MUL / (INT32_LANES * clock_hz)
-    bytes_s = nbytes / HBM_BYTES_PER_S
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
-                                       else "bytes")
+    return _bound_of(muls, nbytes, clock_hz)
 
 
 def time_kernels(device, clock_hz, products):
@@ -899,6 +1017,7 @@ def time_kernels(device, clock_hz, products):
         steps2 = take(L3b * l3b).roll(5, 0).reshape(L3b, l3b, 3, ncomp, 16)
         na = shp["addn"]
         a4, b4 = take(na), take(na).roll(1, 0).contiguous()
+        legs = leg_addn_calls(ncomp, device, take)
         n5 = shp["scale_add"]
         a5, b5 = take(n5), take(n5).roll(1, 0).contiguous()
         S6 = take(shp["horner"])
@@ -933,13 +1052,83 @@ def time_kernels(device, clock_hz, products):
             if base == "prefix":
                 r["chain_levels"], r["floor_ms"] = chain_floor(
                     base, shp[name], products[(ncomp, K2_FORM)]["us"])
-            elif base == "horner":
+            elif base in ("horner", "scale_add"):
                 r["chain_levels"], r["floor_ms"] = chain_floor(
                     base, shp[name], products[(ncomp, K6_FORM)]["us_step"])
+            if base == "scale_add":
+                r["graph_ms"] = _graph_ms(kern, 50)[0]
+        # K4 also in a CUDA graph (its device time without the host's
+        # launch gaps), the card's clocks sampled while the graph replays
+        (res[("addn", ncomp)]["graph_ms"], _), res[("addn", ncomp)]["smi"] = \
+            smi_beside(lambda: _graph_ms(calls["addn"][0], 50, replays=60))
+        # K4's gathered calls of a leg, in its order (each call's output
+        # feeds the next)
+        modes = res[("addn", ncomp)]["modes"] = {}
+        got = None
+        for v, kw in legs.items():
+            if v == "E":
+                kw["a"] = got
+            elif v == "B":
+                kw["a"] = kw["b"] = got
+            kern = lambda kw=kw: kernels.addn(**kw)
+            ms, got = _cuda_ms(kern, 50)
+            plain_ms, want = _cuda_ms(lambda: grid.addn_plain(**kw), 1,
+                                      warm=False)
+            n = got.shape[0]
+            modes[v] = dict(zip(("bound_ms", "bound_by"), _bound_of(
+                *addn_work(ncomp, **kw), clock_hz)), ms=ms,
+                graph_ms=_graph_ms(kern, 50)[0], plain_ms=plain_ms,
+                shape=f"{v}, {n} rows",
+                max_abs_err=int((got - want).abs().max().item()))
         # K2's and K3's second shapes ride on their rows: {"level2": ...}
         for name in ("prefix", "wsum"):
             res[(name, ncomp)]["level2"] = res.pop((name + "2", ncomp))
     return res
+
+
+def leg_addn_calls(ncomp, device, take, lanes=1024, c=13, seed=21):
+    """K4's gathered calls of one prover leg (2^14 G1 or 9,216 G2 points,
+    c = 13, 1,024 lanes) with the index vectors of a real leg: random
+    scalars, their signed digits sorted, the bucket starts found as
+    ``grid`` finds them; the prefix rows from ``take``. {"excl": kwargs,
+    "E": kwargs, "B": kwargs}: E's ``a`` is excl's output and B's ``a``
+    and ``b`` are E's, filled in by the caller."""
+    n = 1 << 14 if ncomp == 1 else 9216
+    W, half, k = grid.n_windows(c), 1 << (c - 1), n // lanes
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    limbs = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=device)
+    limbs[:, 15] >>= 2                           # scalars below 2^254
+    skeys = torch.sort(grid.signed_digits(limbs, c)[0], dim=0,
+                       stable=True)[0]
+    ex_i, pr_i, zm = grid.boundary_index(skeys, k, lanes, half)
+    ia, ib = grid.excl_index(W, lanes, device)
+    da, db = grid.diff_index(W, half, device)
+    return {"excl": dict(a=take(W * lanes), b=take(W * lanes // 32), ia=ia,
+                         ib=ib),
+            "E": dict(a=None, b=take(W * n), ia=ex_i, ib=pr_i, zero=zm),
+            "B": dict(a=None, b=None, ia=da, ib=db, neg_b=True)}
+
+
+def smi_beside(fn, query="clocks.sm,power.draw,temperature.gpu"):
+    """(fn(), nvidia-smi samples of ``query`` taken before it, while it
+    runs, by a polling thread, and after it)."""
+    samples = [nvidia_smi(query)]
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            samples.append(nvidia_smi(query))
+
+    th = threading.Thread(target=poll)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        th.join()
+    samples.append(nvidia_smi(query))
+    return out, samples
 
 
 # ------------------------------------------------------------- phases
@@ -1631,11 +1820,12 @@ def phase_prove(device, profile=False):
     return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof)
 
 
-def ptxas_summary(text, kernels=("k_prefix<", "k_horner<", "k_poseidon<",
+def ptxas_summary(text, kernels=("k_prefix<", "k_addn<", "k_scale_add<",
+                                 "k_horner<", "k_poseidon<",
                                  "k_poseidon_lanes<", "k_tree_level<")):
     """{kernel instantiation: registers, spill stores, stack bytes, ptxas
     ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
-    name starts with one of ``kernels`` (K2, K6, K7 and K8 by default)."""
+    name starts with one of ``kernels`` (K2, K4-K8 by default)."""
     import re
     out, name = {}, None
     for line in text.splitlines():
@@ -1737,13 +1927,18 @@ def main(argv):
     for (name, c), t in times.items():
         label = (f"t={c}" if name == "poseidon" else "G1" if c == 1
                  else "G2")
-        for u in (t, t.get("level2")):
+        if "smi" in t:
+            log(2, f"{name} {label}: clocks.sm, power.draw, temperature.gpu"
+                   f" while its CUDA graph replays: {json.dumps(t['smi'])}")
+        for u in _timed(t):
             if u:
                 floor = (f", chain floor {u['floor_ms']:.4f} ms "
                          f"({u['chain_levels']} product levels)"
                          if "floor_ms" in u else "")
                 if "layout" in u:
                     floor += f", layout {u['layout']}"
+                if "graph_ms" in u:
+                    floor += f", in a CUDA graph {u['graph_ms']:.4f} ms"
                 log(2, f"{name} {label} {u['shape']}: "
                        f"max |err| {u['max_abs_err']}, {u['ms']:.4f} ms, "
                        f"plain {u['plain_ms']:.2f} ms, bound "

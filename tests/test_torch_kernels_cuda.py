@@ -18,13 +18,14 @@ def test_kernels_equal_plain_twins():
     import chip_smoke
     errs = chip_smoke.check_kernels(torch.device("cuda", 0), lanes=256, k=3,
                                     W=3, wlanes=16, B=40, pairs=1500)
-    # 25 modes (K1 2, K2 at 4 step counts x 3 modes, K3 at 4 step counts,
-    # K4, K5, K6 on 5 planted window sets) x (Fp, Fp2); K7 at the 16 widths
+    # 34 modes (K1 2, K2 at 4 step counts x 3 modes, K3 at 4 step counts,
+    # K4 plain and in 7 gathered modes, K5 at s = 0, 1 and 7, K6 on 5
+    # planted window sets) x (Fp, Fp2); K7 at the 16 widths
     # t = 2 .. 17 in lanes and at t = 2 .. 12 one thread a hash, and for
     # t = 2, 3, 5, 17 at the 6 batches of POSEIDON_BS in the wrapper's
     # layout; K8 complete and incomplete at M = 1 once a planted kind (9),
     # M = 40, 1,023, 1,025, the prover's level 0 and 1,500
-    assert len(errs) == 50 + 16 + 11 + 4 * 6 + 2 * (9 + 5)
+    assert len(errs) == 68 + 16 + 11 + 4 * 6 + 2 * (9 + 5)
     assert not {k: v for k, v in errs.items() if v}
 
 

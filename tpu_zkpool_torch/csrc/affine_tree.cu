@@ -55,25 +55,6 @@ namespace zk {
 constexpr int kTreeMaxBlock = 128;  // threads per block, at most
 constexpr int kTreeMaxPairs = 8;    // pairs per thread, at most
 
-// 16 limbs (16-byte aligned) <-> an Fp, two limbs a load or store.
-__device__ __forceinline__ Fp fp_load2(const int64_t* p) {
-  const longlong2* q = reinterpret_cast<const longlong2*>(p);
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const longlong2 v = q[i];
-    r.v[i] = (uint32_t)v.x | ((uint32_t)v.y << 16);
-  }
-  return r;
-}
-
-__device__ __forceinline__ void fp_store2(int64_t* p, const Fp& a) {
-  longlong2* q = reinterpret_cast<longlong2*>(p);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    q[i] = make_longlong2(a.v[i] & 0xFFFFu, a.v[i] >> 16);
-}
-
 struct PairIn {
   Fp xL, yL, xR, yR;
   bool infL, infR;

@@ -44,8 +44,10 @@
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #include <algorithm>
+#include <cstdlib>
 using std::max;
 using std::min;
+inline void __trap() { std::abort(); }
 #ifndef ZK_HOST_THREADS
 struct ZkDim3 {
   unsigned x, y, z;
@@ -491,6 +493,25 @@ __device__ __forceinline__ void fp_store(int64_t* p, const Fp& a) {
   mont_store(p, a);
 }
 
+// The same limbs, two a load or store: limbs 2i and 2i + 1 are one
+// longlong2 and word i (p 16-byte aligned).
+__device__ __forceinline__ Fp fp_load2(const int64_t* p) {
+  const longlong2* q = reinterpret_cast<const longlong2*>(p);
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const longlong2 w = q[i];
+    r.v[i] = (uint32_t)w.x | ((uint32_t)w.y << 16);
+  }
+  return r;
+}
+__device__ __forceinline__ void fp_store2(int64_t* p, const Fp& a) {
+  longlong2* q = reinterpret_cast<longlong2*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    q[i] = make_longlong2(a.v[i] & 0xFFFFu, a.v[i] >> 16);
+}
+
 // ------------------------------------------------------------------- Fr
 
 __device__ __forceinline__ Fr fr_zero() { return mont_zero<FrMod>(); }
@@ -528,6 +549,10 @@ struct FpField {
   __device__ static bool is_zero(const T& a) { return fp_is_zero(a); }
   __device__ static T load(const int64_t* p) { return fp_load(p); }
   __device__ static void store(int64_t* p, const T& a) { fp_store(p, a); }
+  __device__ static T load2(const int64_t* p) { return fp_load2(p); }
+  __device__ static void store2(int64_t* p, const T& a) {
+    fp_store2(p, a);
+  }
 };
 
 struct Fp2 {
@@ -565,6 +590,13 @@ struct Fp2Over {
   __device__ static void store(int64_t* p, const T& a) {
     fp_store(p, a.c0);
     fp_store(p + 16, a.c1);
+  }
+  __device__ static T load2(const int64_t* p) {
+    return {fp_load2(p), fp_load2(p + 16)};
+  }
+  __device__ static void store2(int64_t* p, const T& a) {
+    fp_store2(p, a.c0);
+    fp_store2(p + 16, a.c1);
   }
 };
 

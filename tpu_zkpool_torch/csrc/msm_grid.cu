@@ -81,13 +81,35 @@
 // may carry nonzero X and Y. Chain at W = 20, c = 13: 19 x 13 doublings
 // and 20 adds, 841 product levels.
 //
-// K2 and K6 run fp_mul_fast (field.cuh), the out-of-line product of PTX
-// carry chains. K4/K5 keep one thread per row and fp_mul; packed storage
-// is later work.
+// K4 (k_addn): a throughput kernel, one thread a row: its calls hold 20
+// to 81,960 independent complete adds, far more than the 132 SMs run at
+// once, so the work per SM, not a chain, sets its time. Two things cut it.
+// (1) It gathers its own operands: A(i) = a[ia[i]], B(i) = b[ib[i]] (an
+// index < 0 a row of zeros), B's Y negated where asked, a row zeroed by a
+// mask: the grid pipeline's boundary gathers, selects and Y negations are
+// the kernel's loads, not torch passes over full int64 point rows (384 B a
+// G1 row, 768 B a G2 row) before each call, and a zeroed row loads
+// nothing. (2) Rows move two limbs a 16-byte load or store
+// (jac_load2), and the launch shape (AddnShape) was chosen by measurement:
+// one-warp blocks, 12 a SM, fp_mul over Fp and the PTX product over Fp2.
+// Bound: over Fp the bytes, over Fp2 the operations (chip_smoke.py computes
+// both for every call). The complete add is padd<F, true>, so every limb
+// is the twin's.
+//
+// K5 (k_scale_add): 2^s a + b over the W window rows, a chain of s
+// doublings and one add a row and nothing to fill the card with, so K6's
+// design: one warp a row on the warp traits (FpWarp, Fp2Warp), a level's
+// products on its lanes, a block a row so that each chain has its own SM.
+// Chain at s = 7: 7 x 3 + 5 = 26 product levels, where one thread paid 65
+// products.
+//
+// K2, K5, K6 and K4 over Fp2 run fp_mul_fast (field.cuh), the out-of-line
+// product of PTX carry chains; packed 32-bit storage between the kernels is
+// later work.
 //
 // Interface: plain C, int64 16-bit-limb rows as the torch wrappers hold them
-// (tpu_zkpool_torch/msm/kernels.py), launched on the caller's stream; each
-// launcher returns cudaGetLastError().
+// (tpu_zkpool_torch/msm/kernels.py; K4's indices int64, its mask bool),
+// launched on the caller's stream; each launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -249,30 +271,68 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// K4: row-parallel complete a + b.
+// K4: row-parallel complete A(i) + B(i) (design note). A(i) = a[ia[i]]
+// (ia null: a[i]; an index < 0: a row of zeros), B(i) likewise from b and
+// ib with Y -> p - Y where neg_b; row i of out is zeros where zero[i]
+// (zero null: nowhere). An index past its source's rows traps.
 template <class F>
-__global__ void k_addn(const int64_t* __restrict__ a,
-                       const int64_t* __restrict__ b,
-                       int64_t* __restrict__ out, int n) {
-  constexpr int E = elems(F::NC);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  size_t o = (size_t)i * 3 * E;
-  jac_store<F>(out + o, padd<F, true>(jac_load<F>(a + o), jac_load<F>(b + o)));
+__device__ __forceinline__ Jac<F> addn_operand(const int64_t* __restrict__ src,
+                                               const int64_t* __restrict__ idx,
+                                               int i, int64_t n_src) {
+  const int64_t r = idx != nullptr ? idx[i] : i;
+  if (r < 0) return jac_zero<F>();
+  if (r >= n_src) __trap();
+  return jac_load2<F>(src + (size_t)r * 3 * elems(F::NC));
 }
 
-// K5: row-parallel 2^s a + b (s doublings, then one complete add).
-template <class F>
-__global__ void k_scale_add(const int64_t* __restrict__ a,
-                            const int64_t* __restrict__ b,
-                            int64_t* __restrict__ out, int n, int s) {
-  constexpr int E = elems(F::NC);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// K4's launch shape a field, from scripts/k4_sweep.py on the H100 (PERF.md
+// §6): the product, the block and the blocks an SM must hold, which caps
+// the registers at 65,536 / (block x blocks). One warp a block spreads the
+// last wave's rows over every SM; 12 warps an SM beat 16 with a 128-register
+// cap (spills) and 8 at 255 registers.
+template <int NC>
+struct AddnShape;
+template <>
+struct AddnShape<1> {
+  using F = FpField;  // fp_mul: 5-7% faster here than the PTX product
+  static constexpr int kBlock = 32, kMin = 12;  // 160 registers
+};
+template <>
+struct AddnShape<2> {
+  using F = Fp2FieldFast;  // the PTX product: 2-4% faster over Fp2
+  static constexpr int kBlock = 32, kMin = 12;  // 168 registers, spills
+};
+
+template <class F, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB)
+    k_addn(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
+           const int64_t* __restrict__ ia, const int64_t* __restrict__ ib,
+           const uint8_t* __restrict__ zero, int64_t* __restrict__ out, int n,
+           int64_t na, int64_t nb, int neg_b) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
-  size_t o = (size_t)i * 3 * E;
+  int64_t* o = out + (size_t)i * 3 * elems(F::NC);
+  if (zero != nullptr && zero[i]) {
+    jac_store2<F>(o, jac_zero<F>());
+    return;
+  }
+  const Jac<F> P = addn_operand<F>(a, ia, i, na);
+  Jac<F> Q = addn_operand<F>(b, ib, i, nb);
+  if (neg_b) Q.Y = F::sub(F::zero(), Q.Y);
+  jac_store2<F>(o, padd<F, true>(P, Q));
+}
+
+// K5: 2^s a + b for row blockIdx.x (s doublings, then one complete add), one
+// warp on the warp traits (design note); lane 0 stores.
+template <class F>
+__global__ void __launch_bounds__(kWarp)
+    k_scale_add(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
+                int64_t* __restrict__ out, int s) {
+  const size_t o = (size_t)blockIdx.x * 3 * elems(F::NC);
   Jac<F> P = jac_load<F>(a + o);
   for (int t = 0; t < s; ++t) P = pdouble<F>(P);
-  jac_store<F>(out + o, padd<F, true>(P, jac_load<F>(b + o)));
+  P = padd<F, true>(P, jac_load<F>(b + o));
+  if (threadIdx.x == 0) jac_store<F>(out + o, P);
 }
 
 // K6: Horner sum_w 2^(c w) S_w over (W, 3, NC, 16), one warp on the warp
@@ -295,6 +355,17 @@ __global__ void __launch_bounds__(kWarp)
 inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
 
 }  // namespace zk
+
+template <class S>
+static int launch_addn(const int64_t* a, const int64_t* b, const int64_t* ia,
+                       const int64_t* ib, const uint8_t* zero, int64_t* out,
+                       int n, int64_t na, int64_t nb, int neg_b,
+                       cudaStream_t s) {
+  zk::k_addn<typename S::F, S::kBlock, S::kMin>
+      <<<(n + S::kBlock - 1) / S::kBlock, S::kBlock, 0, s>>>(
+          a, b, ia, ib, zero, out, n, na, nb, neg_b);
+  return (int)cudaGetLastError();
+}
 
 using zk::Fp2Field;
 using zk::Fp2FieldFast;
@@ -359,25 +430,26 @@ int msm_wsum(const int64_t* in, int64_t* out, int L, int lanes, int ncomp,
   return (int)cudaGetLastError();
 }
 
-int msm_addn(const int64_t* a, const int64_t* b, int64_t* out, int n,
-             int ncomp, void* stream) {
+// ia, ib, zero may be null (design note); n >= 1.
+int msm_addn(const int64_t* a, const int64_t* b, const int64_t* ia,
+             const int64_t* ib, const uint8_t* zero, int64_t* out, int n,
+             int64_t na, int64_t nb, int ncomp, int neg_b, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = zk::grid_for(n);
   if (ncomp == 1)
-    zk::k_addn<FpField><<<g, zk::kBlock, 0, s>>>(a, b, out, n);
-  else
-    zk::k_addn<Fp2Field><<<g, zk::kBlock, 0, s>>>(a, b, out, n);
-  return (int)cudaGetLastError();
+    return launch_addn<zk::AddnShape<1>>(a, b, ia, ib, zero, out, n, na, nb,
+                                         neg_b, s);
+  return launch_addn<zk::AddnShape<2>>(a, b, ia, ib, zero, out, n, na, nb,
+                                       neg_b, s);
 }
 
+// One warp a row: n blocks of 32 threads.
 int msm_scale_add(const int64_t* a, const int64_t* b, int64_t* out, int n,
                   int ncomp, int log2s, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = zk::grid_for(n);
   if (ncomp == 1)
-    zk::k_scale_add<FpField><<<g, zk::kBlock, 0, s>>>(a, b, out, n, log2s);
+    zk::k_scale_add<FpWarp><<<n, zk::kWarp, 0, s>>>(a, b, out, log2s);
   else
-    zk::k_scale_add<Fp2Field><<<g, zk::kBlock, 0, s>>>(a, b, out, n, log2s);
+    zk::k_scale_add<Fp2Warp><<<n, zk::kWarp, 0, s>>>(a, b, out, log2s);
   return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,21 @@ __device__ __forceinline__ void jac_store(int64_t* row, const Jac<F>& P) {
   F::store(row + 2 * E, P.Z);
 }
 
+// The same rows, two limbs a load or store (row 16-byte aligned).
+template <class F>
+__device__ __forceinline__ Jac<F> jac_load2(const int64_t* row) {
+  constexpr int E = F::NC * 16;
+  return {F::load2(row), F::load2(row + E), F::load2(row + 2 * E)};
+}
+
+template <class F>
+__device__ __forceinline__ void jac_store2(int64_t* row, const Jac<F>& P) {
+  constexpr int E = F::NC * 16;
+  F::store2(row, P.X);
+  F::store2(row + E, P.Y);
+  F::store2(row + 2 * E, P.Z);
+}
+
 // r[i] = a[i] b[i], i < M: one dependency level's independent products.
 template <class F, int M>
 __device__ __forceinline__ void level(typename F::T (&r)[M],

@@ -13,7 +13,8 @@ Pipeline per slice of points, the same as the JAX package's:
    prefix in sorted order,
 4. cross-chunk prefix in two levels (K2, ``prefix``: W * lanes / 32 lanes
    of 32 steps, then W lanes of lanes / 32), bucket values
-   from boundary differences (K4, ``addn``) at the bucket starts, found for
+   from boundary differences (K4, ``addn``, which gathers its operands by
+   index, negates and masks them itself) at the bucket starts, found for
    all windows by one batched ``searchsorted`` (no host sync),
 5. bucket reduction sum_j j * B_j with the weighted-suffix identity (K3,
    ``wsum``: one launch over the W C chunks, one over their 2 W totals;
@@ -27,7 +28,8 @@ kernel K8, ``tree_level``); G2 keeps the prefix path.
 Each of K1-K6 is a CUDA kernel (``csrc/msm_grid.cu``, wrappers in
 ``msm/kernels.py``) with a plain PyTorch twin here (``*_plain``). A CPU tensor
 goes to the twin, a CUDA tensor to the kernel. Sorting, the bucket starts
-and the boundary gathers are torch ops, as they were XLA glue in JAX.
+and the index vectors are torch ops; the boundary gathers, the selects and
+the Y negations around K4, XLA glue in JAX, are K4's own loads.
 
 Point rows are ``int64[n, 3, ncomp, 16]``: Jacobian (X, Y, Z) Montgomery
 limbs, ncomp = 1 (Fp, G1) or 2 (Fp2, G2), Z = 0 the identity.
@@ -390,9 +392,28 @@ def wsum_plain(steps):
     return _from_lm(torch.stack([a[..., 0, :], x[..., 0, :]]))
 
 
-def addn_plain(a, b):
-    """K4 twin: lane-parallel complete Jacobian a + b on (n, 3, ncomp, 16)."""
-    return _from_lm(_padd(_field(a.shape[2]), _to_lm(a), _to_lm(b)))
+def _gather_rows(rows, idx):
+    """rows[idx], a row of zeros where idx < 0 (rows itself if idx is
+    None)."""
+    if idx is None:
+        return rows
+    return torch.where((idx < 0)[:, None, None, None], 0,
+                       rows[idx.clamp(min=0)])
+
+
+def addn_plain(a, b, ia=None, ib=None, neg_b=False, zero=None):
+    """K4 twin: lane-parallel complete Jacobian A(i) + B(i) on (., 3, ncomp,
+    16) rows, A and B gathered by ``ia`` and ``ib`` (a row of zeros where
+    an index is < 0), B's Y negated if ``neg_b``, rows zeroed where
+    ``zero`` (``kernels.addn`` states the function): plain torch gathers,
+    selects and ``rows_neg_y`` around the complete add."""
+    A, B = _gather_rows(a, ia), _gather_rows(b, ib)
+    if neg_b:
+        B = rows_neg_y(B)
+    out = _from_lm(_padd(_field(a.shape[2]), _to_lm(A), _to_lm(B)))
+    if zero is not None:
+        out = torch.where(zero[:, None, None, None], 0, out)
+    return out
 
 
 def scale_add_plain(a, b, log2s):
@@ -577,17 +598,7 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     # prefix comes back in sorted order (W * N rows)
     prs = kernels.prefix_rows(xy, svals_t, complete).reshape((W * N,) + pt)
 
-    # starts[w, v] = #keys < v in window w, v = 0 .. half + 1: the keys are
-    # sorted per window, so one batched search finds them without a sync
-    nq = half + 2
-    starts = torch.searchsorted(
-        skeys.T.contiguous(),
-        torch.arange(nq, device=dev).expand(W, nq).contiguous())
     wi = torch.arange(W, device=dev)[:, None]
-    idx = (starts - 1).clamp(0, N - 1)
-    WV = prs[(wi * N + idx).reshape(-1)]                   # (W * nq,)
-    CID = idx // k
-    ZM = starts == 0
     last = (torch.arange(lanes, device=dev) + 1) * k - 1
     TOT = prs[(wi * N + last).reshape(-1)]                  # (W * lanes,)
 
@@ -601,26 +612,75 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     l2 = _prefix_chunks(gtot, GA)
 
     # excl[w, chunk = g*32 + e] = l1[e-1 @ lane w*GA + g] + l2[g-1 @ lane w]
-    ch = torch.arange(lanes, device=dev)[None, :]
-    g, e = ch // 32, ch % 32
-    a_idx = ((wi * GA + g) * 32 + (e - 1)).reshape(-1)
-    e_mask = (e == 0).expand(W, lanes).reshape(-1)
-    a = torch.where(e_mask[:, None, None, None], 0, l1[a_idx.clamp(min=0)])
-    b_idx = (wi * GA + (g - 1)).reshape(-1)
-    g_mask = (g == 0).expand(W, lanes).reshape(-1)
-    b = torch.where(g_mask[:, None, None, None], 0, l2[b_idx.clamp(min=0)])
-    excl = kernels.addn(a, b)
+    # (K4 gathers both, the identity where e = 0 or g = 0)
+    excl = kernels.addn(l1, l2, *excl_index(W, lanes, dev))
 
     # ---- E[i] at bucket boundaries; B_j = E[start_{j+1}] - E[start_j] ----
-    ex_at = excl[(wi * lanes + CID).reshape(-1)]
-    E = kernels.addn(ex_at, WV)
-    E = E.reshape((W, nq) + pt)
-    E = torch.where(ZM[:, :, None, None, None], 0, E)
-    lo = rows_neg_y(E[:, 1:-1].reshape((W * half,) + pt))
-    hi = E[:, 2:].reshape((W * half,) + pt)
-    B = kernels.addn(hi, lo).reshape((W, half) + pt)
+    # (K4 gathers excl and the prefix rows, zeroes E where the bucket start
+    # is 0, and negates E[start_j])
+    ex_i, pr_i, zm = boundary_index(skeys, k, lanes, half)
+    E = kernels.addn(excl, prs, ex_i, pr_i, zero=zm)
+    B = kernels.addn(E, E, *diff_index(W, half, dev), neg_b=True)
     # B[w, j-1] = bucket j's sum, j = 1..half
-    return _reduce_buckets(B, W, half, C, L)
+    return _reduce_buckets(B.reshape((W, half) + pt), W, half, C, L)
+
+
+def _stream(device):
+    """The current stream of a CUDA device (None on the CPU): the index
+    caches key on it, since a tensor made on one stream may not be written
+    yet when another stream reads it."""
+    return (torch.cuda.current_stream(device).cuda_stream
+            if device.type == "cuda" else None)
+
+
+def excl_index(W, lanes, device):
+    """K4's (ia, ib) for the cross-chunk exclusive prefix: chunk g*32 + e
+    of window w takes row (w*GA + g)*32 + e - 1 of the level-1 prefix and
+    row w*GA + g - 1 of the level-2 prefix (GA = lanes / 32), -1 (the
+    identity) where e = 0 or g = 0. Made once per shape and stream."""
+    return _excl_index(W, lanes, device, _stream(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _excl_index(W, lanes, device, stream):
+    GA = lanes // 32
+    wi = torch.arange(W, device=device)[:, None]
+    ch = torch.arange(lanes, device=device)[None, :]
+    g, e = ch // 32, ch % 32
+    ia = torch.where(e == 0, -1, (wi * GA + g) * 32 + e - 1)
+    ib = torch.where(g == 0, -1, wi * GA + g - 1)
+    return ia.reshape(-1), ib.reshape(-1)
+
+
+def boundary_index(skeys, k, lanes, half):
+    """K4's (ia, ib, zero) for the bucket boundaries E[w, v], v = 0 .. half
+    + 1, from the sorted bucket keys (N, W): starts[w, v] = #keys < v in
+    window w (one batched search, no host sync); E[w, v] = excl at the chunk
+    of the sorted position starts - 1 plus the prefix row there (clamped
+    into the window), zeros where starts = 0."""
+    N, W = skeys.shape
+    dev = skeys.device
+    nq = half + 2
+    starts = torch.searchsorted(
+        skeys.T.contiguous(),
+        torch.arange(nq, device=dev).expand(W, nq).contiguous())
+    wi = torch.arange(W, device=dev)[:, None]
+    idx = (starts - 1).clamp(0, N - 1)
+    return ((wi * lanes + idx // k).reshape(-1), (wi * N + idx).reshape(-1),
+            (starts == 0).reshape(-1))
+
+
+def diff_index(W, half, device):
+    """K4's (ia, ib) for B_j = E[w, j + 1] - E[w, j], j = 1 .. half, over
+    E's rows w * (half + 2) + v. Made once per shape and stream."""
+    return _diff_index(W, half, device, _stream(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _diff_index(W, half, device, stream):
+    j = torch.arange(1, half + 1, device=device)
+    base = (torch.arange(W, device=device) * (half + 2))[:, None]
+    return (base + j + 1).reshape(-1), (base + j).reshape(-1)
 
 
 def _reduce_buckets(B, W, half, C, L):
@@ -635,7 +695,7 @@ def _reduce_buckets(B, W, half, C, L):
         # one launch over 2W lanes (T's windows, then U's), steps = C
         acc, tot = kernels.wsum(torch.cat([T, U]).transpose(0, 1).contiguous())
         # sum_m m T_m = (sum (m+1) T_m) - (sum T_m)
-        mT = kernels.addn(tot[:W], rows_neg_y(acc[:W]))
+        mT = kernels.addn(tot[:W], acc[:W], neg_b=True)
         sU = acc[W:]
     else:
         mT = torch.zeros_like(U[:, 0])

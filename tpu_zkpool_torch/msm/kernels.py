@@ -44,12 +44,12 @@ def build(extra_flags=()) -> tuple:
 def _load():
     global _lib
     if _lib is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         _lib = cuda_build.load(SOURCE, dict(
             msm_prefix_rows=[P, P, P, I, I, I, I, I, P],
             msm_prefix=[P, P, I, I, I, I, I, I, I, P],
             msm_wsum=[P, P, I, I, I, I, I, P],
-            msm_addn=[P, P, P, I, I, P],
+            msm_addn=[P, P, P, P, P, P, I, L, L, I, I, P],
             msm_scale_add=[P, P, P, I, I, I, P],
             msm_horner=[P, P, I, I, I, P]))
     return _lib
@@ -128,23 +128,62 @@ def wsum(steps):
     return out
 
 
-def addn(a, b):
-    """K4. Row-parallel complete Jacobian a + b on (n, 3, ncomp, 16)."""
-    if a.device.type == "cpu":
-        return grid.addn_plain(a, b)
-    cuda_build.check_tensors("addn", a, b)
+def _rows_index(name, idx, n):
+    if idx is not None and (idx.dim() != 1 or idx.dtype != torch.int64
+                            or idx.shape[0] != n):
+        raise ValueError(f"{name}: want int64 ({n},), got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+
+
+def addn(a, b, ia=None, ib=None, neg_b=False, zero=None):
+    """K4. Row-parallel complete Jacobian add over (., 3, ncomp, 16) rows:
+
+        out[i] = a row of zeros          where zero[i]
+               = A(i) + B(i)             elsewhere
+        A(i)   = a[ia[i]] (a row of zeros where ia[i] < 0), or a[i]
+        B(i)   = likewise from b and ib, then Y -> p - Y if ``neg_b``
+
+    ``ia`` and ``ib`` are int64 (n,), ``zero`` bool (n,), each index below
+    its source's row count; n is their length, else a's (and b's) rows.
+    ``addn(a, b)`` is the Pallas ``_add_tiles``'s function."""
+    n = next((t.shape[0] for t in (ia, ib, zero) if t is not None),
+             a.shape[0])
+    _rows_index("addn", ia, n)
+    _rows_index("addn", ib, n)
+    if zero is not None and (zero.dtype != torch.bool
+                             or tuple(zero.shape) != (n,)):
+        raise ValueError(f"addn: zero must be bool ({n},), got "
+                         f"{zero.dtype} {tuple(zero.shape)}")
     nc = _point_rows("addn", a, 4)
-    if a.shape != b.shape:
-        raise ValueError(f"addn: shapes {tuple(a.shape)} != {tuple(b.shape)}")
-    out = torch.empty_like(a)
+    if _point_rows("addn", b, 4) != nc or (ia is None and a.shape[0] != n) \
+            or (ib is None and b.shape[0] != n):
+        raise ValueError(f"addn: shapes {tuple(a.shape)}, {tuple(b.shape)} "
+                         f"for {n} rows")
+    if a.device.type == "cpu":
+        return grid.addn_plain(a, b, ia, ib, neg_b, zero)
+    cuda_build.check_tensors("addn", a, b,
+                             *[t for t in (ia, ib) if t is not None])
+    if zero is not None:
+        cuda_build.check_tensors("addn", zero, dtype=torch.bool)
+        if zero.device != a.device:
+            raise ValueError(f"addn: zero on {zero.device}, rows on "
+                             f"{a.device}")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("addn: rows must start on a 16-byte boundary")
+    out = torch.empty((n,) + a.shape[1:], dtype=torch.int64, device=a.device)
+    if n == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()
     cuda_build.launch(LAUNCHES, "addn", out.device, _load().msm_addn,
-                      a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
-                      nc)
+                      a.data_ptr(), b.data_ptr(), ptr(ia), ptr(ib),
+                      ptr(zero), out.data_ptr(), n, a.shape[0], b.shape[0],
+                      nc, int(neg_b))
     return out
 
 
 def scale_add(a, b, log2s: int):
-    """K5. Row-parallel 2^log2s * a + b on (n, 3, ncomp, 16)."""
+    """K5. Row-parallel 2^log2s * a + b on (n, 3, ncomp, 16): log2s
+    doublings, then one complete add; one warp a row."""
     if a.device.type == "cpu":
         return grid.scale_add_plain(a, b, log2s)
     cuda_build.check_tensors("scale_add", a, b)
@@ -153,6 +192,8 @@ def scale_add(a, b, log2s: int):
         raise ValueError(f"scale_add: shapes {tuple(a.shape)} != "
                          f"{tuple(b.shape)}")
     out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
     cuda_build.launch(LAUNCHES, "scale_add", out.device,
                       _load().msm_scale_add, a.data_ptr(), b.data_ptr(),
                       out.data_ptr(), a.shape[0], nc, int(log2s))
