@@ -185,3 +185,36 @@ def test_exchange_butterfly_wrapper_rejects_bad_inputs():
         ntt_rdma.butterfly(y64, y64, torch.zeros(8, dtype=torch.int64), 1)
     with pytest.raises(ValueError, match=r"\(rows, S\)"):
         ntt_rdma.butterfly(y[0], y[0], tw, 0)
+
+
+def _stage_case(case):
+    y = torch.zeros((4, 8), dtype=torch.int32)
+    tw = torch.zeros((8,), dtype=torch.int32)
+    n = 1
+    if case == "slots":
+        n = 33
+    ys, others, tws = [y] * n, [y] * n, [tw] * n
+    if case == "shapes":
+        ys, others, tws = [y, y[:3]], [y, y[:3]], [tw, tw]
+    elif case == "contiguous":
+        sq = torch.zeros((8, 8), dtype=torch.int32).t()
+        ys, others = [sq], [sq]
+    elif case == "int32":
+        ys = [y.long()]
+    return ys, others, tws
+
+
+@pytest.mark.parametrize("case,match", [
+    ("slots", "1 to 32 slots"), ("shapes", "alike over the slots"),
+    ("contiguous", "contiguous"), ("int32", "int32")])
+def test_exchange_stage_rejects_bad_inputs(case, match):
+    """K9's all-slot stage refuses, on either device type, more slots than
+    its parameter struct holds, shards that differ in shape, non-contiguous
+    and non-int32 tensors."""
+    from tpu_zkpool_torch.parallel import ntt_rdma
+    ys, others, tws = _stage_case(case)
+    with pytest.raises(ValueError, match=match):
+        ntt_rdma.stage(ys, others, tws, [True] * len(ys))
+    meta = [[t.to("meta") for t in ts] for ts in (ys, others, tws)]
+    with pytest.raises(ValueError, match=match):
+        ntt_rdma.stage(*meta, [True] * len(ys))

@@ -36,6 +36,8 @@ def test_exchange_butterfly_equals_twin():
     import chip_smoke
     errs, launches = chip_smoke.check_exchange(torch.device("cuda", 0),
                                                B=40, S=200)
-    # u = 0, 1 x (random tw, R mod q); 1, 2, 3, 5 chunks x two u layouts
-    assert len(errs) == 4 + 8 and launches == 2 * 2 * (1 + 2 + 3 + 5)
+    # one shard: forward and inverse x u = 0, 1 x (random tw, R mod q);
+    # whole stages, one launch each: 3 shapes x D = 2, 4, 8 x forward and
+    # inverse x rdma and ppermute
+    assert len(errs) == 8 + 3 * 3 * 2 * 2 and launches == len(errs)
     assert not {k: v for k, v in errs.items() if v}

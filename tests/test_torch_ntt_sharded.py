@@ -1,15 +1,15 @@
-"""Port parity: the sharded negacyclic NTT and K9's twin and schedule.
+"""Port parity: the sharded negacyclic NTT and K9's twin.
 
 On a CPU ``Mesh.virtual`` every shard is a CPU tensor, so the cross-shard
-stages run K9's plain twin through the same chunked schedule the card runs
-(two receive slots, a short last chunk). These tests hold the twin to the
-JAX package's ``ntt_rdma._butterfly``, the chunked schedule to the
-whole-shard exchange, and the sharded transforms at D = 2, 4, 8 under both
-exchanges to the single-device NTT, JAX's ``forward_sharded`` on the
-8-device virtual CPU mesh (once, with ``exchange="rdma", interpret=True``)
-and the schoolbook product. K9 itself is held to the twin on the card by
-``chip_smoke.py`` and ``test_torch_kernels_cuda.py``. Exact integers: the
-tolerance is zero.
+stages run K9's plain twin, one stage over every slot, eagerly (a CUDA
+mesh replays a graph of the same code). These tests hold the twin to the
+JAX package's ``ntt_rdma._butterfly``, and the sharded transforms at D =
+2, 4, 8 under both exchanges to the single-device NTT, JAX's
+``forward_sharded`` on the 8-device virtual CPU mesh (once, with
+``exchange="rdma", interpret=True``) and the schoolbook product;
+``test_torch_k9_stage.py`` holds the all-slot stage in both forms. K9
+itself is held to the twin on the card by ``chip_smoke.py`` and
+``test_torch_kernels_cuda.py``. Exact integers: the tolerance is zero.
 """
 
 import functools
@@ -33,7 +33,7 @@ from tpu_zkpool_torch.refimpl import rlwe_ref
 
 Q = tq.Q
 N = 1024
-B = ntt_rdma.CHUNK_ROWS + 1   # the rdma stages run a full and a short chunk
+B = 101                       # an odd row count
 
 
 def _q(shape, seed):
@@ -51,27 +51,6 @@ def test_butterfly_plain_matches_jax(u_side):
                              tq.from_numpy_u32(other, device="cpu"),
                              tq.from_numpy_u32(tw, device="cpu"), u_side)
     assert (tq.to_numpy_u32(got) == want).all()
-
-
-@pytest.mark.parametrize("chunks", [1, 2, 3, 5])
-def test_chunked_exchange_matches_whole_shard(chunks):
-    """exchange_butterfly at 1, 2, 3, 5 chunks of rows (a short last one)
-    equals the whole-shard exchange followed by one combine per slot."""
-    rows, S = 22, 16
-    chunk = -(-rows // chunks)
-    assert -(-rows // chunk) == chunks
-    mesh = Mesh.virtual((4,), ("sp",), device="cpu")
-    ys = [tq.from_numpy_u32(_q((rows, S), 10 + d), device="cpu")
-          for d in range(4)]
-    tws = [tq.from_numpy_u32(_q((S,), 20 + d), device="cpu")
-           for d in range(4)]
-    u = [True, False, False, True]
-    partners = [1, 0, 3, 2]
-    outs = ntt_rdma.exchange_butterfly(mesh, ys, tws, u, partners, chunk)
-    others = mesh.ppermute(ys, partners)
-    for d in range(4):
-        assert torch.equal(outs[d], ntt_rdma.butterfly(ys[d], others[d],
-                                                       tws[d], u[d]))
 
 
 def test_local_slices_match_jax():

@@ -1,42 +1,68 @@
 // Kernel K9: one cross-shard butterfly stage of the coefficient-sharded
-// negacyclic NTT over q = 167772161, for Hopper (sm_90a).
+// negacyclic NTT over q = 167772161, for Hopper (sm_90a), over every slot
+// of the mesh that lives on one device in one launch.
 //
 // Replaces the Pallas kernel tpu_zkpool/parallel/ntt_rdma.py _kernel /
-// exchange_butterfly_rdma (pallas_call l.161). It computes what the TPU
-// kernel's combine step computes (ntt_rdma._butterfly):
+// exchange_butterfly_rdma (pallas_call l.161). Per slot, with o the shard
+// it combines with (its partner's y, or a copy of it) and tw its stage
+// twiddle slice, values in [0, q) held in int32 words:
 //
-//   out = u_side ? y + other : (other - y) * tw        (mod q)
+//   forward:  u side  y + o                v side  (o - y) * tw
+//   inverse:  u side  y + o * tw           v side  o - y * tw      (mod q)
 //
-// with values in [0, q) held in int32 words and the product a Montgomery
-// product with R = 2^28, the R every twiddle table of the JAX package
-// carries (a 32-bit-word Montgomery, R = 2^32, would give other values).
-// The forward stages pass the stage's twiddle slice; the inverse stages
-// pre-scale the v side and pass tw = R mod q, making the product the
-// identity.
+// The product is a Montgomery product with R = 2^28, the R every twiddle
+// table of the JAX package carries. The TPU kernel computes only the
+// forward form: JAX pre-scales the v side of an inverse stage by tw and
+// calls it with tw = R mod q (ntt_sharded.py _inverse_traced). Here the
+// inverse form takes the partner's unscaled shard and does that product
+// itself; mont(., R mod q) is the identity on canonical values, so both
+// give the same words. The two slots of a pair pass the same slice.
 //
-// Design. The TPU kernel also moved the partner's rows: remote DMAs into
-// two VMEM receive slots, chunk i+1's transfer in flight during chunk i's
-// combine, a flow semaphore so a sender never overwrites a slot still being
-// read. On a GPU the copy engines move the data and CUDA events order it:
-// the wrapper (tpu_zkpool_torch/parallel/ntt_rdma.py:exchange_butterfly)
-// copies each chunk into one of two receive slots on the receiving shard's
-// copy stream and launches this kernel once per chunk on its compute
-// stream, behind the copy's event; the copy into a slot waits on the event
-// of the launch that last read it. This kernel is the combine alone: one
-// thread per element, a block per row and 128 columns, any rows >= 1 and
-// any S >= 1 (the last column block masks).
+// Design. The TPU kernel moved the partner's rows itself, chunk by chunk
+// into two VMEM receive slots, chunk i+1's DMA in flight during chunk i's
+// combine, semaphores for flow control. On one card every shard already
+// sits in device memory, so the kernel reads the partner's rows as it
+// reads its own: the loads are the transfer, and the warps in flight
+// overlap them; there is no receive buffer to double and no chunk
+// schedule. One launch covers every slot on the device: a by-value
+// parameter struct (StageArgs, ~1 KB of the 4 KB parameter space) holds
+// each slot's pointers and side, so no table is uploaded. Blocks
+// interleave the slots (block b serves slot b % slots), so a pair's two
+// slots read the same rows close together in time and the second read
+// tends to hit L2. Slots of a distinct card's partner read it over peer
+// access (the wrapper enables it); that path needs two cards.
 //
-// Bound: bytes. Each element reads y and the receive slot and writes out
-// (12 B), plus tw once; the v side's product is 5 32-bit multiply-adds (the
-// 64-bit product, the quotient word, m * q), far below the memory time at
-// any shape. At a chunk of 512 x 128 words the bytes take ~0.24 us, so a
-// launch is held by its latency; fusing stages or loading the partner's
-// rows in the kernel over peer access are later work.
+// Bound: bytes. Each element reads y and o and writes out (12 B; 8 B of
+// device memory when o is the partner's own y and the second read hits
+// L2), plus tw; one or two Montgomery products (5 32-bit multiply-adds
+// each) are far below the memory time. A thread moves 16 B of each array
+// (int4) where S % 4 == 0 and every pointer is 16-byte aligned, one word
+// otherwise; the twiddle of flat element e is tw[e % S].
 //
 // Interface: plain C, launched on the caller's stream
 // (tpu_zkpool_torch/parallel/ntt_rdma.py); returns cudaGetLastError().
+//
+// Host rehearsal: g++ -DZK_HOST_TEST builds everything above the end of
+// namespace zk (tests/test_torch_k9_stage.py); a harness that defines
+// ZK_HOST_THREADS brings its own threadIdx, blockIdx and blockDim.
 
+#ifdef ZK_HOST_TEST
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+#ifndef ZK_HOST_THREADS
+struct ZkDim3 {
+  unsigned x, y, z;
+};
+inline ZkDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
+#endif
+#else
 #include <cuda_runtime.h>
+#endif
 
 #include <cstdint>
 
@@ -45,7 +71,24 @@ namespace zk {
 constexpr uint32_t kQ = 167772161u;
 constexpr uint32_t kRMask = (1u << 28) - 1;
 constexpr uint32_t kQInvNegR = 167772159u;  // -q^-1 mod 2^28
-constexpr int kBfBlock = 128;
+constexpr int kMaxSlots = 32;
+constexpr int kStageThreads = 256;
+
+// One stage's arguments, passed by value. Bit s of u_mask: slot s is the
+// u side. vec: move int4 (the wrapper sets it only where S % 4 == 0 and
+// every pointer is 16-byte aligned).
+struct StageArgs {
+  const int32_t* y[kMaxSlots];
+  const int32_t* other[kMaxSlots];
+  const int32_t* tw[kMaxSlots];
+  int32_t* out[kMaxSlots];
+  int64_t rows;
+  uint32_t u_mask;
+  int32_t S;
+  int32_t slots;
+  int32_t inverse;
+  int32_t vec;
+};
 
 __device__ __forceinline__ uint32_t q_add(uint32_t a, uint32_t b) {
   uint32_t s = a + b;
@@ -65,32 +108,84 @@ __device__ __forceinline__ uint32_t q_mont_mul(uint32_t a, uint32_t b) {
   return u >= kQ ? u - kQ : u;
 }
 
-// y, other, out (rows, S); tw (S). Grid (rows, ceil(S / kBfBlock)).
-__global__ void k_exchange_butterfly(const int32_t* __restrict__ y,
-                                     const int32_t* __restrict__ other,
-                                     const int32_t* __restrict__ tw,
-                                     int32_t* __restrict__ out, int S,
-                                     int u_side) {
-  int j = blockIdx.y * kBfBlock + threadIdx.x;
-  if (j >= S) return;
-  size_t i = (size_t)blockIdx.x * S + j;
-  uint32_t a = (uint32_t)y[i], b = (uint32_t)other[i];
-  uint32_t r = u_side ? q_add(a, b) : q_mont_mul(q_sub(b, a), (uint32_t)tw[j]);
-  out[i] = (int32_t)r;
+__device__ __forceinline__ int32_t combine(int32_t y, int32_t o, int32_t w,
+                                           bool u, bool inverse) {
+  const uint32_t a = (uint32_t)y, b = (uint32_t)o, t = (uint32_t)w;
+  uint32_t r;
+  if (inverse)
+    r = u ? q_add(a, q_mont_mul(b, t)) : q_sub(b, q_mont_mul(a, t));
+  else
+    r = u ? q_add(a, b) : q_mont_mul(q_sub(b, a), t);
+  return (int32_t)r;
+}
+
+// Elements a thread covers, and blocks a slot and a launch take.
+inline int64_t stage_per_thread(const StageArgs& a) { return a.vec ? 4 : 1; }
+
+inline int64_t stage_blocks(const StageArgs& a) {
+  const int64_t per_block = kStageThreads * stage_per_thread(a);
+  return (a.rows * a.S + per_block - 1) / per_block * a.slots;
+}
+
+// Grid: stage_blocks(args) blocks of kStageThreads; block b serves slot
+// b % slots, elements [b / slots * per_block, ...) of its flat shard.
+__global__ void __launch_bounds__(kStageThreads)
+    k_exchange_butterfly(const StageArgs args) {
+  const int slot = (int)(blockIdx.x % (unsigned)args.slots);
+  const int64_t chunk = blockIdx.x / (unsigned)args.slots;
+  const bool u = (args.u_mask >> slot) & 1u, inv = args.inverse != 0;
+  const int64_t n = args.rows * args.S;
+  const int32_t* y = args.y[slot];
+  const int32_t* o = args.other[slot];
+  const int32_t* tw = args.tw[slot];
+  int32_t* out = args.out[slot];
+  if (args.vec) {
+    const int64_t e = (chunk * kStageThreads + threadIdx.x) * 4;
+    if (e >= n) return;
+    const int4 a = *reinterpret_cast<const int4*>(y + e);
+    const int4 b = *reinterpret_cast<const int4*>(o + e);
+    const int4 w = *reinterpret_cast<const int4*>(tw + e % args.S);
+    int4 r;
+    r.x = combine(a.x, b.x, w.x, u, inv);
+    r.y = combine(a.y, b.y, w.y, u, inv);
+    r.z = combine(a.z, b.z, w.z, u, inv);
+    r.w = combine(a.w, b.w, w.w, u, inv);
+    *reinterpret_cast<int4*>(out + e) = r;
+  } else {
+    const int64_t e = chunk * kStageThreads + threadIdx.x;
+    if (e >= n) return;
+    out[e] = combine(y[e], o[e], tw[e % args.S], u, inv);
+  }
 }
 
 }  // namespace zk
 
 extern "C" {
 
-int ntt_exchange_butterfly(const int32_t* y, const int32_t* other,
-                           const int32_t* tw, int32_t* out, int rows, int S,
-                           int u_side, void* stream) {
-  if (rows < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  dim3 g(rows, (S + zk::kBfBlock - 1) / zk::kBfBlock);
-  zk::k_exchange_butterfly<<<g, zk::kBfBlock, 0, (cudaStream_t)stream>>>(
-      y, other, tw, out, S, u_side);
+int ntt_stage_args_size() { return (int)sizeof(zk::StageArgs); }
+
+int ntt_max_slots() { return zk::kMaxSlots; }
+
+int ntt_exchange_butterfly(const zk::StageArgs* args, void* stream) {
+  if (args->rows < 1 || args->S < 1 || args->slots < 1 ||
+      args->slots > zk::kMaxSlots)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = zk::stage_blocks(*args);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  zk::k_exchange_butterfly<<<(unsigned)blocks, zk::kStageThreads, 0,
+                             (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
+}
+
+// Let the current device read `peer`'s memory; "already enabled" counts
+// as success.
+int ntt_enable_peer(int peer) {
+  cudaError_t e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (int)e;
 }
 
 }  // extern "C"

@@ -101,6 +101,8 @@ class Mesh:
         self.slots = [Slot(i, c, _cuda_index(resolve_device(grid[c])))
                       for i, c in enumerate(np.ndindex(grid.shape))]
 
+        self._graphs = {}
+
     @classmethod
     def virtual(cls, shape, axis_names, device=None):
         """Every slot of a ``shape`` grid on one device (``cuda`` unless
@@ -206,6 +208,44 @@ class Mesh:
             keep(pieces[s.index], cs)
             parts.append(pieces[s.index].to(device))
         return torch.cat(parts, -1)
+
+    def graphed(self, key, fn, *xs) -> torch.Tensor:
+        """``fn(*xs)`` (tensors in, one tensor out), replayed from a CUDA
+        graph: the port's ``jax.jit`` of a whole sharded program.
+
+        On a CUDA mesh the first call for (``key``, each x's shape, dtype
+        and device) captures ``fn`` on static copies of the inputs on slot
+        0's device, with every slot stream it forks into; every call copies
+        its inputs in (outside the graph, so an input on another device
+        moves first), replays, and returns a clone of the output on
+        ``xs[0]``'s device. What ``fn`` loads from the host (tables,
+        libraries) must be loaded before the first call: a capture cannot
+        copy from the host, and a failed capture raises. Launch counters
+        count at capture, not at replay. On a CPU mesh ``fn`` runs eagerly.
+        A mesh over several cards captures on slot 0's card with the
+        others' streams forked into it; that needs more than one card and
+        has not run.
+        """
+        dev = self.slots[0].device
+        if dev.type != "cuda":
+            return fn(*xs)
+        key = (key,) + tuple((tuple(x.shape), x.dtype, x.device) for x in xs)
+        if key not in self._graphs:
+            static = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                      for x in xs]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev):
+                stream = torch.cuda.Stream(dev)
+                with torch.cuda.graph(graph, stream=stream):
+                    out = fn(*static)
+            self._graphs[key] = graph, static, out
+        graph, static, out = self._graphs[key]
+        with torch.cuda.device(dev):
+            for s, x in zip(static, xs):
+                s.copy_(x)
+            graph.replay()
+            res = out.clone()
+        return res.to(xs[0].device)
 
     # ------------------------------------------------------ collectives
 

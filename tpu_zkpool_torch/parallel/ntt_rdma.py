@@ -1,31 +1,45 @@
-"""Kernel K9 (``csrc/ntt_rdma.cu``): the cross-shard NTT butterfly, and the
-chunked, overlapped shard exchange that feeds it.
+"""Kernel K9 (``csrc/ntt_rdma.cu``): one cross-shard NTT butterfly stage
+over every slot of a mesh, one launch a device.
 
 K9 replaces the Pallas kernel ``tpu_zkpool/parallel/ntt_rdma.py``
 (``_kernel`` / ``exchange_butterfly_rdma``, pallas_call l.161): one
-cross-device stage of the sharded negacyclic NTT,
+cross-device stage of the sharded negacyclic NTT. Slot d combines its shard
+y with o, the shard of its partner d ^ hd, and its stage twiddle slice tw
+(mod q, Montgomery R = 2^28):
 
-    out = u_side ? y + other : (other - y) * tw          (mod q, R = 2^28)
+    forward:  u side  y + o         v side  (o - y) * tw
+    inverse:  u side  y + o * tw    v side  o - y * tw
 
-where ``other`` is the partner shard's ``y`` (partner = d ^ hd). The TPU
-kernel moved the partner's rows itself, chunk by chunk into two receive
-slots, with semaphores for flow control. Here ``exchange_butterfly`` runs
-the same protocol with one slot's copy stream as the DMA engine and CUDA
-events as the semaphores, and K9 is the combine of one chunk:
+The inverse form folds in the pre-scale that JAX applies to the v side
+before its exchange (JAX then calls the kernel with tw = R mod q, which
+makes its product the identity); the two slots of a pair pass the same
+twiddle slice.
 
-- the partner's chunk i is copied into receive slot i & 1 on the receiving
-  slot's copy stream, after an event of the partner's compute stream;
-- K9 on chunk i waits on an event recorded after that copy, so chunk i+1's
-  copy overlaps chunk i's combine;
-- the copy of chunk i+2 into slot i & 1 waits on an event recorded after
-  K9 on chunk i (the TPU kernel's flow semaphore).
+The TPU kernel moved the partner's rows itself with remote DMAs, chunk by
+chunk into two receive slots, chunk i+1's transfer overlapping chunk i's
+combine, a flow semaphore keeping a sender off a slot still being read.
+That double buffering hides a link's latency behind compute on a chip
+whose kernel cannot address its partner's memory. On one card every shard
+already lies in device memory: under ``exchange="rdma"`` K9 reads the
+partner's rows itself (o is the partner's own y), the loads are the
+transfer and the warps in flight overlap them, so there is no receive
+buffer, no copy and no chunk. A slot whose partner lives on another card
+reads it over peer access, which ``exchange_butterfly`` enables once
+(``cudaDeviceEnablePeerAccess``) and which raises where the cards cannot
+reach each other; that path needs two cards and has not run. Under
+``exchange="ppermute"`` ``Mesh.ppermute`` copies each whole shard first,
+as JAX's ``lax.ppermute`` does, and K9 combines with the copies.
 
-On CPU shards the same schedule runs the plain twin in order. The wrapper
-``butterfly`` sends a CPU tensor to ``butterfly_plain``, raises
-``ValueError`` for anything but int32 (rows, S) / (S,) tensors on either
-device, and on a CUDA tensor launches K9 on the current stream, raises if
-the launch reported an error, and adds one to
-``LAUNCHES["exchange_butterfly"]``.
+- ``stage``: K9 over slots of one device, on the current stream, one
+  launch; a by-value struct carries every slot's pointers and side (at
+  most ``MAX_SLOTS`` slots). CPU tensors run ``stage_plain``.
+- ``butterfly``: ``stage`` over one tensor.
+- ``exchange_butterfly``: the mesh-level stage, one launch a device.
+
+Every wrapper raises ``ValueError`` for tensors that are not contiguous
+int32 (rows, S) shards with a (S,) twiddle slice, on the launch's device,
+on either device type; on CUDA tensors it launches K9 or raises, and adds
+one to ``LAUNCHES["exchange_butterfly"]`` a launch.
 """
 
 from __future__ import annotations
@@ -39,15 +53,26 @@ from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.parallel.mesh import keep, record, wait
 
 SOURCE = "ntt_rdma.cu"
-# Rows per exchanged chunk (the TPU kernel took 8, its sublane tile); 512
-# rows of S words keep a copy and a launch well above their fixed costs.
-CHUNK_ROWS = 512
+MAX_SLOTS = 32          # csrc/ntt_rdma.cu kMaxSlots
 
 # Launches since the last reset (the sharded NTT's evidence that it ran
 # through the kernel).
 LAUNCHES = {"exchange_butterfly": 0}
 
+_P = ctypes.c_void_p
+
+
+class StageArgs(ctypes.Structure):
+    """``zk::StageArgs`` of ``csrc/ntt_rdma.cu``, field for field."""
+    _fields_ = [("y", _P * MAX_SLOTS), ("other", _P * MAX_SLOTS),
+                ("tw", _P * MAX_SLOTS), ("out", _P * MAX_SLOTS),
+                ("rows", ctypes.c_int64), ("u_mask", ctypes.c_uint32),
+                ("S", ctypes.c_int32), ("slots", ctypes.c_int32),
+                ("inverse", ctypes.c_int32), ("vec", ctypes.c_int32)]
+
+
 _lib = None
+_peers = set()
 
 
 def reset_launches():
@@ -59,81 +84,165 @@ def build(extra_flags=()) -> tuple:
     return cuda_build.build(SOURCE, extra_flags)
 
 
-def _load():
+def load():
+    """Build and load K9's library once (before any CUDA graph capture)."""
     global _lib
     if _lib is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        _lib = cuda_build.load(SOURCE, {
-            "ntt_exchange_butterfly": [P, P, P, P, I, I, I, P]})
+        lib = cuda_build.load(SOURCE, {
+            "ntt_exchange_butterfly": [ctypes.POINTER(StageArgs), _P],
+            "ntt_enable_peer": [ctypes.c_int], "ntt_stage_args_size": [],
+            "ntt_max_slots": []})
+        if (lib.ntt_stage_args_size() != ctypes.sizeof(StageArgs)
+                or lib.ntt_max_slots() != MAX_SLOTS):
+            raise RuntimeError("ntt_rdma.cu's StageArgs does not match the "
+                               "wrapper's")
+        _lib = lib
     return _lib
 
 
-def butterfly_plain(y, other, tw, u_side):
-    """K9's plain twin (``ntt_rdma._butterfly``): int32 values < q."""
+def butterfly_plain(y, other, tw, u_side, inverse=False):
+    """K9's plain twin on one slot (``ntt_rdma._butterfly`` forward; JAX's
+    v-side pre-scale, then ``_butterfly`` with tw = R mod q, inverse)."""
+    if inverse:
+        if u_side:
+            return rlweq.add(y, rlweq.mont_mul(other, tw))
+        return rlweq.sub(other, rlweq.mont_mul(y, tw))
     if u_side:
         return rlweq.add(y, other)
     return rlweq.mont_mul(rlweq.sub(other, y), tw)
 
 
-def butterfly(y, other, tw, u_side, out=None):
-    """K9 on one chunk: y, other int32[rows, S], tw int32[S] -> int32[rows,
-    S], written into ``out`` when given."""
-    ts = (y, other, tw) + (() if out is None else (out,))
-    if y.dim() != 2 or other.shape != y.shape or tuple(tw.shape) != (
-            y.shape[1],) or (out is not None and out.shape != y.shape):
-        raise ValueError(f"exchange_butterfly: want y, other (rows, S) and tw "
-                         f"(S,), got {[tuple(t.shape) for t in ts]}")
-    if any(t.dtype != rlweq.DTYPE for t in ts):
-        raise ValueError(f"exchange_butterfly: want int32 values < q, got "
-                         f"{[t.dtype for t in ts]}")
-    if y.device.type == "cpu":
-        res = butterfly_plain(y, other, tw, u_side)
-        return res if out is None else out.copy_(res)
-    cuda_build.check_tensors("exchange_butterfly", *ts, dtype=rlweq.DTYPE)
-    if out is None:
-        out = torch.empty_like(y)
-    if y.numel() == 0:
-        return out
-    cuda_build.launch(LAUNCHES, "exchange_butterfly", out.device,
-                      _load().ntt_exchange_butterfly, y.data_ptr(),
-                      other.data_ptr(), tw.data_ptr(), out.data_ptr(),
-                      y.shape[0], y.shape[1], int(bool(u_side)))
-    return out
+def stage_plain(ys, others, tws, u_sides, inverse=False):
+    """The stage's twin: ``butterfly_plain`` slot by slot."""
+    return [butterfly_plain(y, o, t, u, inverse)
+            for y, o, t, u in zip(ys, others, tws, u_sides)]
 
 
-def exchange_butterfly(mesh, ys, tws, u_sides, partners, chunk=CHUNK_ROWS):
-    """One cross-shard butterfly stage over every slot of ``mesh``, the
-    partner's rows moved in chunks of ``chunk`` rows (a short last chunk
-    for any B >= 1) over two receive slots.
+def _check(ys, others, tws, outs):
+    n = len(ys)
+    if not 1 <= n <= MAX_SLOTS or not len(others) == len(tws) == len(
+            outs) == n:
+        raise ValueError(f"exchange_butterfly: want 1 to {MAX_SLOTS} slots "
+                         f"with a y, other, tw and out each, got {n}")
+    shape = tuple(ys[0].shape)
+    for y, o, t, out in zip(ys, others, tws, outs):
+        ts = (y, o, t) + (() if out is None else (out,))
+        if y.dim() != 2 or tuple(y.shape) != shape or o.shape != y.shape or (
+                tuple(t.shape) != (shape[1],)) or (
+                out is not None and out.shape != y.shape):
+            raise ValueError(f"exchange_butterfly: want y, other (rows, S) "
+                             f"alike over the slots and tw (S,), got "
+                             f"{[tuple(u.shape) for u in ts]} beside "
+                             f"{shape}")
+        if any(u.dtype != rlweq.DTYPE for u in ts):
+            raise ValueError(f"exchange_butterfly: want int32 values < q, "
+                             f"got {[u.dtype for u in ts]}")
+        if not all(u.is_contiguous() for u in ts):
+            raise ValueError("exchange_butterfly: want contiguous tensors")
 
-    ys: per slot (slot order) int32[B, S]; tws: per slot int32[S];
-    u_sides: per slot bool; partners: per slot the partner's slot index.
-    Returns per slot int32[B, S] on the slot's compute stream."""
-    ready = mesh.ready()              # each partner's rows as they stand now
-    outs = []
-    for slot, y, tw, u, p in zip(mesh.slots, ys, tws, u_sides, partners):
-        other = ys[p]
-        B, S = y.shape
-        bc = max(1, min(chunk, B))
-        cs, ks = slot.copy_stream, slot.stream
-        wait(cs, ready[p])
-        keep(other, cs)
-        with slot.on(copy=True):
-            recv = torch.empty((2, bc, S), dtype=y.dtype, device=slot.device)
-        keep(recv, ks)
-        with slot.on():
-            out = torch.empty_like(y)
-        done = []
-        for i, lo in enumerate(range(0, B, bc)):
-            hi = min(B, lo + bc)
-            buf = recv[i % 2, :hi - lo]
-            if i >= 2:
-                wait(cs, done[i - 2])  # K9 on chunk i-2 has read this slot
-            with slot.on(copy=True):
-                buf.copy_(other[lo:hi], non_blocking=True)
-            wait(ks, record(cs))
-            with slot.on():
-                butterfly(y[lo:hi], buf, tw, u, out=out[lo:hi])
-            done.append(record(ks))
-        outs.append(out)
+
+def stage(ys, others, tws, u_sides, inverse=False, outs=None):
+    """K9 over the slots of one device, one launch on the current stream:
+    per slot y, other int32[rows, S] (alike over the slots), tw int32[S],
+    u side; writes into ``outs`` where given. ``other`` may lie on another
+    card that this one has peer access to; every other tensor lies on the
+    device of ``ys[0]``."""
+    outs = [None] * len(ys) if outs is None else list(outs)
+    _check(ys, others, tws, outs)
+    dev = ys[0].device
+    if dev.type == "cpu":
+        res = stage_plain(ys, others, tws, u_sides, inverse)
+        return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]
+    if dev.type != "cuda":
+        raise ValueError(f"exchange_butterfly: tensors must be on a CUDA "
+                         f"device, got {dev}")
+    for y, o, t, out in zip(ys, others, tws, outs):
+        if any(u.device != dev for u in (y, t) + (
+                () if out is None else (out,))) or (
+                o.device.type != "cuda" or (o.device != dev and (
+                    dev.index, o.device.index) not in _peers)):
+            raise ValueError(f"exchange_butterfly: want every y, tw and out "
+                             f"on {dev} and other there or on a peer card, "
+                             f"got {y.device}, {o.device}, {t.device}")
+    outs = [torch.empty_like(y) if o is None else o for y, o in zip(ys, outs)]
+    rows, S = ys[0].shape
+    if rows * S == 0:
+        return outs
+    args = StageArgs(rows=rows, S=S, slots=len(ys), inverse=int(inverse))
+    for i, (y, o, t, out, u) in enumerate(zip(ys, others, tws, outs,
+                                              u_sides)):
+        args.y[i], args.other[i] = y.data_ptr(), o.data_ptr()
+        args.tw[i], args.out[i] = t.data_ptr(), out.data_ptr()
+        args.u_mask |= int(bool(u)) << i
+    ptrs = list(args.y) + list(args.other) + list(args.tw) + list(args.out)
+    args.vec = int(S % 4 == 0 and all((p or 0) % 16 == 0 for p in ptrs))
+    cuda_build.launch(LAUNCHES, "exchange_butterfly", dev,
+                      load().ntt_exchange_butterfly, ctypes.byref(args))
+    return outs
+
+
+def butterfly(y, other, tw, u_side, inverse=False):
+    """K9 on one shard: y, other int32[rows, S], tw int32[S] -> int32[rows,
+    S]."""
+    return stage([y], [other], [tw], [u_side], inverse)[0]
+
+
+def enable_peer(dev: torch.device, peer: torch.device):
+    """Let ``dev`` read ``peer``'s memory (once a pair); raises where the
+    two cards cannot reach each other."""
+    if (dev.index, peer.index) in _peers:
+        return
+    if not torch.cuda.can_device_access_peer(dev, peer):
+        raise RuntimeError(f"exchange_butterfly: {dev} cannot read {peer} "
+                           f"(no peer access between the cards)")
+    with torch.cuda.device(dev):
+        rc = load().ntt_enable_peer(peer.index)
+    if rc != 0:
+        raise RuntimeError(f"exchange_butterfly: enabling peer access "
+                           f"{dev} -> {peer} failed with error {rc}")
+    _peers.add((dev.index, peer.index))
+
+
+def exchange_butterfly(mesh, ys, tws, u_sides, partners, exchange="rdma",
+                       inverse=False):
+    """One cross-shard butterfly stage over every slot of ``mesh``, one K9
+    launch a device.
+
+    ys: per slot (slot order) int32[B, S]; tws: per slot int32[S] (a
+    pair's two slots alike for ``inverse``); u_sides: per slot bool;
+    partners: per slot the partner's slot index. ``exchange="rdma"``: K9
+    reads each partner's ``y``; ``"ppermute"``: it reads
+    ``Mesh.ppermute``'s copies. Returns per slot a fresh int32[B, S],
+    ready on the slot's compute stream."""
+    if exchange == "rdma":
+        others = [ys[p] for p in partners]
+    elif exchange == "ppermute":
+        others = mesh.ppermute(ys, partners)
+    else:
+        raise ValueError(f"exchange must be 'rdma' or 'ppermute', got "
+                         f"{exchange!r}")
+    slots = mesh.slots
+    groups = {}
+    for s in slots:
+        groups.setdefault(s.device, []).append(s.index)
+    ready = mesh.ready()            # every shard and copy as it stands now
+    outs = [None] * len(slots)
+    for dev, idx in groups.items():
+        for i in idx:
+            if others[i].device != dev:
+                enable_peer(dev, others[i].device)
+        ks = slots[idx[0]].stream
+        for ev in ready:
+            wait(ks, ev)
+        with slots[idx[0]].on():
+            res = stage([ys[i] for i in idx], [others[i] for i in idx],
+                        [tws[i] for i in idx], [u_sides[i] for i in idx],
+                        inverse)
+        done = record(ks)
+        for i, out in zip(idx, res):
+            for t in (ys[i], others[i], tws[i]):
+                keep(t, ks)
+            keep(out, slots[i].stream)
+            wait(slots[i].stream, done)
+            outs[i] = out
     return outs

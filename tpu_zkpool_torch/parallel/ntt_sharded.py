@@ -6,17 +6,22 @@ coefficients. A DIF stage with half-block h pairs i with i + h; while
 h >= S the partner lives on slot d ^ (h / S), so the first log2(D) forward
 stages (h = n/2 .. S) exchange shards and combine through kernel K9; the
 rest are local stages over the shard, as torch ops. The inverse (DIT) runs
-its local stages first and its log2(D) exchanges last (h = S .. n/2), the
-v side pre-scaled by its twiddle before the exchange and K9 called with
-tw = R mod q. Same tables and orderings as ``rlwe/ntt.py``, so the result
-equals the single-device transform value for value; the spectrum stays
-sharded through ``negacyclic_mul_sharded``.
+its local stages first and its log2(D) exchanges last (h = S .. n/2), K9
+in its inverse form scaling the v side by the twiddle itself (JAX scales
+it before the exchange). Same tables and orderings as ``rlwe/ntt.py``, so
+the result equals the single-device transform value for value; the
+spectrum stays sharded through ``negacyclic_mul_sharded``.
 
-``exchange``: ``"ppermute"`` moves each whole shard (``Mesh.ppermute``) and
-launches K9 once per slot and stage; ``"rdma"`` runs the chunked,
-overlapped schedule of ``ntt_rdma.exchange_butterfly`` (chunks of
-``ntt_rdma.CHUNK_ROWS`` rows). On CUDA slots both
-reach K9; the plain twin runs only on CPU slots.
+``exchange``: ``"ppermute"`` copies each whole shard (``Mesh.ppermute``)
+and K9 combines with the copies; ``"rdma"`` has K9 read each partner's
+shard itself. Either way a stage is one K9 launch a device
+(``ntt_rdma.exchange_butterfly``); the plain twin runs only on CPU slots.
+
+On a CUDA mesh each entry point replays one CUDA graph a (mesh, axis,
+exchange, input shape, dtype, device), captured at its first call
+(``Mesh.graphed``): the port's counterpart of the JAX package's jitted
+``_fwd_fn``, ``_inv_fn`` and ``_mul_fn``. A CPU mesh runs the same code
+eagerly.
 """
 
 from __future__ import annotations
@@ -47,16 +52,15 @@ def _device_slices(n: int, D: int, device: torch.device):
     stage tables shared with ``rlwe.ntt.device_tables``."""
     twist, untwist, _, _ = _local_slices(n, D)
     _, _, fwd, inv = ntt.device_tables(n, device)
-    one = torch.full((n // D,), rlweq.R_MOD_Q, dtype=rlweq.DTYPE,
-                     device=device)
     return (rlweq.from_numpy_u32(twist, device),
-            rlweq.from_numpy_u32(untwist, device), fwd, inv, one)
+            rlweq.from_numpy_u32(untwist, device), fwd, inv)
 
 
 class _Shards:
     """One transform's per-slot state: each slot's coordinate d along the
-    axis and its device tables, loaded on the caller's stream before the
-    mesh copies any shard."""
+    axis and its device tables, loaded (with K9's library on a CUDA mesh)
+    on the caller's stream before the mesh copies any shard or captures a
+    graph."""
 
     def __init__(self, mesh, axis, n, exchange):
         D = mesh.shape[axis]
@@ -72,6 +76,8 @@ class _Shards:
         self.n_cross = (D - 1).bit_length()        # stages with h >= S
         self.d = [mesh.coord(s, axis) for s in mesh.slots]
         self.tabs = [_device_slices(n, D, s.device) for s in mesh.slots]
+        if any(s.device.type == "cuda" for s in mesh.slots):
+            ntt_rdma.load()
 
     def each(self, fn, *per_slot):
         """[fn(slot index, *values)] over the slots, each on its slot's
@@ -88,18 +94,16 @@ class _Shards:
         base = (self.d[i] % hd) * self.S
         return table[base:base + self.S]
 
-    def cross(self, ys, hd, tws, u_sides):
-        """One exchange stage with partner d ^ hd through K9."""
+    def cross(self, ys, hd, table, inverse=False):
+        """One exchange stage with partner d ^ hd through K9, each slot on
+        its slice of the stage's twiddle ``table``."""
         mesh = self.mesh
         partners = [mesh.partner(s, self.axis, hd).index for s in mesh.slots]
         flat = [y.reshape(-1, self.S) for y in ys]
-        if self.exchange == "rdma":
-            outs = ntt_rdma.exchange_butterfly(mesh, flat, tws, u_sides,
-                                               partners)
-        else:
-            others = mesh.ppermute(flat, partners)
-            outs = self.each(lambda i, y, o: ntt_rdma.butterfly(
-                y, o, tws[i], u_sides[i]), flat, others)
+        outs = ntt_rdma.exchange_butterfly(
+            mesh, flat, [self.tw(i, t, hd) for i, t in enumerate(table)],
+            [(d // hd) % 2 == 0 for d in self.d], partners, self.exchange,
+            inverse)
         return [o.reshape(y.shape) for o, y in zip(outs, ys)]
 
     def forward(self, xs):
@@ -107,9 +111,7 @@ class _Shards:
             x, self.tabs[i][0][self.d[i]]), xs)
         for st in range(self.n_cross):             # h = n/2 .. S
             hd = (self.n >> (st + 1)) // self.S
-            ys = self.cross(ys, hd, [self.tw(i, t[2][st], hd)
-                                     for i, t in enumerate(self.tabs)],
-                            [(d // hd) % 2 == 0 for d in self.d])
+            ys = self.cross(ys, hd, [t[2][st] for t in self.tabs])
         for st in range(self.n_cross, len(self.tabs[0][2])):   # h < S
             ys = self.each(lambda i, y: ntt.dif_stage(y, self.tabs[i][2][st]),
                            ys)
@@ -124,11 +126,8 @@ class _Shards:
                            xs)
         for st in range(n_local, n_stages):        # h = S .. n/2
             hd = (1 << st) // self.S
-            u = [(d // hd) % 2 == 0 for d in self.d]
-            # the v side scales its shard by the twiddle before the exchange
-            xs = self.each(lambda i, x: x if u[i] else rlweq.mont_mul(
-                x, self.tw(i, self.tabs[i][3][st], hd)), xs)
-            xs = self.cross(xs, hd, [t[4] for t in self.tabs], u)
+            xs = self.cross(xs, hd, [t[3][st] for t in self.tabs],
+                            inverse=True)
         return self.each(lambda i, x: rlweq.mont_mul(
             x, self.tabs[i][1][self.d[i]]), xs)
 
@@ -137,20 +136,37 @@ def _spec(x, axis):
     return (None,) * (x.dim() - 1) + (axis,)
 
 
+def _forward(sh, x):
+    return sh.mesh.unshard(sh.forward(sh.mesh.shard(x, _spec(x, sh.axis))),
+                           sh.axis, x.device)
+
+
+def _inverse(sh, y):
+    return sh.mesh.unshard(sh.inverse(sh.mesh.shard(y, _spec(y, sh.axis))),
+                           sh.axis, y.device)
+
+
+def _mul(sh, a, b):
+    fa = sh.forward(sh.mesh.shard(a, _spec(a, sh.axis)))
+    fb = sh.forward(sh.mesh.shard(b, _spec(b, sh.axis)))
+    prod = sh.each(lambda i, x, y: ntt.pointwise(x, y), fa, fb)
+    return sh.mesh.unshard(sh.inverse(prod), sh.axis, a.device)
+
+
 def forward_sharded(x, mesh, axis: str = "sp", exchange: str = "ppermute"):
     """Negacyclic forward NTT of int32[..., n] (< q) with the last axis
     sharded over ``mesh[axis]``: the bit-reversed spectrum, equal to
     ``rlwe.ntt.forward(x)``, returned on x's device."""
     sh = _Shards(mesh, axis, x.shape[-1], exchange)
-    ys = sh.forward(mesh.shard(x, _spec(x, axis)))
-    return mesh.unshard(ys, axis, x.device)
+    return mesh.graphed(("forward", axis, exchange),
+                        lambda t: _forward(sh, t), x)
 
 
 def inverse_sharded(y, mesh, axis: str = "sp", exchange: str = "ppermute"):
     """Inverse of :func:`forward_sharded`."""
     sh = _Shards(mesh, axis, y.shape[-1], exchange)
-    xs = sh.inverse(mesh.shard(y, _spec(y, axis)))
-    return mesh.unshard(xs, axis, y.device)
+    return mesh.graphed(("inverse", axis, exchange),
+                        lambda t: _inverse(sh, t), y)
 
 
 def negacyclic_mul_sharded(a, b, mesh, axis: str = "sp",
@@ -159,7 +175,5 @@ def negacyclic_mul_sharded(a, b, mesh, axis: str = "sp",
     coefficient axis sharded end to end (2 log2(D) exchange stages forward,
     log2(D) inverse), returned on a's device."""
     sh = _Shards(mesh, axis, a.shape[-1], exchange)
-    fa = sh.forward(mesh.shard(a, _spec(a, axis)))
-    fb = sh.forward(mesh.shard(b, _spec(b, axis)))
-    prod = sh.each(lambda i, x, y: ntt.pointwise(x, y), fa, fb)
-    return mesh.unshard(sh.inverse(prod), axis, a.device)
+    return mesh.graphed(("mul", axis, exchange),
+                        lambda s, t: _mul(sh, s, t), a, b)
