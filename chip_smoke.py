@@ -8,9 +8,9 @@
 Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
   1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel, the
-             affine-tree kernel, the NTT exchange kernel and the product
-             microbenchmark, g++ the native host library, all six started
-             together;
+             affine-tree kernel, the NTT exchange kernel, the pairing
+             kernels and the product microbenchmark, g++ the two native
+             host libraries, all eight started together;
   2 kernels  the product microbenchmark first (one thread, a dependent
              chain of 4,096 Fp and Fp2 products: out of line, inlined C,
              inlined PTX carry chains, three chains interleaved, PTX out
@@ -88,10 +88,21 @@ Phases, one line each:
              mesh, four 2^14-point legs on a (leg 4, pt 2) mesh, against
              the native oracle; 2^16 leaves in 8 dp shards, subtrees through
              K7 and one root combine, against build_levels;
+ 10 verify   the batched Groth16 verify: P1 (k_miller_lines) and P2
+             (k_final_exp) against their plain versions limb for limb (P1
+             with 3 legs, two fixed at batch stride 0, at B = 256, 1, 4, 33
+             and with 2 batched legs at B = 1, 4, 33; P2 on P1's outputs
+             and on random Fp12 values with 1 and 0 planted), both timed
+             by CUDA events at B = 256 beside the plain version, the bound
+             and the chain floor; then 32 distinct proofs of phase 4's key
+             tiled to 256, verified cold and warm (proofs/s, the host/device
+             split), a batch with four planted faults (exactly those
+             rejected, its 32 distinct proofs against refimpl's verify) and
+             a committed batch with one tampered proof of knowledge;
   5 launches every kernel's launch count on its main path, K1-K6 during
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
-             proofs and K9 during phase 9's rdma products (must be > 0); it
-             runs last.
+             proofs, K9 during phase 9's rdma products and P1 and P2 during
+             phase 10's verify batches (must be > 0); it runs last.
 ``--profile`` traces one warm proof of each path, one warm 2^16 build and
 one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
@@ -116,12 +127,17 @@ import numpy as np
 import torch
 
 from tpu_zkpool_torch import cuda_build, native_bridge
+from tpu_zkpool_torch.curve import lines as plines
+from tpu_zkpool_torch.curve import pairing, tower
+from tpu_zkpool_torch.curve import pairing_kernels as pkern
 from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
 from tpu_zkpool_torch.groth16 import domain
 from tpu_zkpool_torch.groth16 import prove as tp
+from tpu_zkpool_torch.groth16 import solver_native
+from tpu_zkpool_torch.groth16 import verify as tverify
 from tpu_zkpool_torch.hash import kernels as hkern
 from tpu_zkpool_torch.hash import poseidon
 from tpu_zkpool_torch.hash.poseidon_params import N_ROUNDS_F, N_ROUNDS_P
@@ -135,7 +151,7 @@ from tpu_zkpool_torch.parallel.msm_sharded import (msm_grid_sharded,
                                                    msm_grid_sharded_2d)
 from tpu_zkpool_torch.parallel.prove_stages import msm_legs_sharded
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
-from tpu_zkpool_torch.refimpl import rlwe_ref
+from tpu_zkpool_torch.refimpl import pedersen, rlwe_ref
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
 from tpu_zkpool_torch.rlwe import ntt as rntt
 
@@ -175,11 +191,19 @@ REPLACES = {
     "poseidon": "tpu_zkpool/hash/poseidon_pallas.py:206",
     "tree_level": "tpu_zkpool/msm/affine_tree.py:346",
     "exchange_butterfly": "tpu_zkpool/parallel/ntt_rdma.py:161",
+    # the port kernels with no Pallas counterpart: the JAX package compiles
+    # these two functions into one XLA program (_ppl_jit)
+    "miller_lines": "tpu_zkpool/curve/pairing_jax.py:412 miller_loop_lines "
+                    "(XLA, not a pallas_call)",
+    "final_exp": "tpu_zkpool/curve/pairing_jax.py:305 final_exponentiation "
+                 "(XLA, not a pallas_call)",
 }
 SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
 SOURCES["poseidon"] = "tpu_zkpool_torch/csrc/poseidon.cu"
 SOURCES["tree_level"] = "tpu_zkpool_torch/csrc/affine_tree.cu"
 SOURCES["exchange_butterfly"] = "tpu_zkpool_torch/csrc/ntt_rdma.cu"
+SOURCES["miller_lines"] = SOURCES["final_exp"] = \
+    "tpu_zkpool_torch/csrc/pairing.cu"
 
 
 def log(phase, msg):
@@ -1426,6 +1450,288 @@ def phase_tree(device, g1, ctx, profile=False):
     return info
 
 
+# ------------------------------------- the batched verify: P1 and P2
+
+# The least Fp products of each step of the pairing (the bound counts
+# these, not the kernels' own forms where they take more): the Miller
+# loop's Fp12 square (the complex method over Fp6: two Karatsuba Fp6
+# products, 36) and a line (l1 = alpha_neg px, 2, then the product by
+# (l0 + 0 v + 0 v^2) + (l1 + l3 v) w, l0 in Fp, by Karatsuba over Fp6:
+# g l0 takes 6, h (l1, l3) and (g + h)(l0 + l1, l3) are each a product by
+# a sparse Fp6 of 5 Fp2 products, 36 in all; the kernel takes 48); the
+# final exponentiation's Fp12 product (Karatsuba over Fp6, 54),
+# Granger-Scott cyclotomic square (18), Frobenius by its power (gamma_0 =
+# 1, the p^2 gammas in Fp: 15, 10, 15; the kernel takes 18) and inverse
+# (a conj(a) = g^2 - h^2 v as two Fp6 squares of 12, the closed-form Fp6
+# inverse's 37 and conj(a) times an Fp6 value, two Fp6 products; its
+# safegcd inverse is not counted).
+PAIR_PRODUCTS = dict(sqr=36, line=2 + 36, mul=54, cyclo=18,
+                     frob={1: 15, 2: 10, 3: 15},
+                     inv=2 * 12 + 3 * 2 + 3 * 3 + 3 * 3 + 2 + 2 + 3 * 3
+                     + 2 * 18)
+# dependent product levels of the inverse before and after its safegcd
+INV_LEVELS = 7
+FE_COST = {0: "mul", 1: "cyclo", 2: "frob"}     # FE_PROGRAM op kinds
+
+
+def miller_lines_count(legs):
+    """Line evaluations of one Miller loop over ``legs`` legs."""
+    bits = plines.ATE_BITS
+    return (len(bits) + sum(bits) + 2) * legs
+
+
+def miller_products(legs):
+    return (len(plines.ATE_BITS) * PAIR_PRODUCTS["sqr"]
+            + miller_lines_count(legs) * PAIR_PRODUCTS["line"])
+
+
+def fe_products():
+    return PAIR_PRODUCTS["inv"] + sum(
+        PAIR_PRODUCTS["frob"][b] if k == 2 else PAIR_PRODUCTS[FE_COST[k]]
+        for k, _, b, _ in pairing.FE_PROGRAM.tolist() if k in FE_COST)
+
+
+def pairing_levels(name, legs=3):
+    """Dependent product levels on one batch element's longest chain: P1
+    one a square and one a line (a line's products hang off f and its own
+    l1, which does not wait on f), plus the first l1; P2 the inverse's
+    levels, then the critical path of FE_PROGRAM's dependency graph, one
+    level a product, square or Frobenius."""
+    if name == "miller_lines":
+        return len(plines.ATE_BITS) + miller_lines_count(legs) + 1
+    lv = [0] * pairing.FE_NREG
+    lv[1] = INV_LEVELS
+    for kind, a, b, dst in pairing.FE_PROGRAM.tolist():
+        lvl = max(lv[a], lv[b]) if kind == 0 else lv[a]
+        lv[dst] = lvl + (kind in FE_COST)
+    return lv[pairing.FE_OUT]
+
+
+def pairing_bound(name, B, nbytes, clock_hz, legs=3):
+    muls = B * (miller_products(legs) if name == "miller_lines"
+                else fe_products())
+    return _bound_of(muls, nbytes, clock_hz)
+
+
+def pairing_floor(name, products, inverses, legs=3):
+    """(levels, floor ms): the dependent product levels times the product
+    microbenchmark's form (a) time (one thread, out of line, Fp), plus for
+    P2 one safegcd inversion (the inverse microbenchmark's step)."""
+    levels = pairing_levels(name, legs)
+    us = levels * products[(1, 0)]["us"]
+    if name == "final_exp":
+        us += inverses[K8_INV_FORM]["us"]
+    return levels, us / 1e3
+
+
+def pairing_inputs(device, legs, B, batched, seed):
+    """Seeded canonical limbs as a Miller loop's inputs: per leg a G1 point
+    (px, py) int64[B, 16] and ``LineArrays``, [S, B, 16] where
+    ``batched[i]`` and [S, 16] (a fixed leg) elsewhere."""
+    g1s, lgs = [], []
+    for i in range(legs):
+        s = seed + 20 * i
+        g1s.append((random_mont((B,), device, s),
+                    random_mont((B,), device, s + 1)))
+        lgs.append(plines.LineArrays(*[
+            random_mont(((plines.N_STEPS if k < 8 else 2),)
+                        + ((B,) if batched[i] else ()), device, s + 2 + k)
+            for k in range(12)]))
+    return g1s, lgs
+
+
+def _pairing_prefix(g1s, legs, b):
+    """The first b batch elements of a Miller loop's inputs."""
+    return ([(x[:b], y[:b]) for x, y in g1s],
+            [plines.LineArrays(*[t[:, :b].contiguous() if t.dim() == 3
+                                 else t for t in lg]) for lg in legs])
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+PAIR_BS = (1, 4, 33)
+
+
+def check_pairing(device, B=256, Bs=PAIR_BS, seed=300):
+    """P1 and P2 against their plain versions on the card, limb for limb.
+    P1 with 3 legs (one batched, two fixed at batch stride 0) at B and at
+    each b of ``Bs`` on the same inputs' first b rows, and with 2 batched
+    legs (the PoK shape) at each b; P2 on P1's outputs (at B and each b, and
+    the 2-leg ones), and on random Fp12 values with 1 and 0 planted.
+    Returns ({(name, variant): max |kernel - plain|}, {name: the plain
+    version's ms at B (host clock)}, P1's 3-leg inputs)."""
+    errs, plain_ms = {}, {}
+
+    def held(key, got, want):
+        errs[key] = int((got - want).abs().max().item())
+
+    g3, l3 = pairing_inputs(device, 3, B, (True, False, False), seed)
+    plain_ms["miller_lines"], want3 = _host_ms(
+        lambda: pairing.miller_loop_lines_plain(g3, l3))
+    got3 = pkern.miller_lines(g3, l3)
+    held(("miller_lines", f"3 legs B={B}"), got3, want3)
+    b2 = max(Bs)
+    g2, l2 = pairing_inputs(device, 2, b2, (True, True), seed + 100)
+    want2 = pairing.miller_loop_lines_plain(g2, l2)
+    for b in Bs:
+        held(("miller_lines", f"3 legs B={b}"),
+             pkern.miller_lines(*_pairing_prefix(g3, l3, b)), want3[:b])
+        held(("miller_lines", f"2 legs B={b}"),
+             pkern.miller_lines(*_pairing_prefix(g2, l2, b)), want2[:b])
+    plain_ms["final_exp"], fe3 = _host_ms(
+        lambda: pairing.final_exponentiation_plain(got3))
+    held(("final_exp", f"P1 3 legs B={B}"), pkern.final_exp(got3), fe3)
+    for b in Bs:
+        held(("final_exp", f"P1 3 legs B={b}"),
+             pkern.final_exp(got3[:b].contiguous()), fe3[:b])
+    got2 = pkern.miller_lines(g2, l2)
+    held(("final_exp", f"P1 2 legs B={b2}"), pkern.final_exp(got2),
+         pairing.final_exponentiation_plain(got2))
+    rnd = random_mont((b2, 12), device, seed + 200)
+    rnd[0] = tower.f12_one((), device)
+    rnd[1] = 0
+    held(("final_exp", f"random, 1 and 0, B={b2}"), pkern.final_exp(rnd),
+         pairing.final_exponentiation_plain(rnd))
+    return errs, plain_ms, (g3, l3)
+
+
+def time_pairing(device, clock_hz, products, inverses, g3, l3, plain_ms,
+                 reps=5):
+    """P1 (3 legs, the verify's shape) and P2 on its output at B by CUDA
+    events, beside the plain version's ms, the bound and the chain floor."""
+    B = g3[0][0].shape[0]
+    rows = {}
+    ms, f = _cuda_ms(lambda: pkern.miller_lines(g3, l3), reps)
+    ins = [t for p in g3 for t in p] + [t for lg in l3 for t in lg]
+    bound, by = pairing_bound("miller_lines", B,
+                              _nbytes(ins) + f.numel() * 8, clock_hz)
+    levels, floor = pairing_floor("miller_lines", products, inverses)
+    rows["miller_lines"] = dict(
+        shape=f"B={B}, 3 legs (2 fixed)", ms=ms,
+        plain_ms=plain_ms["miller_lines"], bound_ms=bound, bound_by=by,
+        floor_ms=floor, chain_levels=levels, fp_products=miller_products(3),
+        max_abs_err=0)
+    ms, _ = _cuda_ms(lambda: pkern.final_exp(f), reps)
+    bound, by = pairing_bound("final_exp", B, 2 * f.numel() * 8, clock_hz)
+    levels, floor = pairing_floor("final_exp", products, inverses)
+    rows["final_exp"] = dict(
+        shape=f"B={B}", ms=ms, plain_ms=plain_ms["final_exp"],
+        bound_ms=bound, bound_by=by, floor_ms=floor, chain_levels=levels,
+        fp_products=fe_products(), max_abs_err=0)
+    return rows
+
+
+def committed_circuit():
+    """The small circuit with a gnark-style Pedersen commitment of the
+    port's committed-prover test: out = x^3 + x + 5 and u = t x, t the
+    commitment-hash public input (the last). Returns (r1cs, pk, vk,
+    witness fn(x) -> (w, cm, pok))."""
+    r1cs = R1CS(num_vars=7, num_public=3,
+                a_rows=[{3: 1}, {4: 1}, {}, {2: 1}],
+                b_rows=[{3: 1}, {3: 1}, {0: 1}, {3: 1}],
+                c_rows=[{4: 1}, {5: 1},
+                        {1: 1, 5: -1 % FR_MOD, 3: -1 % FR_MOD,
+                         0: -5 % FR_MOD}, {6: 1}])
+    pk, vk = setup(r1cs, committed=(3,))
+
+    def witness(x):
+        cm, pok = pedersen.commit(list(pk.basis), list(pk.basis_exp_sigma),
+                                  [x])
+        t = pedersen.commitment_to_field(cm)
+        w = [1, (x ** 3 + x + 5) % FR_MOD, t, x, x * x % FR_MOD,
+             x ** 3 % FR_MOD, t * x % FR_MOD]
+        assert r1cs.is_satisfied(w)
+        return w, cm, pok
+
+    return r1cs, pk, vk, witness
+
+
+def _ref_verify(vk, proof, pub):
+    """refimpl verify, with a zero denominator (a pow of 0 to -1 in its
+    Miller loop) read as a rejection."""
+    try:
+        return verify(vk, proof, pub)
+    except ValueError:
+        return False
+
+
+def phase_verify(device, ctx, n_distinct=32, tile=8):
+    """The batched Groth16 verify on the card (``groth16.verify``): 32
+    distinct proofs of phase 4's key from ``prove_batch``, tiled to 256,
+    verified cold and three times warm (host split: the VK precompute,
+    L_pub, the B-line walk, its packing, the G1 uploads; the device part);
+    a second batch with a corrupted public input, a swapped C, a foreign A
+    and a B of zero y planted at known positions, which must be exactly the
+    rejected ones, its 32 distinct proofs against refimpl's verify; a
+    committed batch (PoK pairing) with one tampered PoK. The pairing
+    kernels' launches are counted over this phase."""
+    r1cs, vk, dpk = ctx["r1cs"], ctx["vk"], ctx["dpk"]
+    npub = r1cs.num_public
+    t0 = time.perf_counter()
+    ws = [ctx["witness"](100 + i) for i in range(n_distinct)]
+    proofs = tp.prove_batch(dpk, r1cs, ws, seed=500)
+    info = dict(prove_batch_s=time.perf_counter() - t0)
+    pubs = [w[1:npub] for w in ws]
+    batch, bpubs = proofs * tile, pubs * tile
+    n = len(batch)
+    pkern.reset_launches()            # the main path starts here
+    t0 = time.perf_counter()
+    ok_cold = tverify.verify_batch(vk, batch, bpubs, device=device)
+    info["cold_s"] = time.perf_counter() - t0
+    warm, splits = [], []
+    for _ in range(3):
+        sp = {}
+        t0 = time.perf_counter()
+        ok = tverify.verify_batch(vk, batch, bpubs, device=device,
+                                  timings=sp)
+        warm.append(time.perf_counter() - t0)
+        splits.append(sp)
+        ok_cold &= ok
+    info.update(batch=n, warm_s=warm, proofs_per_s=n / min(warm),
+                cold_proofs_per_s=n / info["cold_s"], split_s=splits,
+                all_valid=bool(ok_cold.all()))
+    # planted faults
+    bad = dict(batch=list(batch), pubs=[list(p) for p in bpubs])
+    i_pub, i_c, i_b, i_a = 3, n * 3 // 10, n // 2 + 1, n * 25 // 32
+    plant = {i_pub: "public input + 1", i_c: "C of another proof",
+             i_b: "B with y = 0", i_a: "A of another proof"}
+    bad["pubs"][i_pub][0] += 1
+    A, B2, C = batch[i_c]
+    bad["batch"][i_c] = (A, B2, batch[i_c + 1][2])
+    A, B2, C = batch[i_b]
+    bad["batch"][i_b] = (A, (B2[0], (0, 0)), C)
+    A, B2, C = batch[i_a]
+    bad["batch"][i_a] = (batch[i_a + 1][0], B2, C)
+    got = tverify.verify_batch(vk, bad["batch"], bad["pubs"], device=device)
+    rejected = [i for i in range(n) if not got[i]]
+    ref = [_ref_verify(vk, p, x) for p, x in
+           zip(bad["batch"][:n_distinct], bad["pubs"][:n_distinct])]
+    info.update(planted=plant, rejected=rejected,
+                ref_agrees=bool(list(got[:n_distinct]) == ref))
+    # a committed batch: the PoK pairing
+    cr1cs, cpk, cvk, cwit = committed_circuit()
+    cws = [cwit(x) for x in (3, 4, 5, 6)]
+    cdpk = tp.DeviceProvingKey(cpk, c=8, lanes=32, device=device)
+    cproofs = tp.prove_batch(cdpk, cr1cs, [w for w, _, _ in cws], seed=11)
+    cpubs = [[w[1]] for w, _, _ in cws]
+    A, B2, C, cm, pok = cproofs[2]
+    tampered = list(cproofs)
+    tampered[2] = (A, B2, C, cm, pr.g1_add(pok, (1, 2)))
+    cgot = tverify.verify_batch(cvk, cproofs, cpubs, device=device)
+    tgot = tverify.verify_batch(cvk, tampered, cpubs, device=device)
+    cref = [_ref_verify(cvk, p, x) for p, x in zip(tampered, cpubs)]
+    launches = dict(pkern.LAUNCHES)   # the main path ends here
+    info.update(committed=dict(valid=cgot.tolist(), tampered=tgot.tolist(),
+                               ref=cref), launches=launches)
+    info["ok"] = bool(
+        info["all_valid"] and rejected == sorted(plant) and info["ref_agrees"]
+        and cgot.all() and tgot.tolist() == [True, True, False, True]
+        and cref == tgot.tolist())
+    return info
+
+
 # ------------------------------------------------- mesh: K9 and sharding
 
 def _max_err(got, want):
@@ -1874,15 +2180,18 @@ def phase_prove(device, profile=False):
                 warm_s=warm, proofs_per_s=len(warm) / sum(warm),
                 phases_s=phases, launches=launches,
                 launches_per_proof=per_proof)
-    return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof)
+    return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof, dpk=dpk,
+                      witness=witness)
 
 
 def ptxas_summary(text, kernels=("k_prefix<", "k_addn<", "k_scale_add<",
                                  "k_horner<", "k_poseidon<",
-                                 "k_poseidon_lanes<", "k_tree_level<")):
+                                 "k_poseidon_lanes<", "k_tree_level<",
+                                 "k_miller_lines", "k_final_exp")):
     """{kernel instantiation: registers, spill stores, stack bytes, ptxas
     ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
-    name starts with one of ``kernels`` (K2, K4-K8 by default)."""
+    name starts with one of ``kernels`` (K2, K4-K8, P1 and P2 by
+    default)."""
     import re
     out, name = {}, None
     for line in text.splitlines():
@@ -1933,14 +2242,16 @@ def main(argv):
     t0 = time.perf_counter()
     flags = ["-Xptxas", "-v"]
     cus = dict(msm=kernels.SOURCE, poseidon=hkern.SOURCE,
-               tree=tkern.SOURCE, ntt=ntt_rdma.SOURCE, mul="mul_bench.cu")
+               tree=tkern.SOURCE, ntt=ntt_rdma.SOURCE, mul="mul_bench.cu",
+               pairing=pkern.SOURCE)
     def timed(cu):
         t = time.perf_counter()
         return cuda_build.build(cu, flags) + (time.perf_counter() - t,)
 
-    with ThreadPoolExecutor(len(cus) + 1) as ex:
+    with ThreadPoolExecutor(len(cus) + 2) as ex:
         futs = {k: ex.submit(timed, cu) for k, cu in cus.items()}
         futs["host"] = ex.submit(native_bridge.get_lib)
+        futs["witness"] = ex.submit(solver_native.get_lib)
         built = {k: f.result() for k, f in futs.items()}
     ptxas = "".join(built[k][1] or "" for k in cus)
     if ptxas:
@@ -2105,11 +2416,41 @@ def main(argv):
         raise AssertionError("the dp-sharded Merkle root differs from "
                              "build_levels")
 
+    # ---- 10: the batched Groth16 verify through P1 and P2
+    t0 = time.perf_counter()
+    perrs, plain_ms, (g3, l3) = check_pairing(device)
+    errs.update({(k[0], 0, k[1]): v for k, v in perrs.items()})
+    bad = {k: v for k, v in perrs.items() if v}
+    log(10, f"{len(perrs)} pairing kernel modes equal to their plain "
+            f"versions: {not bad} ({time.perf_counter() - t0:.1f} s; the "
+            f"plain versions at B = 256: Miller loop "
+            f"{plain_ms['miller_lines']:.0f} ms, final exponentiation "
+            f"{plain_ms['final_exp']:.0f} ms)")
+    if bad:
+        raise AssertionError(f"P1 or P2 differs from its plain version: "
+                             f"{bad}")
+    for name, t in time_pairing(device, clock_hz, products, inverses, g3, l3,
+                                plain_ms).items():
+        times[(name, 256)] = t
+        log(10, f"{name} {t['shape']}: {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.5f} ms "
+                f"({t['bound_by']}; {t['fp_products']} Fp products an "
+                f"element), chain floor {t['floor_ms']:.4f} ms "
+                f"({t['chain_levels']} product levels)")
+    del g3, l3
+    ver = phase_verify(device, ctx)
+    log(10, "verify " + json.dumps(ver))
+    if not ver["ok"]:
+        raise AssertionError("the batched verify accepted a bad proof, "
+                             "rejected a good one or differs from refimpl")
+
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
-    # tree proofs: K8, the sharded NTT's rdma products: K9)
+    # tree proofs: K8, the sharded NTT's rdma products: K9, the verify:
+    # P1 and P2)
     launches = dict(info["launches"], poseidon=merkle["launches"],
                     tree_level=tree["launches"],
-                    exchange_butterfly=mesh_ntt["rdma_launches"])
+                    exchange_butterfly=mesh_ntt["rdma_launches"],
+                    **ver["launches"])
     missing = [k for k, v in launches.items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}; a withdraw-shape proof "
            f"(phase 4) {json.dumps(info['launches_per_proof'])}")
@@ -2123,8 +2464,10 @@ def main(argv):
         max_err[name] = max(max_err[name], _times_err(t))
     max_err["poseidon"] = max(max_err["poseidon"], merkle["max_abs_err"])
     # the row of each kernel: G1 for K1-K6, hash2 (the Merkle tree's width)
-    # for K7, the prover's level 0 for K8, a whole stage at D = 8 for K9
-    row_key = {"poseidon": 3, "exchange_butterfly": 8}
+    # for K7, the prover's level 0 for K8, a whole stage at D = 8 for K9,
+    # the verify's batch of 256 for P1 and P2
+    row_key = {"poseidon": 3, "exchange_butterfly": 8, "miller_lines": 256,
+               "final_exp": 256}
     rows = {name: times[(name, row_key.get(name, 1))] for name in REPLACES}
     line = {"kernels": [dict(
         name=name, route="cuda", source=SOURCES[name],
@@ -2137,7 +2480,8 @@ def main(argv):
         json.dump(dict(card=card, kernels=line["kernels"], times={
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
             prove=info, merkle=merkle, chain=chain, tree=tree,
-            mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp)),
+            mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp),
+            verify=ver),
             f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

@@ -44,7 +44,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             os.path.join("msm", "affine_tree.py"),
             os.path.join("msm", "tree_kernels.py"),
             os.path.join("fields", "rlweq.py"), os.path.join("rlwe", "ntt.py"),
-            os.path.join("refimpl", "rlwe_ref.py")} | {
+            os.path.join("refimpl", "rlwe_ref.py"),
+            os.path.join("groth16", "solver_native.py"),
+            os.path.join("groth16", "verify.py")} | {
+                os.path.join("curve", f) for f in (
+                    "__init__.py", "tower.py", "lines.py", "pairing.py",
+                    "pairing_kernels.py")} | {
                 os.path.join("parallel", f) for f in (
                     "__init__.py", "mesh.py", "ntt_rdma.py", "ntt_sharded.py",
                     "msm_sharded.py", "multihost.py", "prove_stages.py",
@@ -218,3 +223,54 @@ def test_exchange_stage_rejects_bad_inputs(case, match):
     meta = [[t.to("meta") for t in ts] for ts in (ys, others, tws)]
     with pytest.raises(ValueError, match=match):
         ntt_rdma.stage(*meta, [True] * len(ys))
+
+
+def test_verify_and_lines_ask_for_cuda(monkeypatch):
+    from tpu_zkpool_torch.curve import lines
+    from tpu_zkpool_torch.groth16 import verify as tv
+    from tpu_zkpool_torch.refimpl import pairing_ref as pr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = pr.G2_GEN
+    for call in (lambda: lines.precompute_g2_lines(q),
+                 lambda: lines.precompute_g2_lines_batch([q, q]),
+                 lambda: tv.verify_batch(None, [], [])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    lg = lines.precompute_g2_lines(q, device="cpu")
+    assert lg.dbl_an0.device.type == "cpu" and lg.dbl_an0.shape == (64, 16)
+
+
+def _meta_leg(shape_dbl, shape_end):
+    from tpu_zkpool_torch.curve.lines import LineArrays
+    return LineArrays(*[torch.empty(shape_dbl if k < 8 else shape_end,
+                                    dtype=torch.int64, device="meta")
+                        for k in range(12)])
+
+
+def test_pairing_wrappers_reject_bad_inputs():
+    """P1 and P2 check shapes and dtypes before the device: on meta tensors
+    a good call stops at the CUDA check, a bad one at its shape."""
+    from tpu_zkpool_torch.curve import pairing_kernels as pk
+    B = 4
+    pt = torch.empty((B, 16), dtype=torch.int64, device="meta")
+    fixed, batched = _meta_leg((64, 16), (2, 16)), _meta_leg((64, B, 16),
+                                                             (2, B, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.miller_lines([(pt, pt)] * 3, [batched, fixed, fixed])
+    with pytest.raises(ValueError, match="1 to 3 legs"):
+        pk.miller_lines([(pt, pt)] * 4, [fixed] * 4)
+    with pytest.raises(ValueError, match="batch"):
+        pk.miller_lines([(pt, pt)], [_meta_leg((64, 3, 16), (2, 3, 16))])
+    with pytest.raises(ValueError, match="line array 8"):
+        pk.miller_lines([(pt, pt)], [_meta_leg((64, 16), (3, 16))])
+    with pytest.raises(ValueError, match=r"\(B, 16\)"):
+        pk.miller_lines([(pt[:2], pt)], [fixed])
+    with pytest.raises(ValueError, match="int64"):
+        pk.miller_lines([(pt.int(), pt.int())], [fixed])
+    f = torch.empty((B, 12, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.final_exp(f)
+    with pytest.raises(ValueError, match=r"\(B, 12, 16\)"):
+        pk.final_exp(f.view(B, 6, 2, 16))
+    with pytest.raises(ValueError, match="int64"):
+        pk.final_exp(torch.zeros((B, 12, 16), dtype=torch.int32))

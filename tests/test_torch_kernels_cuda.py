@@ -1,5 +1,6 @@
 """The CUDA kernels (grid MSM K1-K6, Poseidon K7, affine tree K8, the NTT
-exchange butterfly K9) against their plain torch twins, on the card.
+exchange butterfly K9, the pairing kernels P1 and P2) against their plain
+torch twins, on the card.
 
 Marked ``cuda``: it needs an NVIDIA GPU with the CUDA toolkit (nvcc) and
 skips elsewhere. Run it there with
@@ -40,4 +41,17 @@ def test_exchange_butterfly_equals_twin():
     # whole stages, one launch each: 3 shapes x D = 2, 4, 8 x forward and
     # inverse x rdma and ppermute
     assert len(errs) == 8 + 3 * 3 * 2 * 2 and launches == len(errs)
+    assert not {k: v for k, v in errs.items() if v}
+
+
+@pytest.mark.cuda
+def test_pairing_kernels_equal_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    errs, _, _ = chip_smoke.check_pairing(torch.device("cuda", 0), B=40)
+    # P1: 3 legs (two fixed) at B = 40, 1, 4, 33 and 2 batched legs at
+    # B = 1, 4, 33; P2 on P1's 3-leg outputs at the same four batches, on
+    # its 2-leg output and on random values with 1 and 0 planted
+    assert len(errs) == 4 + 3 + 4 + 1 + 1
     assert not {k: v for k, v in errs.items() if v}

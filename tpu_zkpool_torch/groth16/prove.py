@@ -5,8 +5,11 @@ The four G1 legs (A, B1, K, H) and the G2 leg (B2) run through the grid
 Pippenger MSM (``msm.grid``, CUDA kernels K1-K6, and K8 for the G1 legs
 with ``tree=True``); H(X) = (UV - W)/t runs
 through the Fr NTT (``groth16.domain``). The U/V/W row evaluations are host
-work, and the final combine into (A, B2, C) is host bigint code. A proof
-equals ``tpu_zkpool.refimpl.groth16_ref.prove`` on the same inputs and seed.
+work in C++ (``solver_native.eval_rows_native`` over ``native/witness.cpp``),
+the witness and the K-leg scalars are packed by
+``solver_native.ints_to_u64x4``, and the final combine into (A, B2, C) is
+host bigint code. A proof equals
+``tpu_zkpool.refimpl.groth16_ref.prove`` on the same inputs and seed.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ import torch
 from tpu_zkpool_torch import resolve_device
 from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.fields.fctx import FP, FR
-from tpu_zkpool_torch.fields.limbs import (NLIMB, int_to_limbs, ints_to_limbs,
+from tpu_zkpool_torch.fields.limbs import (NLIMB, int_to_limbs,
                                            pack_limbs16, unpack_limbs16)
 from tpu_zkpool_torch.groth16 import domain
+from tpu_zkpool_torch.groth16 import solver_native as sn
 from tpu_zkpool_torch.msm import grid
 from tpu_zkpool_torch.msm.grid import TILE_N, msm_grid_g1, msm_grid_g2
 from tpu_zkpool_torch.refimpl import groth16_ref as g16
@@ -93,12 +97,13 @@ def _points_device_g2(pts: list, device, npad: int):
     return X, Y, Z
 
 
-def _scalar_limbs(scalars: list, npad: int, device) -> torch.Tensor:
-    """Plain scalar limbs int64[npad, 16] on device (zero-padded)."""
-    arr = np.zeros((npad, NLIMB), dtype=np.int64)
-    if scalars:
-        arr[: len(scalars)] = ints_to_limbs([s % R for s in scalars])
-    return _unpack_dev(pack_limbs16(arr), device)
+def _scalar_limbs(w64: np.ndarray, npad: int, device) -> torch.Tensor:
+    """Plain scalars as uint64[n, 4] (``solver_native.ints_to_u64x4``) ->
+    limbs int64[npad, 16] on device (zero-padded). The u64x4 rows viewed as
+    uint32 words are the packed wire format of ``_unpack_dev``."""
+    pad = np.zeros((npad, NLIMB // 2), dtype=np.uint32)
+    pad[: len(w64)] = w64.view("<u4")
+    return _unpack_dev(pad, device)
 
 
 class DeviceProvingKey:
@@ -227,19 +232,28 @@ def _h_pipeline_split(evs, tinv, tables, demont):
     return _h_finish(*on_coset, tinv, tables, demont)
 
 
+def _witness_u64(w_full: list) -> np.ndarray:
+    """The witness as plain uint64[n, 4] rows (reduced mod r)."""
+    return sn.ints_to_u64x4([v % R for v in w_full])
+
+
 @torch.inference_mode()
 def compute_h_device(r1cs, w_full, n: int, as_limbs: bool = False,
-                     device=None):
+                     device=None, w64: np.ndarray | None = None):
     """H(X) coefficients with the NTT work on the device. The U/V/W row
-    evaluations are host Python. ``as_limbs=True`` returns plain limbs
-    int64[n, 16] on the device (the H leg's MSM scalars); else ints."""
+    evaluations run through the native CSR matvec (``native/witness.cpp``;
+    ``w64`` is the witness as uint64[n, 4], built here if not passed).
+    ``as_limbs=True`` returns plain limbs int64[n, 16] on the device (the H
+    leg's MSM scalars); else ints."""
     dev = resolve_device(device)
     m = len(r1cs.a_rows)
-    evs = np.zeros((3, n, NLIMB), dtype=np.int64)
+    if w64 is None:
+        w64 = _witness_u64(w_full)
+    evs = np.zeros((3, n, 4), dtype=np.uint64)
     for i, rows in enumerate((r1cs.a_rows, r1cs.b_rows, r1cs.c_rows)):
-        evs[i, :m] = ints_to_limbs([r1cs.eval_row(rows[c], w_full)
-                                    for c in range(m)])
-    ev_m = _unpack_mont_fr(pack_limbs16(evs), dev)
+        evs[i, :m] = sn.eval_rows_native((id(r1cs), i), rows, w64)
+    # plain u64x4 rows are the packed wire format; Montgomery on the device
+    ev_m = _unpack_mont_fr(evs.view("<u4").reshape(3, n, NLIMB // 2), dev)
     # t(g w^i) = g^n - 1, constant on the coset.
     t_coset_inv = pow(pow(domain.COSET_G, n, R) - 1, -1, R)
     tinv_m = torch.as_tensor(FR.to_mont([t_coset_inv])[0], device=dev)
@@ -256,13 +270,14 @@ def _dispatch_legs(dpk: DeviceProvingKey, r1cs, w_full: list, timings=None):
     pk, dev = dpk.pk, dpk.device
     n = pk.n_domain
     with _phase(timings, "upload", dev):
-        w_limbs = _scalar_limbs(w_full, max(dpk._na, dpk._nb2), dev)
+        w64 = _witness_u64(w_full)
+        w_limbs = _scalar_limbs(w64, max(dpk._na, dpk._nb2), dev)
         if pk.committed:
             cset = set(pk.committed)
-            priv = [w_full[i] for i in range(r1cs.num_public, len(w_full))
-                    if i not in cset]
+            priv = w64[[i for i in range(r1cs.num_public, len(w_full))
+                        if i not in cset]]
         else:
-            priv = w_full[r1cs.num_public:]
+            priv = w64[r1cs.num_public:]
         k_limbs = _scalar_limbs(priv, dpk._nk, dev)
     with _phase(timings, "msm_a", dev):
         a_out = dpk._msm_g1(dpk.a_query, dpk._na, w_limbs)
@@ -272,7 +287,7 @@ def _dispatch_legs(dpk: DeviceProvingKey, r1cs, w_full: list, timings=None):
         b2_out = dpk._msm_g2(w_limbs)
     with _phase(timings, "h_ntt", dev):
         h_limbs = compute_h_device(r1cs, w_full, n, as_limbs=True,
-                                   device=dev)
+                                   device=dev, w64=w64)
         h_pad = torch.cat([h_limbs[: n - 1],
                            h_limbs.new_zeros((dpk._nh - (n - 1), NLIMB))])
     with _phase(timings, "msm_h", dev):
