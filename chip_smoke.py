@@ -9,8 +9,9 @@ Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
   1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel, the
              affine-tree kernel, the NTT exchange kernel, the pairing
-             kernels and the product microbenchmark, g++ the two native
-             host libraries, all eight started together;
+             kernels, the Poseidon2 kernel and the product
+             microbenchmark, g++ the two native host libraries, all nine
+             started together;
   2 kernels  the product microbenchmark first (one thread, a dependent
              chain of 4,096 Fp and Fp2 products: out of line, inlined C,
              inlined PTX carry chains, three chains interleaved, PTX out
@@ -99,10 +100,29 @@ Phases, one line each:
              split), a batch with four planted faults (exactly those
              rejected, its 32 distinct proofs against refimpl's verify) and
              a committed batch with one tampered proof of knowledge;
+ 11 audit    the audit path: P3 (k_poseidon2) against its plain version
+             limb for limb, the permutation at B = 1, 2, 33, 256, 4,096 and
+             the ct_commitment sponge at each B and n = 0, 1, 2, 3, 4, 157,
+             with 0, 1 and r - 1 planted, and bb's permutation(0, 1, 2,
+             3); the plain sponge timed on the card at B = 256 (its
+             FieldCtx calls, a permutation's device launches) beside P3,
+             and P3 alone at B = 1, 256, 4,096 beside its bound and chain
+             floor; keygen from rlwe_ref.keygen(42)'s randomness, Shamir
+             shares and every pair's reconstruction on the card; 256
+             identities encrypted with their quotient witnesses (four held
+             to rlwe_ref.encrypt, all to k q + rem = full in int64 numpy),
+             decrypted, and committed through P3 against
+             ct_commitment_ref; the committed 24,070-row audit circuit
+             built, set up, solved, proved on the card (one cold and three
+             warm proofs, per-phase times) and verified through P1 and P2,
+             ct + 1 and a tampered proof of knowledge rejected; the
+             auditor's decrypt from shares 1 and 2, its K7 hash equal to
+             the proof's wa_commitment;
   5 launches every kernel's launch count on its main path, K1-K6 during
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
-             proofs, K9 during phase 9's rdma products and P1 and P2 during
-             phase 10's verify batches (must be > 0); it runs last.
+             proofs, K9 during phase 9's rdma products, P1 and P2 during
+             phase 10's verify batches, and K1-K7, P1, P2 and P3 from phase
+             11's encryptions to its end (must be > 0); it runs last.
 ``--profile`` traces one warm proof of each path, one warm 2^16 build and
 one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
@@ -139,7 +159,8 @@ from tpu_zkpool_torch.groth16 import prove as tp
 from tpu_zkpool_torch.groth16 import solver_native
 from tpu_zkpool_torch.groth16 import verify as tverify
 from tpu_zkpool_torch.hash import kernels as hkern
-from tpu_zkpool_torch.hash import poseidon
+from tpu_zkpool_torch.hash import poseidon, poseidon2
+from tpu_zkpool_torch.hash import poseidon2_kernels as p2k
 from tpu_zkpool_torch.hash.poseidon_params import N_ROUNDS_F, N_ROUNDS_P
 from tpu_zkpool_torch.hash.poseidon_params import poseidon_hash_ref
 from tpu_zkpool_torch.merkle import MerkleTree, build_levels
@@ -151,9 +172,13 @@ from tpu_zkpool_torch.parallel.msm_sharded import (msm_grid_sharded,
                                                    msm_grid_sharded_2d)
 from tpu_zkpool_torch.parallel.prove_stages import msm_legs_sharded
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
-from tpu_zkpool_torch.refimpl import pedersen, rlwe_ref
+from tpu_zkpool_torch.protocol import audit_circuit
+from tpu_zkpool_torch.refimpl import curve_ref, pedersen, rlwe_ref
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
+from tpu_zkpool_torch.rlwe import encrypt as renc
 from tpu_zkpool_torch.rlwe import ntt as rntt
+from tpu_zkpool_torch.rlwe import quotient
+from tpu_zkpool_torch.shamir import reconstruct_batch, share_batch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -197,6 +222,9 @@ REPLACES = {
                     "(XLA, not a pallas_call)",
     "final_exp": "tpu_zkpool/curve/pairing_jax.py:305 final_exponentiation "
                  "(XLA, not a pallas_call)",
+    # the audit path's Poseidon2 sponge, an XLA scan in the JAX package
+    "poseidon2": "tpu_zkpool/hash/poseidon2.py:181 ct_commitment "
+                 "(XLA, not a pallas_call)",
 }
 SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
 SOURCES["poseidon"] = "tpu_zkpool_torch/csrc/poseidon.cu"
@@ -204,6 +232,7 @@ SOURCES["tree_level"] = "tpu_zkpool_torch/csrc/affine_tree.cu"
 SOURCES["exchange_butterfly"] = "tpu_zkpool_torch/csrc/ntt_rdma.cu"
 SOURCES["miller_lines"] = SOURCES["final_exp"] = \
     "tpu_zkpool_torch/csrc/pairing.cu"
+SOURCES["poseidon2"] = "tpu_zkpool_torch/csrc/poseidon2.cu"
 
 
 def log(phase, msg):
@@ -1732,6 +1761,352 @@ def phase_verify(device, ctx, n_distinct=32, tile=8):
     return info
 
 
+# ---------------------------------------- the audit path: P3 and phase 11
+
+# Owner 0 of the audit batch: the withdraw vectors' key and point
+# (tests/vectors.py), sk * G on the embedded curve.
+SECRET_KEY = 0x43F5147FE5A665DF7600DA3AE1C0AE1C
+OWNER_X = 0x13C1A5D58F3CE2659C8CB9F6686264197864954B53A3BA1EDA4168B9B18927B8
+OWNER_Y = 0x1D1E2A6A28D810BC04992F6E8F890F1D9CAD471819BC111AE229B507F4D77A0F
+AUDIT_FIELDS = audit_circuit.PACKED_C0 + audit_circuit.PACKED_C1   # 157
+AUDIT_ROWS = 24070             # const_pk_e_witness, logderiv
+P3_BS = (1, 2, 33, 256, 4096)  # P3's batches held to the plain version
+P3_NS = (0, 1, 2, 3, 4, AUDIT_FIELDS)   # sponge lengths held
+P3_TIMED_BS = (1, 256, 4096)
+# One permutation: 88 S-boxes (4 a full round, 1 a partial round) of two
+# squares and a product, and 4 diagonal products a partial round: 176
+# squares and 312 products, 488 in all; 3 dependent product levels a full
+# round and 4 a partial round.
+P2_SBOXES = poseidon2.R_F * poseidon2.T + poseidon2.R_P
+P2_PRODUCTS = 3 * P2_SBOXES + poseidon2.R_P * poseidon2.T
+P2_LEVELS = 3 * poseidon2.R_F + 4 * poseidon2.R_P
+
+
+def p2_perms(n):
+    """Permutations of a sponge over n fields: one a block of 3, one for
+    the remainder (possibly empty)."""
+    return n // 3 + 1
+
+
+def p2_madds():
+    """32-bit multiply-adds of one permutation in its least form: each
+    S-box two dedicated squares and a product, each diagonal term one
+    product; the M4 and sum additions are not counted."""
+    sbox = 2 * (MADDS_WIDE_SQR + MADDS_REDC) + MADDS_WIDE + MADDS_REDC
+    return P2_SBOXES * sbox + poseidon2.R_P * poseidon2.T * MADDS_PER_FP_MUL
+
+
+def p3_bound(B, n, clock_hz, sponge=True):
+    """(bound ms, bound_by) of P3 on B states (form a) or B sponges over n
+    fields (form b): multiply-adds over the INT32 rate against the int64
+    limbs read once and written once over the memory rate."""
+    perms = p2_perms(n) if sponge else 1
+    ops_s = B * perms * p2_madds() / (INT32_LANES * clock_hz)
+    rows = n + 1 if sponge else 2 * poseidon2.T
+    bytes_s = B * rows * 16 * 8 / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def p3_floor(n, products, sponge=True):
+    """(product levels, floor ms) of one thread's chain: P2_LEVELS a
+    permutation at form (a)'s time a product."""
+    levels = P2_LEVELS * (p2_perms(n) if sponge else 1)
+    return levels, levels * products[(1, 0)]["us"] / 1e3
+
+
+def check_poseidon2(device, Bs=P3_BS, ns=P3_NS, seed=400):
+    """P3 against its plain version limb for limb: the permutation at each
+    B and the sponge at each (B, n), on random values with 0, 1 and r - 1
+    planted alone and mixed in the first rows (each batch a prefix of the
+    largest, so the plain version runs once a form and n); Barretenberg's
+    permutation(0, 1, 2, 3). Returns ({(form, B, n): max |err|}, plain ms of
+    the largest batch's permutation)."""
+    errs, big = {}, max(Bs)
+    x = poseidon_special(poseidon2.T + 1, big, device, seed)
+    perm_ms, want = _host_ms(lambda: poseidon2.permutation_plain(x))
+    for B in Bs:
+        errs[("poseidon2", "permutation", (B, poseidon2.T))] = _max_err(
+            p2k.permute(x[:B].contiguous()), want[:B])
+    for n in ns:
+        x = poseidon_special(n + 1, big, device, seed + n).reshape(
+            big, n, 16)
+        want = poseidon2.ct_commitment_plain(x)
+        for B in Bs:
+            errs[("poseidon2", "sponge", (B, n))] = _max_err(
+                p2k.sponge(x[:B].contiguous()), want[:B])
+    bb = torch.as_tensor(FR.to_mont([[0, 1, 2, 3]]), device=device)
+    got = [int(v) for v in FR.from_mont(p2k.permute(bb))[0]]
+    errs[("poseidon2", "bb vector", (1, poseidon2.T))] = int(
+        got != poseidon2.permutation_ref([0, 1, 2, 3]))
+    return errs, perm_ms
+
+
+def count_fieldctx(fn):
+    """(output, FieldCtx public calls made by ``fn``) through FR."""
+    calls = [0]
+    names = ("add", "sub", "mont_mul")
+    saved = {k: getattr(FR, k) for k in names}
+
+    def counted(f):
+        def g(*a, **k):
+            calls[0] += 1
+            return f(*a, **k)
+        return g
+
+    for k in names:
+        setattr(FR, k, counted(saved[k]))
+    try:
+        out = fn()
+    finally:
+        for k in names:
+            setattr(FR, k, saved[k])
+    return out, calls[0]
+
+
+def device_launches(fn):
+    """(output, CUDA kernel launches of ``fn`` by torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+
+
+def time_poseidon2(device, clock_hz, products, B=256, Bs=P3_TIMED_BS,
+                   n=AUDIT_FIELDS, reps=5):
+    """The need for P3, then P3 alone. The plain sponge over n fields at B
+    on the card (host clock, synchronized), its FieldCtx calls and the
+    device launches of one plain permutation (the profiler); P3's sponge
+    at each of Bs and its permutation at B by CUDA events, beside the bound
+    and the chain floor."""
+    x = random_mont((max(Bs), n), device, seed=410)
+    (plain_ms, want), calls = count_fieldctx(lambda: _host_ms(
+        lambda: poseidon2.ct_commitment_plain(x[:B])))
+    _, perm_launches = device_launches(
+        lambda: poseidon2.permutation_plain(x[:B, :4]))
+    rows = {}
+    for b in Bs:
+        xb = x[:b].contiguous()
+        ms, got = _cuda_ms(lambda: p2k.sponge(xb), reps)
+        bound, by = p3_bound(b, n, clock_hz)
+        levels, floor = p3_floor(n, products)
+        rows[b] = dict(shape=f"B={b}, n={n}", ms=ms, bound_ms=bound,
+                       bound_by=by, floor_ms=floor, chain_levels=levels,
+                       products=b * p2_perms(n) * P2_PRODUCTS)
+        if b == B:
+            rows[b].update(plain_ms=plain_ms,
+                           max_abs_err=_max_err(got, want),
+                           plain_fieldctx_calls=calls,
+                           plain_permutation_launches=perm_launches)
+    xs = x[:B, :4].contiguous()
+    ms, _ = _cuda_ms(lambda: p2k.permute(xs), reps)
+    bound, by = p3_bound(B, 0, clock_hz, sponge=False)
+    levels, floor = p3_floor(0, products, sponge=False)
+    rows["permutation"] = dict(shape=f"B={B}, one permutation", ms=ms,
+                               bound_ms=bound, bound_by=by, floor_ms=floor,
+                               chain_levels=levels)
+    return dict(rows[B], by_batch=rows)
+
+
+def _noise(i):
+    """The signed noise of ``rlwe_ref.encrypt(seed=999 + i)``, drawn in its
+    order: r (N), e1 (MSG_SLOTS), e2 (N)."""
+    rng = random.Random(999 + i)
+    nb = rlwe_ref.NOISE_BOUND
+    r = [rng.randint(-nb, nb) for _ in range(rlwe_ref.N)]
+    e1 = [rng.randint(-nb, nb) for _ in range(rlwe_ref.MSG_SLOTS)]
+    e2 = [rng.randint(-nb, nb) for _ in range(rlwe_ref.N)]
+    return r, e1, e2
+
+
+def _q_dev(vals, device):
+    """Signed or mod-q ints (any nesting) -> int32 words < q on device."""
+    a = np.remainder(np.asarray(vals, dtype=np.int64), rlwe_ref.RLWE_Q)
+    return rlweq.from_numpy_u32(a.astype(np.uint32), device)
+
+
+def _timed_step(steps, name, fn):
+    """``fn`` twice by the host clock, synchronized: steps[name] = [cold
+    ms, warm ms]; the warm call's output."""
+    cold, _ = _host_ms(fn)
+    warm, out = _host_ms(fn)
+    steps[name] = [cold, warm]
+    return out
+
+
+def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255)):
+    """The audit path on the card (phase 11): RLWE keygen from
+    ``rlwe_ref.keygen(42)``'s randomness, Shamir shares and every pair's
+    reconstruction; B identities encrypted with their quotient witnesses,
+    held to the oracle, to k q + rem = full in int64 numpy, decrypted, and
+    committed through P3 against ``ct_commitment_ref``; the committed
+    24,070-row audit circuit built, set up, solved, proved (one cold and
+    three warm proofs) and verified through P1 and P2, ct + 1 and a
+    tampered proof of knowledge rejected; the auditor's decrypt from
+    shares 1 and 2 and the K7 hash of the recovered point. The launches of
+    K1-K7, P1, P2 and P3 are counted from the encryption to the end."""
+    Q, N, MS = rlwe_ref.RLWE_Q, rlwe_ref.N, rlwe_ref.MSG_SLOTS
+    info, steps, checks = {}, {}, {}
+    # 3. keygen and Shamir
+    t0 = time.perf_counter()
+    kg = rlwe_ref.keygen(42)
+    steps["keygen_oracle_s"] = time.perf_counter() - t0
+    sk_q, a_q, e_q = (_q_dev(kg[k], device)
+                      for k in ("sk_signed", "a", "e_signed"))
+    b_dev = _timed_step(steps, "keygen_ms", lambda: renc.keygen_from_randomness(
+        sk_q, a_q, e_q))
+    checks["keygen_b"] = b_dev.tolist() == kg["b"]
+    sks = [v % FR_MOD for v in kg["sk_signed"]]
+    coeff = [(y - s) % FR_MOD for (_, y), s in zip(kg["shares"][0], sks)]
+    secrets = torch.as_tensor(FR.to_mont(sks), device=device)
+    co = torch.as_tensor(FR.to_mont([coeff]), device=device)
+    shares = _timed_step(steps, "share_ms", lambda: share_batch(secrets, co))
+    checks["shares"] = all(
+        FR.from_mont(shares[k]).tolist() == [y for _, y in kg["shares"][k]]
+        for k in range(3))
+    checks["reconstruct"] = all(
+        FR.from_mont(reconstruct_batch(shares[[x - 1 for x in xs]], xs))
+        .tolist() == sks for xs in ((1, 2), (1, 3), (2, 3)))
+    # 4. encrypt B identities: the counts start here
+    for reset in (kernels.reset_launches, hkern.reset_launches,
+                  pkern.reset_launches, p2k.reset_launches):
+        reset()
+    rng = random.Random(seed)
+    t0 = time.perf_counter()
+    keys = [SECRET_KEY] + [rng.getrandbits(128) for _ in range(B - 1)]
+    owners = [curve_ref.scalar_mul(k) for k in keys]
+    noise = [_noise(i) for i in range(B)]
+    msgs = np.stack([renc.encode_message(x, y) for x, y in owners])
+    steps["owners_noise_s"] = time.perf_counter() - t0
+    checks["owner0"] = owners[0] == (OWNER_X, OWNER_Y)
+    r_s = np.asarray([n[0] for n in noise], dtype=np.int64)
+    e1_s = np.asarray([n[1] for n in noise], dtype=np.int64)
+    e2_s = np.asarray([n[2] for n in noise], dtype=np.int64)
+    ins = [_q_dev(v, device) for v in (r_s, e1_s, e2_s,
+                                       msgs.astype(np.int64) * rlwe_ref.DELTA)]
+    c0, c1 = _timed_step(steps, "encrypt_ms", lambda: renc.encrypt_core(
+        a_q, b_dev, *ins))
+    r_dev = torch.as_tensor(r_s, device=device)
+    extra0 = np.zeros((B, N), np.int64)
+    extra0[:, :MS] = e1_s + rlwe_ref.DELTA * msgs.astype(np.int64)
+    k1, rem1 = _timed_step(steps, "quotient_c1_ms",
+                           lambda: quotient.quotient_witnesses(
+                               kg["a"], r_dev, torch.as_tensor(e2_s,
+                                                               device=device)))
+    k0, rem0 = _timed_step(steps, "quotient_c0_ms",
+                           lambda: quotient.quotient_witnesses(
+                               kg["b"], r_dev, torch.as_tensor(extra0,
+                                                               device=device)))
+    c0h, c1h = c0.cpu().numpy().astype(np.int64), c1.cpu().numpy().astype(
+        np.int64)
+    k0h, k1h = k0.cpu().numpy(), k1.cpu().numpy()
+    t0 = time.perf_counter()
+    ok_oracle = True
+    for i in oracles:
+        ref = rlwe_ref.encrypt(kg["a"], kg["b"], *owners[i], seed=999 + i)
+        ok_oracle &= (c0h[i].tolist() == ref["c0_sparse"]
+                      and c1h[i].tolist() == ref["c1"]
+                      and k0h[i, :MS].tolist() == ref["k0"]
+                      and k1h[i].tolist() == ref["k1"])
+    steps["encrypt_oracles_s"] = time.perf_counter() - t0
+    checks["oracle_encryptions"] = bool(ok_oracle)
+    # full = <row k, r> + extra in int64 numpy, the rows rlwe_ref's
+    t0 = time.perf_counter()
+    ok_quot = True
+    for pk_, kh, remh, ch, extra, m in (
+            (kg["a"], k1h, rem1.cpu().numpy(), c1h, e2_s, N),
+            (kg["b"], k0h, rem0.cpu().numpy(), c0h, extra0, MS)):
+        mat = np.array([rlwe_ref.negacyclic_matrix_row(pk_, k)
+                        for k in range(N)], dtype=np.int64)
+        full = r_s @ mat.T + extra
+        ok_quot &= bool((kh * Q + remh == full).all()
+                        and (remh[:, :m] == ch).all()
+                        and ((remh >= 0) & (remh < Q)).all())
+    steps["quotient_check_s"] = time.perf_counter() - t0
+    checks["quotients"] = ok_quot
+    msg_dev = _timed_step(steps, "decrypt_ms",
+                          lambda: renc.decrypt_core(sk_q, c0, c1))
+    checks["decrypt_all"] = bool((msg_dev.cpu().numpy() == msgs).all())
+    t0 = time.perf_counter()
+    packed = [rlwe_ref.pack_values(c0h[i].tolist())
+              + rlwe_ref.pack_values(c1h[i].tolist()) for i in range(B)]
+    packed_dev = torch.as_tensor(FR.to_mont(packed), device=device)
+    steps["pack_upload_s"] = time.perf_counter() - t0
+    ct_dev = _timed_step(steps, "ct_commitment_ms",
+                         lambda: poseidon2.ct_commitment(packed_dev))
+    t0 = time.perf_counter()
+    cts = [int(v) for v in FR.from_mont(ct_dev)]
+    checks["ct_commitments"] = cts == [
+        poseidon2.ct_commitment_ref(p) for p in packed]
+    steps["ct_oracle_s"] = time.perf_counter() - t0
+    # 5. the audit proof of owner 0
+    t0 = time.perf_counter()
+    circ = audit_circuit.build_audit_circuit(
+        kg["a"], kg["b"], "const_pk_e_witness", logderiv=True)
+    r1cs = circ.builder.r1cs()
+    steps["build_s"] = time.perf_counter() - t0
+    checks["rows"] = len(r1cs.a_rows) == AUDIT_ROWS
+    t0 = time.perf_counter()
+    pk, vk = setup(r1cs, committed=circ.committed)
+    steps["setup_s"] = time.perf_counter() - t0
+    enc0 = dict(c0_sparse=c0h[0].tolist(), c1=c1h[0].tolist(),
+                r_signed=r_s[0].tolist(), e1_signed=e1_s[0].tolist(),
+                e2_signed=e2_s[0].tolist(), k0=k0h[0, :MS].tolist(),
+                k1=k1h[0].tolist())
+    wa, ct = poseidon_hash_ref([OWNER_X, OWNER_Y]), cts[0]
+    t0 = time.perf_counter()
+    w = circ.builder.witness_committed(
+        circ.assignment(OWNER_X, OWNER_Y, enc0, wa, ct, SECRET_KEY),
+        circ.v_challenge, pk)
+    steps["witness_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks["satisfied"] = r1cs.is_satisfied(w)
+    steps["is_satisfied_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dpk = tp.DeviceProvingKey(pk, device=device)
+    torch.cuda.synchronize()
+    steps["upload_s"] = time.perf_counter() - t0
+    proofs, prove_s, phases = [], [], []
+    for i in range(4):             # one cold, three warm
+        sp = {}
+        t0 = time.perf_counter()
+        proofs.append(tp.prove(dpk, r1cs, w, seed=70 + i, timings=sp))
+        prove_s.append(time.perf_counter() - t0)
+        phases.append(sp)
+    A, B2, C, cm, pok = proofs[1]
+    tampered = (A, B2, C, cm, pr.g1_add(pok, (1, 2)))
+    pubs = [[wa, ct]] * 4 + [[wa, ct + 1], [wa, ct]]
+    t0 = time.perf_counter()
+    got = tverify.verify_batch(vk, proofs + [proofs[0], tampered], pubs,
+                               device=device)
+    steps["verify_s"] = time.perf_counter() - t0
+    checks["verify"] = got.tolist() == [True] * 4 + [False, False]
+    # 6. the auditor's decrypt from shares 1 and 2
+    t0 = time.perf_counter()
+    rec = reconstruct_batch(shares[[0, 1]], (1, 2))
+    sk_aud = renc.centered_mod_q(rec)
+    m0 = renc.decrypt_core(sk_aud, c0[:1], c1[:1])
+    xy = renc.decode_message(m0[0])
+    h = poseidon.hash2(*(torch.as_tensor(FR.to_mont([v]), device=device)
+                         for v in xy))
+    wa_dev = int(FR.from_mont(h)[0])
+    steps["auditor_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES, poseidon=hkern.LAUNCHES["poseidon"],
+                    **pkern.LAUNCHES, poseidon2=p2k.LAUNCHES["poseidon2"])
+    checks["auditor_key"] = torch.equal(sk_aud, sk_q)
+    checks["auditor_point"] = xy == (OWNER_X, OWNER_Y)
+    checks["auditor_wa"] = wa_dev == wa == w[circ.v_wa]
+    info.update(batch=B, rows=len(r1cs.a_rows), wires=r1cs.num_vars,
+                committed=len(circ.committed), steps=steps,
+                prove_s=prove_s, prove_phases=phases, checks=checks,
+                launches=launches, ok=all(checks.values()))
+    return info
+
+
 # ------------------------------------------------- mesh: K9 and sharding
 
 def _max_err(got, want):
@@ -2187,10 +2562,11 @@ def phase_prove(device, profile=False):
 def ptxas_summary(text, kernels=("k_prefix<", "k_addn<", "k_scale_add<",
                                  "k_horner<", "k_poseidon<",
                                  "k_poseidon_lanes<", "k_tree_level<",
-                                 "k_miller_lines", "k_final_exp")):
+                                 "k_miller_lines", "k_final_exp",
+                                 "k_poseidon2<")):
     """{kernel instantiation: registers, spill stores, stack bytes, ptxas
     ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
-    name starts with one of ``kernels`` (K2, K4-K8, P1 and P2 by
+    name starts with one of ``kernels`` (K2, K4-K8, P1, P2 and P3 by
     default)."""
     import re
     out, name = {}, None
@@ -2243,7 +2619,7 @@ def main(argv):
     flags = ["-Xptxas", "-v"]
     cus = dict(msm=kernels.SOURCE, poseidon=hkern.SOURCE,
                tree=tkern.SOURCE, ntt=ntt_rdma.SOURCE, mul="mul_bench.cu",
-               pairing=pkern.SOURCE)
+               pairing=pkern.SOURCE, poseidon2=p2k.SOURCE)
     def timed(cu):
         t = time.perf_counter()
         return cuda_build.build(cu, flags) + (time.perf_counter() - t,)
@@ -2444,16 +2820,47 @@ def main(argv):
         raise AssertionError("the batched verify accepted a bad proof, "
                              "rejected a good one or differs from refimpl")
 
+    # ---- 11: the audit path: P3, RLWE, Shamir, the committed audit proof
+    t0 = time.perf_counter()
+    p3errs, p3_perm_ms = check_poseidon2(device)
+    errs.update(p3errs)
+    bad = {k: v for k, v in p3errs.items() if v}
+    log(11, f"{len(p3errs)} poseidon2 modes equal to the plain version: "
+            f"{not bad} ({time.perf_counter() - t0:.1f} s; the plain "
+            f"permutation at B = {max(P3_BS)}: {p3_perm_ms:.0f} ms)")
+    if bad:
+        raise AssertionError(f"P3 differs from its plain version: {bad}")
+    t = times[("poseidon2", 256)] = time_poseidon2(device, clock_hz,
+                                                   products)
+    log(11, f"the need for P3: the plain ct_commitment {t['shape']} "
+            f"{t['plain_ms']:.0f} ms on the card ({t['plain_fieldctx_calls']}"
+            f" FieldCtx calls a sponge, {t['plain_permutation_launches']} "
+            f"device launches a permutation), P3 {t['ms']:.4f} ms, max "
+            f"|err| {t['max_abs_err']}")
+    for u in t["by_batch"].values():
+        log(11, f"poseidon2 {u['shape']}: {u['ms']:.4f} ms, bound "
+                f"{u['bound_ms']:.5f} ms ({u['bound_by']}), chain floor "
+                f"{u['floor_ms']:.4f} ms ({u['chain_levels']} product "
+                f"levels)")
+    audit = phase_audit(device)
+    audit["phase_s"] = time.perf_counter() - t0
+    log(11, "audit " + json.dumps(audit, default=str))
+    if not audit["ok"]:
+        raise AssertionError(f"the audit path failed: {audit['checks']}")
+
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
     # tree proofs: K8, the sharded NTT's rdma products: K9, the verify:
-    # P1 and P2)
+    # P1 and P2; the audit path: K1-K7, P1, P2 and P3)
     launches = dict(info["launches"], poseidon=merkle["launches"],
                     tree_level=tree["launches"],
                     exchange_butterfly=mesh_ntt["rdma_launches"],
-                    **ver["launches"])
-    missing = [k for k, v in launches.items() if v <= 0]
+                    **ver["launches"],
+                    poseidon2=audit["launches"]["poseidon2"])
+    missing = [k for k, v in launches.items() if v <= 0] + [
+        f"audit {k}" for k, v in audit["launches"].items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}; a withdraw-shape proof "
-           f"(phase 4) {json.dumps(info['launches_per_proof'])}")
+           f"(phase 4) {json.dumps(info['launches_per_proof'])}; the audit "
+           f"path (phase 11) {json.dumps(audit['launches'])}")
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
@@ -2467,7 +2874,7 @@ def main(argv):
     # for K7, the prover's level 0 for K8, a whole stage at D = 8 for K9,
     # the verify's batch of 256 for P1 and P2
     row_key = {"poseidon": 3, "exchange_butterfly": 8, "miller_lines": 256,
-               "final_exp": 256}
+               "final_exp": 256, "poseidon2": 256}
     rows = {name: times[(name, row_key.get(name, 1))] for name in REPLACES}
     line = {"kernels": [dict(
         name=name, route="cuda", source=SOURCES[name],
@@ -2481,7 +2888,7 @@ def main(argv):
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
             prove=info, merkle=merkle, chain=chain, tree=tree,
             mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp),
-            verify=ver),
+            verify=ver, audit=audit),
             f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

@@ -46,7 +46,18 @@ def test_port_imports_no_jax_and_no_jax_package():
             os.path.join("fields", "rlweq.py"), os.path.join("rlwe", "ntt.py"),
             os.path.join("refimpl", "rlwe_ref.py"),
             os.path.join("groth16", "solver_native.py"),
-            os.path.join("groth16", "verify.py")} | {
+            os.path.join("groth16", "verify.py"),
+            os.path.join("groth16", "builder.py"),
+            os.path.join("groth16", "gadgets.py"),
+            os.path.join("hash", "poseidon2.py"),
+            os.path.join("hash", "poseidon2_kernels.py"),
+            os.path.join("refimpl", "curve_ref.py"),
+            os.path.join("rlwe", "encrypt.py"),
+            os.path.join("rlwe", "quotient.py"),
+            os.path.join("shamir", "__init__.py"),
+            os.path.join("shamir", "shamir.py"),
+            os.path.join("protocol", "__init__.py"),
+            os.path.join("protocol", "audit_circuit.py")} | {
                 os.path.join("curve", f) for f in (
                     "__init__.py", "tower.py", "lines.py", "pairing.py",
                     "pairing_kernels.py")} | {
@@ -274,3 +285,51 @@ def test_pairing_wrappers_reject_bad_inputs():
         pk.final_exp(f.view(B, 6, 2, 16))
     with pytest.raises(ValueError, match="int64"):
         pk.final_exp(torch.zeros((B, 12, 16), dtype=torch.int32))
+
+
+def test_tower_constructors_ask_for_cuda(monkeypatch):
+    """The Fp2 / Fp12 constructors run on ``cuda`` unless a device is
+    named, and raise without a GPU instead of landing on the CPU."""
+    from tpu_zkpool_torch.curve import tower as tw
+    from tpu_zkpool_torch.refimpl import pairing_ref as pr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {"f2_zero": lambda **k: tw.f2_zero((2,), **k),
+             "f2_one": lambda **k: tw.f2_one((2,), **k),
+             "f12_one": lambda **k: tw.f12_one((), **k),
+             "f12_from_ints": lambda **k: tw.f12_from_ints([pr.F12_ONE], **k),
+             "f2_const": lambda **k: tw.f2_const((1, 2), **k)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert call(device="cpu").device.type == "cpu", name
+
+
+def test_poseidon2_wrappers_reject_bad_inputs():
+    """P3's wrappers check shapes and dtypes before the device: on meta
+    tensors a good call stops at the CUDA check, a bad one at its shape."""
+    from tpu_zkpool_torch.hash import poseidon2, poseidon2_kernels as p2k
+    meta = torch.empty((4, 4, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        p2k.permute(meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        p2k.sponge(torch.empty((4, 157, 16), dtype=torch.int64,
+                               device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        poseidon2.ct_commitment(meta)
+    with pytest.raises(ValueError, match=r"\(B, 4, 16\)"):
+        p2k.permute(meta[:, :3])
+    with pytest.raises(ValueError, match="int64"):
+        p2k.sponge(meta.int())
+
+
+def test_from_jax_asks_for_cuda(monkeypatch):
+    import numpy as np
+    from tpu_zkpool_torch.fields.limbs import from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    limbs = np.arange(32, dtype=np.uint32).reshape(2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax(limbs)
+    t = from_jax(limbs, device="cpu")
+    assert t.dtype == torch.int64 and t.tolist() == limbs.tolist()
+    with pytest.raises(ValueError, match="16"):
+        from_jax(limbs[:, :8], device="cpu")

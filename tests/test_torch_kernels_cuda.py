@@ -1,6 +1,6 @@
 """The CUDA kernels (grid MSM K1-K6, Poseidon K7, affine tree K8, the NTT
-exchange butterfly K9, the pairing kernels P1 and P2) against their plain
-torch twins, on the card.
+exchange butterfly K9, the pairing kernels P1 and P2, Poseidon2 P3)
+against their plain torch twins, on the card.
 
 Marked ``cuda``: it needs an NVIDIA GPU with the CUDA toolkit (nvcc) and
 skips elsewhere. Run it there with
@@ -54,4 +54,17 @@ def test_pairing_kernels_equal_plain_versions():
     # B = 1, 4, 33; P2 on P1's 3-leg outputs at the same four batches, on
     # its 2-leg output and on random values with 1 and 0 planted
     assert len(errs) == 4 + 3 + 4 + 1 + 1
+    assert not {k: v for k, v in errs.items() if v}
+
+
+@pytest.mark.cuda
+def test_poseidon2_kernel_equals_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    errs, _ = chip_smoke.check_poseidon2(torch.device("cuda", 0),
+                                         Bs=(1, 2, 33, 40), ns=(0, 1, 4, 7))
+    # the permutation at 4 batches, the sponge at 4 batches x 4 lengths,
+    # the bb vector
+    assert len(errs) == 4 + 4 * 4 + 1
     assert not {k: v for k, v in errs.items() if v}

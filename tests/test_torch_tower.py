@@ -84,8 +84,8 @@ def test_f2_ops_equal_jax():
     for w, g in zip(want, got):
         _same_f2(w, g)
     assert tw.f2_is_zero(ta).tolist() == [True] + [False] * 5
-    _same_f2(jt.f2_one((2,)), tw.f2_one((2,)))
-    _same_f2(jt.f2_zero((2,)), tw.f2_zero((2,)))
+    _same_f2(jt.f2_one((2,)), tw.f2_one((2,), device="cpu"))
+    _same_f2(jt.f2_zero((2,)), tw.f2_zero((2,), device="cpu"))
 
 
 @pytest.mark.parametrize("B", [1, 3])
@@ -124,12 +124,12 @@ def test_f12_sparse_line_product():
 def test_f12_one_conj_eq_one_and_ints():
     rng = random.Random(51)
     a = _f12_vals(rng, 3)
-    ta = tw.f12_from_ints(a)
+    ta = tw.f12_from_ints(a, device="cpu")
     assert (ta.numpy() == _jax_f12_limbs(a)).all()
     assert tw.f12_to_ints(ta) == a
     assert (tw.f12_conj(ta).numpy() == _jax_f12_limbs(
         [pr.f12_conj(x) for x in a])).all()
-    one = tw.f12_one((2,))
+    one = tw.f12_one((2,), device="cpu")
     assert (one.numpy() == _jax_f12_limbs([pr.F12_ONE] * 2)).all()
     jone = jt.f12_one((2,))
     assert (one.numpy() == np.stack([np.asarray(c) for pair in jone

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from tpu_zkpool_torch import resolve_device
 from tpu_zkpool_torch.fields.fctx import FP
 from tpu_zkpool_torch.fields.limbs import int_to_limbs
 
@@ -102,12 +103,13 @@ def f2_inv(a):
     return _stack(_c(t, 0), FP.neg(_c(t, 1)))
 
 
-def f2_zero(shape=(), device="cpu"):
+def f2_zero(shape=(), device=None):
     return torch.zeros(tuple(shape) + (2, 16), dtype=torch.int64,
-                       device=device)
+                       device=resolve_device(device))
 
 
-def f2_one(shape=(), device="cpu"):
+def f2_one(shape=(), device=None):
+    device = resolve_device(device)
     return _stack(FP.ones_mont(shape, device),
                   torch.zeros(tuple(shape) + (16,), dtype=torch.int64,
                               device=device))
@@ -130,7 +132,8 @@ def f12_join(c):
     return c.flatten(-3, -2)
 
 
-def f12_one(shape=(), device="cpu"):
+def f12_one(shape=(), device=None):
+    device = resolve_device(device)
     out = torch.zeros(tuple(shape) + (12, 16), dtype=torch.int64,
                       device=device)
     out[..., 0, :] = FP.ones_mont((), device)
@@ -214,12 +217,12 @@ def f12_eq_one(a):
     return (a == one).flatten(-2).all(-1)
 
 
-def f12_from_ints(vals, device="cpu") -> torch.Tensor:
+def f12_from_ints(vals, device=None) -> torch.Tensor:
     """Host Fp12 values (6 Fp2 int pairs each, ``pairing_ref`` layout) ->
     Montgomery limbs int64[n, 12, 16]."""
     arr = np.asarray([[x for c in v for x in c] for v in vals], dtype=object)
     return torch.as_tensor(FP.to_mont(arr.reshape(len(vals), 12)),
-                           device=device)
+                           device=resolve_device(device))
 
 
 def f12_to_ints(a) -> list:
@@ -229,8 +232,9 @@ def f12_to_ints(a) -> list:
             for row in v]
 
 
-def f2_const(x, device="cpu") -> torch.Tensor:
+def f2_const(x, device=None) -> torch.Tensor:
     """A host Fp2 constant -> Montgomery limbs int64[2, 16]."""
     return torch.as_tensor(np.stack([int_to_limbs(int(v) * (1 << 256)
                                                   % FP.modulus)
-                                     for v in x]), device=device)
+                                     for v in x]),
+                           device=resolve_device(device))

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_zkpool_torch import resolve_device
+
 NLIMB = 16
 WBITS = 16
 MASK = (1 << WBITS) - 1
@@ -66,6 +68,18 @@ def limbs_to_ints(limbs) -> np.ndarray:
     for k in range(flat.shape[0]):
         out[k] = int.from_bytes(buf[k * nbytes:(k + 1) * nbytes], "little")
     return out.reshape(lead)
+
+
+def from_jax(arr, device=None) -> torch.Tensor:
+    """JAX-layout Fr limbs (numpy or JAX uint32[..., 16], 16-bit limbs,
+    Montgomery R = 2^256) -> the port's int64[..., 16] tensor on ``device``
+    (``cuda`` unless the caller names another; raises without a GPU). The
+    values carry over limb for limb; ``rlweq.from_numpy_u32`` is its
+    counterpart for mod-q words."""
+    a = np.asarray(arr)
+    if a.shape[-1:] != (NLIMB,):
+        raise ValueError(f"from_jax: want [..., {NLIMB}] limbs, got {a.shape}")
+    return torch.as_tensor(a.astype(np.int64), device=resolve_device(device))
 
 
 def pack_limbs16(limbs: np.ndarray) -> np.ndarray:

@@ -1,1 +1,4 @@
-"""Groth16 device prover: the Fr NTT (``domain``) and ``prove``."""
+"""Groth16 on the port: the Fr NTT (``domain``), the device prover
+(``prove``), the batched verify (``verify``), the native row evaluation
+(``solver_native``), and the host circuit frontend (``builder``,
+``gadgets``)."""

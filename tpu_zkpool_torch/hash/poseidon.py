@@ -164,16 +164,21 @@ def sparse_form(t: int) -> SparseForm:
         half, half + r_p)], [list(row) for row in M], W, sparse)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_words(t: int) -> np.ndarray:
-    sf = sparse_form(t)
-    vals = [x for row in sf.c_full for x in row] + list(sf.k) + [
-        x for row in sf.m for x in row] + [x for row in sf.pre for x in row] \
-        + [x for row in sf.sparse for x in row]
+def mont_words(vals) -> np.ndarray:
+    """Fr ints -> int32 (len, 8): each value in Montgomery form as 8
+    little-endian 32-bit words, the kernels' table rows."""
     p, R = FR.modulus, 1 << 256
     words = [(v * R % p) >> (32 * w) & 0xFFFFFFFF for v in vals
              for w in range(8)]
     return np.array(words, dtype=np.uint32).view(np.int32).reshape(-1, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_words(t: int) -> np.ndarray:
+    sf = sparse_form(t)
+    return mont_words([x for row in sf.c_full for x in row] + list(sf.k) + [
+        x for row in sf.m for x in row] + [x for row in sf.pre for x in row]
+        + [x for row in sf.sparse for x in row])
 
 
 @functools.lru_cache(maxsize=None)

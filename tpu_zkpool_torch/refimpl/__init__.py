@@ -1,3 +1,3 @@
 """Pure-Python (bigint) host code copied from ``tpu_zkpool.refimpl``:
-pairing, Pedersen commitments, Groth16 setup/verify and the RLWE ring's
-schoolbook product."""
+pairing, Pedersen commitments, Groth16 setup/verify, the embedded curve,
+and RLWE with Shamir sharing (the audit path's oracles)."""
