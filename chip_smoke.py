@@ -91,12 +91,13 @@ Phases, one line each:
              K7 and one root combine, against build_levels;
  10 verify   the batched Groth16 verify: P1 (k_miller_lines) and P2
              (k_final_exp) against their plain versions limb for limb (P1
-             with 3 legs, two fixed at batch stride 0, at B = 256, 1, 4, 33
-             and with 2 batched legs at B = 1, 4, 33; P2 on P1's outputs
-             and on random Fp12 values with 1 and 0 planted), both timed
-             by CUDA events at B = 256 beside the plain version, the bound
-             and the chain floor; then 32 distinct proofs of phase 4's key
-             tiled to 256, verified cold and warm (proofs/s, the host/device
+             with 3 legs, two fixed at batch stride 0, at B = 256, 1, 3, 4,
+             33 and with 2 batched legs at B = 1, 3, 4, 33, where B = 1, 3
+             and 33 leave the last block of two warps partial; P2 on P1's
+             outputs and on random Fp12 values with 1 and 0 planted), both
+             timed by CUDA events at B = 256 beside the plain version, the
+             bound and the chain floor; then 32 distinct proofs of phase 4's
+             key tiled to 256, verified cold and warm (proofs/s, the host/device
              split), a batch with four planted faults (exactly those
              rejected, its 32 distinct proofs against refimpl's verify) and
              a committed batch with one tampered proof of knowledge;
@@ -150,6 +151,7 @@ from tpu_zkpool_torch import cuda_build, native_bridge
 from tpu_zkpool_torch.curve import lines as plines
 from tpu_zkpool_torch.curve import pairing, tower
 from tpu_zkpool_torch.curve import pairing_kernels as pkern
+from tpu_zkpool_torch.curve import pairing_program
 from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
@@ -1580,7 +1582,21 @@ def _nbytes(ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-PAIR_BS = (1, 4, 33)
+PAIR_BS = (1, 3, 4, 33)   # 1, 3 and 33 leave the last block partial
+
+
+def time_programs(device):
+    """Seconds of the lane programs' first use in this process: their
+    compile (``pairing_program.program``) and the blob's upload
+    (``pairing_kernels._blob``); None where an earlier call made them."""
+    if device in pkern._blobs or pairing_program.program.cache_info().currsize:
+        return None
+    t0 = time.perf_counter()
+    pairing_program.program()
+    t1 = time.perf_counter()
+    pkern._blob(device)
+    torch.cuda.synchronize(device)
+    return dict(compile_s=t1 - t0, upload_s=time.perf_counter() - t1)
 
 
 def check_pairing(device, B=256, Bs=PAIR_BS, seed=300):
@@ -1689,8 +1705,9 @@ def _ref_verify(vk, proof, pub):
 def phase_verify(device, ctx, n_distinct=32, tile=8):
     """The batched Groth16 verify on the card (``groth16.verify``): 32
     distinct proofs of phase 4's key from ``prove_batch``, tiled to 256,
-    verified cold and three times warm (host split: the VK precompute,
-    L_pub, the B-line walk, its packing, the G1 uploads; the device part);
+    verified cold and three times warm (host split of each: the VK
+    precompute, L_pub, the B-line walk, its packing, the G1 uploads; the
+    device part);
     a second batch with a corrupted public input, a swapped C, a foreign A
     and a B of zero y planted at known positions, which must be exactly the
     rejected ones, its 32 distinct proofs against refimpl's verify; a
@@ -1706,9 +1723,11 @@ def phase_verify(device, ctx, n_distinct=32, tile=8):
     batch, bpubs = proofs * tile, pubs * tile
     n = len(batch)
     pkern.reset_launches()            # the main path starts here
+    cold_sp = {}
     t0 = time.perf_counter()
-    ok_cold = tverify.verify_batch(vk, batch, bpubs, device=device)
-    info["cold_s"] = time.perf_counter() - t0
+    ok_cold = tverify.verify_batch(vk, batch, bpubs, device=device,
+                                   timings=cold_sp)
+    info.update(cold_s=time.perf_counter() - t0, cold_split_s=cold_sp)
     warm, splits = [], []
     for _ in range(3):
         sp = {}
@@ -2793,6 +2812,7 @@ def main(argv):
                              "build_levels")
 
     # ---- 10: the batched Groth16 verify through P1 and P2
+    log(10, "lane programs' first use " + json.dumps(time_programs(device)))
     t0 = time.perf_counter()
     perrs, plain_ms, (g3, l3) = check_pairing(device)
     errs.update({(k[0], 0, k[1]): v for k, v in perrs.items()})

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s phase 10 alone on one NVIDIA GPU: the pairing
 kernels P1 and P2 built (``-Xptxas -v``), held to their plain versions
-(``check_pairing``), timed at the verify's batch of 256
-(``time_pairing``), then, unless ``--check``, the batched Groth16 verify of
-``phase_verify`` on phase 4's withdraw-shape key.
+(``check_pairing``) and timed at the verify's batch of 256
+(``time_pairing``), after the lane programs' first compile and upload
+(``time_programs``); then, unless ``--check``, the batched Groth16 verify
+of ``phase_verify`` on phase 4's withdraw-shape key (cold and warm, each
+with its host/device split).
 
     python3 scripts/pairing_phase10.py [--check]     # from a checkout's root
 
-It prints the card (``nvidia-smi`` name and power limit), the kernels'
-ptxas lines and one JSON line, and exits non-zero if a check fails.
+Run from two checkouts in one call, it compares them on one card. It
+prints the card (``nvidia-smi`` name and power limit), the kernels' ptxas
+lines and one JSON line, and exits non-zero if a check fails.
 """
 
 import json
@@ -57,6 +60,7 @@ def main(argv):
     out = dict(build_s=time.perf_counter() - t0)
     products = cs.time_products(device)
     inverses = cs.time_inverses(device)
+    out["programs_s"] = cs.time_programs(device)
     t0 = time.perf_counter()
     errs, plain_ms, (g3, l3) = cs.check_pairing(device)
     out.update(check_s=time.perf_counter() - t0, modes=len(errs),

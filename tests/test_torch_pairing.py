@@ -1,7 +1,9 @@
 """Port parity: the pairing of ``tpu_zkpool_torch.curve`` (``lines``,
 ``pairing``) against ``tpu_zkpool.curve`` and ``refimpl.pairing_ref``,
-exact, and the pairing kernels P1 and P2 (``csrc/pairing.cu``) built with
-g++ against their plain versions.
+exact, and the pairing kernels P1 and P2 (``csrc/pairing.cu``, one warp a
+batch element) against their plain versions: each lane program of
+``pairing_program`` run on Python ints, then the kernels built with g++,
+each warp as 32 threads, over full and partial blocks.
 
 - ``LineArrays`` equal JAX ``lines.precompute_g2_lines(_batch)`` limb for
   limb;
@@ -36,14 +38,16 @@ from tpu_zkpool.fields.fctx import FP as JFP
 from tpu_zkpool.refimpl import pairing_ref as pr
 
 from tpu_zkpool_torch.curve import lines, pairing, pairing_kernels
+from tpu_zkpool_torch.curve import pairing_program
 from tpu_zkpool_torch.curve import tower as tw
-from tpu_zkpool_torch.fields.bn254 import BN_X, FR_MOD
+from tpu_zkpool_torch.fields.bn254 import BN_X, FP_MOD as P, FR_MOD
 
 torch.set_num_threads(1)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "tpu_zkpool_torch", "csrc")
 G1 = (1, 2)
+_R = (1 << 256) % P
 
 
 def _limbs(vals):
@@ -185,27 +189,74 @@ def test_plain_pairing_equals_reference(three_legs):
 
 
 _HARNESS = r"""
-#include <cstdio>
+#define ZK_HOST_TEST
+#define ZK_HOST_THREADS
+#include <barrier>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <memory>
+#include <thread>
 #include <vector>
+struct ZkDim3 {
+  unsigned x, y, z;
+};
+inline thread_local ZkDim3 threadIdx{0, 0, 0};
+inline ZkDim3 blockIdx{0, 0, 0}, blockDim{32, 1, 1};
+// one std::barrier a warp of the block (at most 32): __syncwarp waits on
+// the calling lane's
+inline std::barrier<>* zk_warp[32];
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  zk_warp[threadIdx.x / 32]->arrive_and_wait();
+}
+inline uint32_t __shfl_sync(unsigned, uint32_t, int, int = 32) {
+  std::abort();  // the pairing kernels shuffle nothing
+}
 #include "pairing_host.cu"
 using namespace zk;
 static std::vector<int64_t> rd(size_t n) {
   std::vector<int64_t> v(n);
-  if (fread(v.data(), 8, n, stdin) != n) std::abort();
+  if (n && fread(v.data(), 8, n, stdin) != n) std::abort();
   return v;
 }
-// mode 0: sizeof(MillerArgs); 1: P1 (legs, B, per leg its stride, px, py
-// and 12 line arrays); 2: P2 (B, f). Blocks of
-// kPairThreads threads run one thread after another.
+// A launch as the C launchers make it, kWarps warps a block over `batch`
+// elements: the blocks one after another, each as kWarps * 32
+// std::threads.
+template <class F>
+static void launch(int batch, F kernel) {
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  for (int w = 0; w < kWarps; ++w) {
+    bars.emplace_back(new std::barrier<>(32));
+    zk_warp[w] = bars.back().get();
+  }
+  blockDim.x = 32 * kWarps;
+  for (unsigned bx = 0; bx * kWarps < (unsigned)batch; ++bx) {
+    blockIdx.x = bx;
+    std::vector<std::thread> th;
+    for (int t = 0; t < 32 * kWarps; ++t)
+      th.emplace_back([&, t] {
+        threadIdx.x = t;
+        kernel();
+      });
+    for (auto& x : th) x.join();
+  }
+}
+// mode 0: sizeof(MillerArgs); else the blob (its length, then its words),
+// then 1: P1 (legs, B, per leg its stride, px, py and 12 line arrays); 2:
+// P2 (B, f). The slots a warp are the launchers' (miller_slots,
+// final_exp_slots of the blob's first free slot).
 int main() {
   const int64_t mode = rd(1)[0];
-  std::vector<int64_t> out;
   if (mode == 0) {
     printf("%d", (int)sizeof(MillerArgs));
     return 0;
   }
-  blockDim.x = kPairThreads;
+  const std::vector<int64_t> b64 = rd(rd(1)[0]);
+  const std::vector<uint32_t> blob(b64.begin(), b64.end());
+  const int slots = mode == 1 ? miller_slots((int)blob[0])
+                              : final_exp_slots((int)blob[0]);
+  if (slots > kHostSlots) std::abort();
+  std::vector<int64_t> out;
   if (mode == 1) {
     std::vector<int64_t> h = rd(2);
     MillerArgs a{};
@@ -226,22 +277,15 @@ int main() {
       }
     }
     out.resize(192 * a.batch);
-    for (unsigned bx = 0; bx * kPairThreads < (unsigned)a.batch; ++bx)
-      for (unsigned t = 0; t < kPairThreads; ++t) {
-        blockIdx.x = bx;
-        threadIdx.x = t;
-        k_miller_lines(a, out.data());
-      }
+    launch(a.batch,
+           [&] { k_miller_lines(a, blob.data(), slots, out.data()); });
   } else {
     const int batch = (int)rd(1)[0];
     std::vector<int64_t> f = rd(192 * batch);
     out.resize(192 * batch);
-    for (unsigned bx = 0; bx * kPairThreads < (unsigned)batch; ++bx)
-      for (unsigned t = 0; t < kPairThreads; ++t) {
-        blockIdx.x = bx;
-        threadIdx.x = t;
-        k_final_exp(f.data(), out.data(), batch);
-      }
+    launch(batch, [&] {
+      k_final_exp(f.data(), blob.data(), slots, out.data(), batch);
+    });
   }
   fwrite(out.data(), 8, out.size(), stdout);
 }
@@ -264,7 +308,7 @@ def host_pairing(tmp_path_factory):
     (d / "pairing_host.cu").write_text(src + "\n")
     (d / "harness.cpp").write_text(_HARNESS)
     exe = d / "harness"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-DZK_HOST_TEST", f"-I{CSRC}",
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", f"-I{CSRC}",
                     f"-I{d}", "-x", "c++", str(d / "harness.cpp"), "-o",
                     str(exe)], check=True, capture_output=True, text=True)
     return str(exe)
@@ -276,9 +320,16 @@ def _run(exe, words, shape):
     return torch.as_tensor(np.frombuffer(out, np.int64).reshape(shape).copy())
 
 
+def _head(mode):
+    """The harness's words before a kernel's inputs: mode and the lane
+    programs' blob, as the wrappers pass it."""
+    blob = pairing_program.program()
+    return [np.asarray([mode, len(blob)]), blob.astype(np.int64)]
+
+
 def _host_miller(exe, g1s, legs):
     B = g1s[0][0].shape[0]
-    parts = [np.asarray([1, len(legs), B])]
+    parts = _head(1) + [np.asarray([len(legs), B])]
     for (px, py), lg in zip(g1s, legs):
         parts += [np.asarray([16 if lg.dbl_an0.dim() == 3 else 0]),
                   px.numpy().ravel(), py.numpy().ravel()]
@@ -287,8 +338,98 @@ def _host_miller(exe, g1s, legs):
 
 
 def _host_final_exp(exe, f):
-    return _run(exe, np.concatenate([[2, f.shape[0]], f.numpy().ravel()]),
-                tuple(f.shape))
+    return _run(exe, np.concatenate(_head(2) + [
+        [f.shape[0]], f.numpy().ravel()]), tuple(f.shape))
+
+
+# ------------------------------------------- the lane programs in Python
+
+_RINV = pow(1 << 256, -1, P)
+
+
+def _interpret(op, slots):
+    """Runs lane program ``op`` of the blob on ``slots`` ({slot: Montgomery
+    int}) as the kernels read it (``pairing_program``'s format): each
+    step's lanes read before any of them writes."""
+    blob = pairing_program.program()
+    assert blob[1] == pairing_program.FORMAT
+    q = int(blob[2 + pairing_program.OPS.index(op)])
+    n, q = int(blob[q]), q + 1
+    for _ in range(n):
+        h = int(blob[q])
+        kind, na, nb = h & 0xFF, (h >> 8) & 0xFF, (h >> 16) & 0xFF
+        t = q + 1 + 32
+
+        def comb(base, cnt, k):
+            acc = 0
+            for j in range(cnt):
+                w = int(blob[base + 32 * j + k])
+                c = (w >> 16) & 0x7FFF
+                acc += (-c if w >> 31 else c) * slots[w & 0xFFFF]
+            return acc % P
+
+        new = {}
+        for k in range(32):
+            x = comb(t, na, k)
+            if kind == pairing_program.MUL:
+                x = x * comb(t + 32 * na, nb, k) * _RINV % P
+            elif kind == pairing_program.INV:
+                x = pow(x, -1, P) * _R * _R % P if x else 0
+            if blob[q + 1 + k] != pairing_program.NO_DST:
+                new[int(blob[q + 1 + k])] = x
+        slots.update(new)
+        q = t + 32 * (na + nb)
+
+
+def _mont_ints(t):
+    return [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in t]
+
+
+def _mont_limbs(vals):
+    return torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(16)]
+                         for x in vals], dtype=torch.int64)
+
+
+def _plain_op(op, a, b, line):
+    if op == "sqr":
+        return tw.f12_sqr(a)
+    if op == "mul":
+        return tw.f12_mul(a, b)
+    if op == "line":
+        return pairing._line_eval(a, line[4:5], line[5:6], line[0:1],
+                                  line[1:2], line[2:3], line[3:4])
+    if op == "cyclo":
+        return pairing.f12_cyclotomic_sqr(a)
+    if op.startswith("frob"):
+        return pairing.f12_frobenius(a, int(op[4:]))
+    if op == "conj":
+        return tw.f12_conj(a)
+    return pairing.f12_inv(a)
+
+
+@pytest.mark.parametrize("op", pairing_program.OPS)
+def test_lane_program_equals_plain(op):
+    """Each lane program, run on Python ints, computes its plain op: on a
+    random Fp12 (the cyclotomic square on a cyclotomic one) and on zero;
+    the temporaries start as garbage."""
+    rng = random.Random(70 + pairing_program.OPS.index(op))
+    vals = [rng.randrange(P) for _ in range(12 + 12 + 6)]
+    a, b = _mont_limbs(vals[:12])[None], _mont_limbs(vals[12:24])[None]
+    line = _mont_limbs(vals[24:])
+    if op == "cyclo":           # f^(p^6 - 1) is cyclotomic
+        a = tw.f12_mul(tw.f12_conj(a), pairing.f12_inv(a))
+        a = tw.f12_mul(pairing.f12_frobenius(a, 2), a)
+    gamma = [c * _R % P for k in (1, 2, 3) for g in pr._gamma(k) for c in g]
+    for x in (a, torch.zeros_like(a)):
+        slots = {s: rng.randrange(P) for s in range(int(
+            pairing_program.program()[0]))}
+        slots.update(enumerate(_mont_ints(x[0]), pairing_program.A))
+        slots.update(enumerate(_mont_ints(b[0]), pairing_program.B))
+        slots.update(enumerate(_mont_ints(line), pairing_program.L))
+        slots.update(enumerate(gamma, pairing_program.K))
+        _interpret(op, slots)
+        got = [slots[pairing_program.A + j] for j in range(12)]
+        assert got == _mont_ints(_plain_op(op, x, b, line)[0])
 
 
 def test_kernel_source_constants():
@@ -308,6 +449,23 @@ def test_kernel_source_constants():
     want = [c * R % pr.P for k in (1, 2, 3) for g in pr._gamma(k)
             for c in g]
     assert vals == want
+    # the lane programs' constants: the bias, p's top word, the slots and
+    # the program order of pairing_program
+    body = src.split("kBias[9] = {")[1].split("};")[0]
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", body)]
+    assert sum(w << (32 * i) for i, w in enumerate(words)) == \
+        pr.P << pairing_program.BIAS_LOG2
+    assert int(src.split("kPTop = ")[1].split("u;")[0], 16) == pr.P >> 224
+    slots = dict(re.findall(r"kSlot(\w) = (\d+)", src))
+    assert {k: int(v) for k, v in slots.items()} == dict(
+        A=pairing_program.A, B=pairing_program.B, L=pairing_program.L,
+        K=pairing_program.K)
+    ops = src.split("enum { kSqr")[1].split("}")[0]
+    assert ["sqr"] + [o.strip()[1:].lower() for o in ops.split(",")[1:]] \
+        == list(pairing_program.OPS)
+    assert "kNoDst = 0x%X" % pairing_program.NO_DST in src
+    assert "kBlobFormat = 0x%Xu" % pairing_program.FORMAT in src
+    assert "kFeRegs = %d;" % pairing.FE_NREG in src
 
 
 def test_kernels_on_the_host_equal_plain(host_pairing, three_legs):
@@ -329,3 +487,22 @@ def test_kernels_on_the_host_equal_plain(host_pairing, three_legs):
                  for _ in range(6))]))
     assert torch.equal(_host_final_exp(exe, rnd),
                        pairing.final_exponentiation(rnd))
+
+
+@pytest.mark.parametrize("n_legs", [3, 2])
+def test_kernel_launch_shapes_on_the_host(host_pairing, three_legs, n_legs):
+    """P1 (the 3-leg verify shape, or the 2-leg PoK shape) and P2 over one
+    element: the one block's second warp is past the batch and exits
+    whole."""
+    g1s, legs, _, f, fe = three_legs
+    if n_legs == 2:
+        legs = [legs[0], legs[0]]
+    gb = [(x[:1], y[:1]) for x, y in g1s[:n_legs]]
+    lb = [lines.LineArrays(*[t[:, :1].contiguous() if t.dim() == 3 else t
+                             for t in lg]) for lg in legs]
+    want = f if n_legs == 3 else pairing.miller_loop_lines(gb, lb)
+    got = _host_miller(host_pairing, gb, lb)
+    assert torch.equal(got, want[:1])
+    assert torch.equal(_host_final_exp(host_pairing, got),
+                       fe[:1] if n_legs == 3
+                       else pairing.final_exponentiation(got))

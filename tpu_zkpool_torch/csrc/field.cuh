@@ -48,6 +48,10 @@
 using std::max;
 using std::min;
 inline void __trap() { std::abort(); }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 #ifndef ZK_HOST_THREADS
 struct ZkDim3 {
   unsigned x, y, z;

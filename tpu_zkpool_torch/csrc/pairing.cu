@@ -1,6 +1,6 @@
 // Pairing kernels P1 (k_miller_lines) and P2 (k_final_exp) for Hopper
-// (sm_90a): the device side of the batched Groth16 verify, one thread a
-// batch element, over BN254 Fp2 / Fp12 built on field.cuh's Fp.
+// (sm_90a): the device side of the batched Groth16 verify, one warp a batch
+// element, over BN254 Fp2 / Fp12 built on field.cuh's Fp.
 //
 // They replace no pl.pallas_call. The JAX package compiles
 // tpu_zkpool/curve/pairing_jax.py:miller_loop_lines (l.412) and
@@ -15,38 +15,61 @@
 // then two Frobenius end lines), f = 1; per step f = f^2, then each leg's
 // double line, then where the ATE bit is set each leg's add line (the JAX
 // scan computes both and selects: the same value); then the end lines. A
-// line is l0 + l1 w + l3 w^3 with l0 = py, l1 = alpha_neg px (two Fp
-// products), l3 = beta, multiplied in sparse form: 18 Fp2 products, six of
-// them by l0 in Fp (2 Fp products each), where the JAX dense form takes 36.
-// The square is the complex method over Fp6 (Fp12 = Fp6[w]/(w^2 - v), v =
-// w^2, v^3 = xi): two Karatsuba Fp6 products, 36 Fp products.
+// line is l0 + l1 w + l3 w^3 with l0 = py, l1 = alpha_neg px, l3 = beta.
+// P2 computes final_exponentiation: f^-1, then FE_PROGRAM of
+// curve/pairing.py (the JAX _fe_program) step for step over 15 Fp12
+// registers, its x-power ladders as loops over the bits of BN_X.
 //
-// P2 computes final_exponentiation: f^-1 (the even-subalgebra trick of
-// pairing_jax.f12_inv, the Fp2 norm inverted by field.cuh's safegcd
-// fp_inv), the easy part, then the Scott et al. hard part as straight-line
-// code in the order of the plain version's register program
-// (curve/pairing.py FE_PROGRAM, the JAX _fe_program): Fp12 products,
-// Granger-Scott cyclotomic squares, Frobenius maps with the gamma tables of
-// constant memory and conjugations, each value a named local, so the
-// compiler knows every lifetime. An Fp12 product is the Karatsuba form over
-// Fp6, 54 Fp products; a cyclotomic square 18.
+// What bounds them: one thread's Montgomery product is issue-bound (~1,300
+// instructions, 0.61-0.67 us on the H100, field.cuh), and a pairing is a
+// chain of Fp12 operations of 18 to 63 Fp products each. Run by one thread
+// an element, as this source first did, each product waited on the one
+// before it (17,604 a Miller loop). So a warp takes a batch element, and
+// each Fp12 operation runs as a short lane program
+// (curve/pairing_program.py): a MUL step computes up to 32 independent
+// Fp products, one a lane, whose operands are integer combinations of
+// slots (Karatsuba's sums); a LIN step computes up to 32 combinations (the
+// recombination, the products by xi, the outputs); an INV step inverts one.
+// Every operation but the inverse is one or two MUL steps and one LIN step
+// (the product's long outputs two). The values live in the warp's shared
+// memory, one slot (8 words) an Fp value, named by its index, so a lane
+// reads any operand with two shared loads: no shuffles, no per-lane
+// selects, one __syncwarp a step, and no Fp12 passed by value.
+//
+// What bounds a step (chip_smoke.py phase 10 and scripts/pairing_phase10.py
+// time the kernels): one lane's product, then the latency of the
+// combinations, a reduction each and about a term's loads and multiply-adds
+// more for each term, then the step's own loads and sync. So the programs
+// favour operands of one slot (a MUL step whose operands are all
+// single slots skips the combination: the line product and the cyclotomic
+// square and the Frobenius maps use schoolbook Fp2 products for it, which
+// still fit their steps), short outputs (the square is schoolbook over w:
+// 63 products in two steps, each output a few Fp2 products) and half sums
+// on idle lanes for the product's outputs of 36 terms. A combination
+// accumulates its word products in 64-bit words and is reduced once
+// (combine); the one product is fp_mul_fast, out of line. The inverse's
+// safegcd runs on every lane (on zero in all but one), so the warp stays
+// converged and the step is branch-free like the others; it is one step of
+// ~22.5 us a P2 call. P1 loads the lines of an ATE step, at most
+// 2 kMaxLegs, in one round trip into staging slots.
 //
 // Every value is canonical Montgomery (R = 2^256), so every form gives the
 // limbs of the plain version. Layout: Fp12 int64[B, 12, 16], row 2 i + c
 // the component c of the coefficient of w^i (the JAX order); lines and
-// points the port's int64 16-bit limbs.
+// points the port's int64 16-bit limbs. The lane programs come in one
+// uint32 blob (curve/pairing_program.py documents its format), in global
+// memory, read through the read-only cache: the terms of a step are read
+// coalesced, term j of lane k at 32 j + k.
 //
-// Design: one thread a batch element, blocks of 32 threads, so a batch of
-// 256 runs on 8 SMs; the Fp12 values live in registers and, where those run
-// out, in local memory. Bound: the instruction rate of the Fp products (one
-// thread's product is ~1,300 instructions, field.cuh); the chain of one
-// element is the whole loop, so a launch takes at least its dependent
-// products times one product's latency (chip_smoke.py: pairing_floor). A
-// warp a batch element, an Fp12 product's independent Fp2 products on its
-// lanes (K6's form), is the next step.
+// Launch shape: kWarps = 2 warps (batch elements) a block. At the verify's
+// batch of 256 on the H100, blocks of 1, 2 and 4 warps ran within 4% of
+// each other and 2 gave the fastest P1 (PERF.md section 6).
 //
 // Interface: plain C, launched on the caller's stream
-// (tpu_zkpool_torch/curve/pairing_kernels.py); returns cudaGetLastError().
+// (tpu_zkpool_torch/curve/pairing_kernels.py) with the blob and its first
+// free slot; the launcher adds the kernel's own slots (miller_slots,
+// final_exp_slots) and sizes the dynamic shared memory from them; returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -56,14 +79,35 @@
 
 namespace zk {
 
-constexpr int kPairThreads = 32;
+constexpr int kLanes = 32;
 constexpr int kMaxLegs = 3;
+constexpr int kWarps = 2;  // warps (batch elements) a block
 constexpr int kAteSteps = 64;
 // 6x + 2 without its leading bit, step 0 at bit 63 (curve/lines.py ATE_BITS)
 constexpr uint64_t kAteBits = 0x9d797039be763ba8ull;
 // BN_X, the curve parameter, and its length in bits (fields/bn254.py)
 constexpr uint64_t kBnX = 0x44e992b44a6909f1ull;
 constexpr int kBnXBits = 63;
+
+// The lane programs (pairing_program.OPS) and the slots they use
+// (pairing_program.A, B, L, K): operand a and the result, operand b, a
+// line (alpha_neg's two components, beta's two, px, py), the gammas.
+enum { kSqr, kLine, kMul, kCyclo, kFrob1, kFrob2, kFrob3, kConj, kInv };
+enum { kStepMul, kStepLin, kStepInv };
+constexpr int kSlotA = 0, kSlotB = 12, kSlotL = 24, kSlotK = 30;
+constexpr uint32_t kNoDst = 0xFFFF;
+// the blob's word 1 (pairing_program.FORMAT): each kernel traps on another
+// word rather than run a blob of another format
+constexpr uint32_t kBlobFormat = 0x7A6B0001u;
+// Slots a warp past the blob's first free slot: P1 stages an ATE step's
+// lines (6 slots a line, at most 2 kMaxLegs lines), P2 holds FE_PROGRAM's
+// kFeRegs Fp12 registers (curve/pairing.py FE_NREG), 12 slots each.
+constexpr int kStageSlots = 6 * 2 * kMaxLegs;
+constexpr int kFeRegs = 15;
+constexpr int miller_slots(int first) { return first + kStageSlots; }
+constexpr int final_exp_slots(int first) { return first + 12 * kFeRegs; }
+// a warp's slots at most on the host, where shared memory is a static array
+constexpr int kHostSlots = 512;
 
 // Frobenius coefficients xi^(i (p^k - 1) / 6), k = 1, 2, 3, i = 0 .. 5, as
 // Montgomery words (c0, c1) (refimpl/pairing_ref.py _gamma).
@@ -109,213 +153,130 @@ __device__ __constant__ uint32_t kGamma[3][6][2][8] = {
       {0xbf3799a7u, 0x2d28efbdu, 0x1ad60773u, 0x9b097e3cu, 0xaf4a535bu, 0x982d4113u, 0xe3056063u, 0x24e18991u}}}
 };
 
-// ----------------------------------------------------------------- Fp2
+// 2^15 p, words 0 .. 8 (pairing_program.BIAS_LOG2): added to a combination
+// so that it is non-negative before its reduction.
+__device__ __constant__ uint32_t kBias[9] = {
+    0x7ea38000u, 0x460b6c3eu, 0xe5469e10u, 0xb548b438u, 0xac2ecbc0u,
+    0x22db40c0u, 0xd014dc28u, 0x27397098u, 0x00001832u};
+// p >> 224, the top word of p
+constexpr uint32_t kPTop = 0x30644e72u;
 
-using F2 = Fp2Field;
+// ---------------------------------------------------------------- slots
 
-__device__ __forceinline__ Fp2 f2_add(const Fp2& a, const Fp2& b) {
-  return F2::add(a, b);
-}
-__device__ __forceinline__ Fp2 f2_sub(const Fp2& a, const Fp2& b) {
-  return F2::sub(a, b);
-}
-__device__ __forceinline__ Fp2 f2_dbl(const Fp2& a) { return F2::dbl(a); }
-__device__ __forceinline__ Fp2 f2_mul(const Fp2& a, const Fp2& b) {
-  return F2::mul(a, b);
-}
-__device__ __forceinline__ Fp2 f2_neg(const Fp2& a) {
-  return {fp_sub(fp_zero(), a.c0), fp_sub(fp_zero(), a.c1)};
-}
-__device__ __forceinline__ Fp2 f2_conj(const Fp2& a) {
-  return {a.c0, fp_sub(fp_zero(), a.c1)};
-}
-// (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 Fp products
-__device__ __forceinline__ Fp2 f2_sqr(const Fp2& a) {
-  const Fp t = fp_mul(a.c0, a.c1);
-  return {fp_mul(fp_add(a.c0, a.c1), fp_sub(a.c0, a.c1)), fp_dbl(t)};
-}
-// a times an Fp scalar: 2 Fp products
-__device__ __forceinline__ Fp2 f2_mul_fp(const Fp2& a, const Fp& s) {
-  return {fp_mul(a.c0, s), fp_mul(a.c1, s)};
-}
-// a (9 + u) = (9 a0 - a1) + (a0 + 9 a1) u
-__device__ __forceinline__ Fp2 f2_mul_xi(const Fp2& a) {
-  const Fp2 a8 = f2_dbl(f2_dbl(f2_dbl(a)));
-  const Fp2 a9 = f2_add(a8, a);
-  return {fp_sub(a9.c0, a.c1), fp_add(a.c0, a9.c1)};
-}
-// 1 / a: the norm a0^2 + a1^2 inverted by the safegcd (0 maps to 0)
-__device__ __forceinline__ Fp2 f2_inv(const Fp2& a) {
-  const Fp n = fp_add(fp_mul(a.c0, a.c0), fp_mul(a.c1, a.c1));
-  const Fp ni = fp_inv(n);
-  return {fp_mul(a.c0, ni), fp_sub(fp_zero(), fp_mul(a.c1, ni))};
-}
+// The block's dynamic shared memory, `slots` slots a warp, each two uint4;
+// slots are named by their index in it, so every access is a shared load
+// or store (a pointer into it passed to a function out of line would be a
+// generic one).
+ZK_DYNAMIC_SHARED(uint4, kSmem, kWarps * kHostSlots * 2);
 
-// --------------------------------------------------------- Fp6 and Fp12
-
-struct Fp6 {
-  Fp2 a, b, c;  // a + b v + c v^2, v^3 = xi
-};
-
-struct Fp12 {
-  Fp2 c[6];  // sum c[i] w^i, w^6 = xi
-};
-
-__device__ __forceinline__ Fp6 f6_add(const Fp6& x, const Fp6& y) {
-  return {f2_add(x.a, y.a), f2_add(x.b, y.b), f2_add(x.c, y.c)};
-}
-__device__ __forceinline__ Fp6 f6_sub(const Fp6& x, const Fp6& y) {
-  return {f2_sub(x.a, y.a), f2_sub(x.b, y.b), f2_sub(x.c, y.c)};
-}
-// x v = xi c + a v + b v^2
-__device__ __forceinline__ Fp6 f6_mul_v(const Fp6& x) {
-  return {f2_mul_xi(x.c), x.a, x.b};
-}
-// Karatsuba over Fp2: 6 Fp2 products, 18 Fp products
-__device__ __noinline__ Fp6 f6_mul(const Fp6 x, const Fp6 y) {
-  const Fp2 v0 = f2_mul(x.a, y.a), v1 = f2_mul(x.b, y.b),
-            v2 = f2_mul(x.c, y.c);
-  const Fp2 t0 = f2_sub(f2_sub(f2_mul(f2_add(x.b, x.c), f2_add(y.b, y.c)),
-                               v1), v2);
-  const Fp2 t1 = f2_sub(f2_sub(f2_mul(f2_add(x.a, x.b), f2_add(y.a, y.b)),
-                               v0), v1);
-  const Fp2 t2 = f2_sub(f2_sub(f2_mul(f2_add(x.a, x.c), f2_add(y.a, y.c)),
-                               v0), v2);
-  return {f2_add(v0, f2_mul_xi(t0)), f2_add(t1, f2_mul_xi(v2)),
-          f2_add(t2, v1)};
-}
-
-__device__ __forceinline__ Fp6 f12_even(const Fp12& x) {
-  return {x.c[0], x.c[2], x.c[4]};
-}
-__device__ __forceinline__ Fp6 f12_odd(const Fp12& x) {
-  return {x.c[1], x.c[3], x.c[5]};
-}
-__device__ __forceinline__ Fp12 f12_from(const Fp6& g, const Fp6& h) {
-  return {{g.a, h.a, g.b, h.b, g.c, h.c}};
-}
-
-__device__ __forceinline__ Fp12 f12_one() {
-  Fp12 r;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) r.c[i] = F2::zero();
-  r.c[0] = F2::one();
+__device__ __forceinline__ Fp slot_load(uint32_t i) {
+  const uint4 x = kSmem[2 * i], y = kSmem[2 * i + 1];
+  Fp r;
+  r.v[0] = x.x, r.v[1] = x.y, r.v[2] = x.z, r.v[3] = x.w;
+  r.v[4] = y.x, r.v[5] = y.y, r.v[6] = y.z, r.v[7] = y.w;
   return r;
 }
 
-__device__ __forceinline__ Fp12 f12_conj(const Fp12& x) {
-  return {{x.c[0], f2_neg(x.c[1]), x.c[2], f2_neg(x.c[3]), x.c[4],
-           f2_neg(x.c[5])}};
+__device__ __forceinline__ void slot_store(uint32_t i, const Fp& a) {
+  kSmem[2 * i] = {a.v[0], a.v[1], a.v[2], a.v[3]};
+  kSmem[2 * i + 1] = {a.v[4], a.v[5], a.v[6], a.v[7]};
 }
 
-// (g + h w)(g' + h' w) = (g g' + h h' v) + ((g + h)(g' + h') - g g' - h h') w:
-// three Fp6 products, 54 Fp products
-__device__ __noinline__ Fp12 f12_mul(const Fp12 x, const Fp12 y) {
-  const Fp6 g = f12_even(x), h = f12_odd(x), g2 = f12_even(y),
-            h2 = f12_odd(y);
-  const Fp6 t0 = f6_mul(g, g2), t1 = f6_mul(h, h2);
-  const Fp6 s = f6_mul(f6_add(g, h), f6_add(g2, h2));
-  return f12_from(f6_add(t0, f6_mul_v(t1)), f6_sub(f6_sub(s, t0), t1));
+// 12 slots from src to dst, half a slot a lane (lanes 0 .. 23); the caller
+// syncs.
+__device__ __forceinline__ void copy12(uint32_t dst, uint32_t src,
+                                       int lane) {
+  if (lane < 24) kSmem[2 * dst + lane] = kSmem[2 * src + lane];
 }
 
-// (g + h w)^2 = ((g + h)(g + v h) - g h - v g h) + 2 g h w: two Fp6
-// products, 36 Fp products
-__device__ __noinline__ Fp12 f12_sqr(const Fp12 x) {
-  const Fp6 g = f12_even(x), h = f12_odd(x);
-  const Fp6 gh = f6_mul(g, h);
-  const Fp6 s = f6_mul(f6_add(g, h), f6_add(g, f6_mul_v(h)));
-  return f12_from(f6_sub(f6_sub(s, gh), f6_mul_v(gh)), f6_add(gh, gh));
-}
+// ------------------------------------------------------ lane programs
 
-// f (l0 + l1 w + l3 w^3), l0 in Fp: 18 Fp2 products (6 of them by l0, 2
-// Fp products each), 48 Fp products. Coefficient k gathers f_k l0,
-// f_(k-1) l1 and f_(k-3) l3, a wrapped index times xi.
-__device__ __noinline__ Fp12 f12_mul_line(const Fp12 f, const Fp l0,
-                                          const Fp2 l1, const Fp2 l3) {
-  Fp2 a[6], b[6], c[6];  // f_i l0, f_i l1, f_i l3
+// sum_j c_j slot(s0 + t_j) mod p over this lane's n terms, canonical; term
+// j is the word t[32 j] = t_j | |c_j| << 16 | (c_j < 0) << 31. A negative
+// term is |c| (2^256 - 1 - v) + |c| - |c| 2^256, so every word product
+// |c| v_i or |c| ~v_i is non-negative and goes into a 64-bit accumulator
+// (sum |c_j| < 2^15: each stays below 2^48), the |c| into word 0 and the
+// -|c| 2^256 into the top. One carry chain then gives X = sum + 2^15 p in
+// [0, 2^16 p), whose quotient by p is estimated from its top 46 bits,
+// X >> 224, over kPTop + 1: at most one short, so X - q p is below 2p and
+// one conditional subtraction ends it.
+__device__ __forceinline__ Fp combine(const uint32_t* __restrict__ t, int n,
+                                      uint32_t s0) {
+  uint64_t w[8];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    a[i] = f2_mul_fp(f.c[i], l0);
-    b[i] = f2_mul(f.c[i], l1);
-    c[i] = f2_mul(f.c[i], l3);
+  for (int i = 0; i < 8; ++i) w[i] = kBias[i];
+  uint32_t negs = 0;  // sum of |c_j| over the negative terms
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const uint32_t term = __ldg(t + kLanes * j);
+    const Fp v = slot_load(s0 + (term & 0xFFFFu));
+    const uint32_t c = (term >> 16) & 0x7FFFu;
+    const uint32_t neg = (uint32_t)((int32_t)term >> 31);  // c_j < 0: ~0
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] += (uint64_t)c * (v.v[i] ^ neg);
+    negs += c & neg;
   }
-  Fp12 r;
-  r.c[0] = f2_add(a[0], f2_mul_xi(f2_add(b[5], c[3])));
-  r.c[1] = f2_add(f2_add(a[1], b[0]), f2_mul_xi(c[4]));
-  r.c[2] = f2_add(f2_add(a[2], b[1]), f2_mul_xi(c[5]));
-  r.c[3] = f2_add(f2_add(a[3], b[2]), c[0]);
-  r.c[4] = f2_add(f2_add(a[4], b[3]), c[1]);
-  r.c[5] = f2_add(f2_add(a[5], b[4]), c[2]);
-  return r;
+  Fp x;
+  uint64_t acc = w[0] + negs;
+  x.v[0] = (uint32_t)acc;
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    acc = (acc >> 32) + w[i];
+    x.v[i] = (uint32_t)acc;
+  }
+  // X >> 256, in [0, 2^14)
+  const uint64_t top = (acc >> 32) + kBias[8] - negs;
+  const uint64_t q = ((top << 32) | x.v[7]) / ((uint64_t)kPTop + 1);
+  uint64_t cq = 0;
+  int64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t m = q * FpMod::p(i) + cq;
+    cq = m >> 32;
+    const int64_t d = (int64_t)x.v[i] - (uint32_t)m + borrow;
+    x.v[i] = (uint32_t)d;
+    borrow = d >> 32;
+  }
+  return mont_reduce_once(x);
 }
 
-// a^(p^k), k = 1, 2, 3: conj^k of each coefficient, times gamma_k
-__device__ __noinline__ Fp12 f12_frobenius(const Fp12 x, int k) {
-  Fp12 r;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    Fp2 g;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      g.c0.v[w] = kGamma[k - 1][i][0][w];
-      g.c1.v[w] = kGamma[k - 1][i][1][w];
+// Runs lane program `op` of the blob on the warp's slots from s0; every
+// lane of the warp calls it.
+__device__ __noinline__ void run(const uint32_t* __restrict__ blob, int op,
+                                 uint32_t s0, int lane) {
+  const uint32_t* p = blob + __ldg(blob + 2 + op);
+  const int n = (int)__ldg(p++);
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const uint32_t h = __ldg(p);
+    const int kind = h & 0xFF, na = (h >> 8) & 0xFF, nb = (h >> 16) & 0xFF;
+    const uint32_t dst = __ldg(p + 1 + lane);
+    const uint32_t* t = p + 1 + kLanes + lane;
+    Fp x;
+    if (h >> 24) {  // a MUL step of single slots: nothing to combine
+      x = fp_mul_fast(slot_load(s0 + (__ldg(t) & 0xFFFFu)),
+                      slot_load(s0 + (__ldg(t + kLanes) & 0xFFFFu)));
+    } else {
+      x = combine(t, na, s0);
+      if (kind == kStepMul)
+        x = fp_mul_fast(x, combine(t + kLanes * na, nb, s0));
+      else if (kind == kStepInv)
+        x = fp_inv(x);
     }
-    r.c[i] = f2_mul(k % 2 ? f2_conj(x.c[i]) : x.c[i], g);
+    if (dst != kNoDst) slot_store(s0 + dst, x);
+    __syncwarp();
+    p += 1 + kLanes * (1 + na + nb);
   }
-  return r;
 }
 
-// Granger-Scott squaring (cyclotomic subgroup only): the pairs (c0, c3),
-// (c1, c4), (c2, c5) are Fp4 = Fp2[t]/(t^2 - xi) elements; 18 Fp products
-__device__ __forceinline__ void fp4_sqr(const Fp2& x, const Fp2& y, Fp2& e,
-                                        Fp2& o) {
-  const Fp2 x2 = f2_sqr(x), y2 = f2_sqr(y);
-  e = f2_add(x2, f2_mul_xi(y2));
-  o = f2_sub(f2_sub(f2_sqr(f2_add(x, y)), x2), y2);
-}
-__device__ __forceinline__ Fp2 three_minus_two(const Fp2& t, const Fp2& c) {
-  return f2_sub(f2_add(f2_dbl(t), t), f2_dbl(c));
-}
-__device__ __forceinline__ Fp2 three_plus_two(const Fp2& t, const Fp2& c) {
-  return f2_add(f2_add(f2_dbl(t), t), f2_dbl(c));
-}
-__device__ __noinline__ Fp12 f12_cyclotomic_sqr(const Fp12 a) {
-  Fp2 t0, t1, t2, t3, t4, t5;
-  fp4_sqr(a.c[0], a.c[3], t0, t1);
-  fp4_sqr(a.c[1], a.c[4], t2, t3);
-  fp4_sqr(a.c[2], a.c[5], t4, t5);
-  return {{three_minus_two(t0, a.c[0]), three_plus_two(f2_mul_xi(t5), a.c[1]),
-           three_minus_two(t2, a.c[2]), three_plus_two(t1, a.c[3]),
-           three_minus_two(t4, a.c[4]), three_plus_two(t3, a.c[5])}};
-}
-
-// 1 / a: a conj(a) is even in w, an Fp6 element g0 + g1 v + g2 v^2 that
-// inverts in closed form (pairing_jax.f12_inv); a^-1 = conj(a) g^-1
-__device__ __noinline__ Fp12 f12_inv(const Fp12 a) {
-  const Fp12 c = f12_conj(a);
-  const Fp12 n = f12_mul(a, c);
-  const Fp2 g0 = n.c[0], g1 = n.c[2], g2 = n.c[4];
-  const Fp2 c0 = f2_sub(f2_sqr(g0), f2_mul_xi(f2_mul(g1, g2)));
-  const Fp2 c1 = f2_sub(f2_mul_xi(f2_sqr(g2)), f2_mul(g0, g1));
-  const Fp2 c2 = f2_sub(f2_sqr(g1), f2_mul(g0, g2));
-  const Fp2 den = f2_add(f2_mul(g0, c0),
-                         f2_mul_xi(f2_add(f2_mul(g2, c1), f2_mul(g1, c2))));
-  const Fp2 di = f2_inv(den);
-  const Fp2 z = F2::zero();
-  const Fp12 ginv = {{f2_mul(c0, di), z, f2_mul(c1, di), z, f2_mul(c2, di),
-                      z}};
-  return f12_mul(c, ginv);
-}
-
-__device__ __forceinline__ Fp12 f12_load(const int64_t* p) {
-  Fp12 r;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) r.c[i] = F2::load(p + 32 * i);
-  return r;
-}
-__device__ __forceinline__ void f12_store(int64_t* p, const Fp12& a) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) F2::store(p + 32 * i, a.c[i]);
+// This warp's batch element b and its first slot, or -1 for a warp past
+// the batch (it exits whole). A blob of another format traps.
+__device__ __forceinline__ int warp_slots(const uint32_t* blob, int slots,
+                                          int batch, int& b) {
+  if (__ldg(blob + 1) != kBlobFormat) __trap();
+  const int warp = threadIdx.x / kLanes;
+  b = blockIdx.x * kWarps + warp;
+  return b < batch ? slots * warp : -1;
 }
 
 // ------------------------------------------------------------------ P1
@@ -333,93 +294,174 @@ struct MillerArgs {
   int batch;
 };
 
-// f times leg l's line at step s of part `part` (0 dbl, 4 add, 8 end).
-__device__ __forceinline__ Fp12 line_step(const Fp12& f, const MillerArgs& a,
-                                          int l, int part, int s, int b,
-                                          const Fp& px, const Fp& py) {
-  const long long st = a.stride[l];
-  const long long off = s * (st ? (long long)a.batch * 16 : 16) + b * st;
-  const Fp2 an = {fp_load(a.line[l][part] + off),
-                  fp_load(a.line[l][part + 1] + off)};
-  const Fp2 be = {fp_load(a.line[l][part + 2] + off),
-                  fp_load(a.line[l][part + 3] + off)};
-  return f12_mul_line(f, py, f2_mul_fp(an, px), be);
+// Value j of line i of a group of n lines into staging slot stage + 6 i +
+// j (alpha_neg's two components, beta's two, px, py), one load a lane for
+// the whole group: line i is leg i % legs of part part0 + 4 dpart m at step
+// st0 + dstep m, m = i / legs (parts: 0 dbl, 4 add, 8 end).
+__device__ __forceinline__ void load_lines(const MillerArgs& a, int n,
+                                           int part0, int dpart, int st0,
+                                           int dstep, int b, uint32_t stage,
+                                           int lane) {
+  Fp v[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int k = lane + kLanes * r, i = k / 6, j = k % 6;
+    if (k >= 6 * n) continue;
+    const int l = i % a.legs, m = i / a.legs;
+    const int part = part0 + 4 * dpart * m, st = st0 + dstep * m;
+    const long long stride = a.stride[l];
+    const int64_t* q =
+        j < 4 ? a.line[l][part + j] +
+                    st * (stride ? (long long)a.batch * 16 : 16) + b * stride
+              : (j == 4 ? a.px[l] : a.py[l]) + 16 * (long long)b;
+    v[r] = fp_load(q);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (lane + kLanes * r < 6 * n) slot_store(stage + lane + kLanes * r, v[r]);
+  __syncwarp();
 }
 
-__global__ void __launch_bounds__(kPairThreads)
-    k_miller_lines(const MillerArgs args, int64_t* out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= args.batch) return;
-  Fp px[kMaxLegs], py[kMaxLegs];
-  for (int l = 0; l < args.legs; ++l) {
-    px[l] = fp_load(args.px[l] + 16 * b);
-    py[l] = fp_load(args.py[l] + 16 * b);
+// f times the n staged lines, one after another: each copied into the L
+// slots (half a slot a lane), then the line program.
+__device__ __forceinline__ void lines(const uint32_t* blob, int n,
+                                      uint32_t stage, uint32_t s0, int lane) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    if (lane < 12)
+      kSmem[2 * (s0 + kSlotL) + lane] = kSmem[2 * (stage + 6 * i) + lane];
+    __syncwarp();
+    run(blob, kLine, s0, lane);
   }
-  Fp12 f = f12_one();
+}
+
+__global__ void __launch_bounds__(kLanes * kWarps)
+    k_miller_lines(const MillerArgs args, const uint32_t* __restrict__ blob,
+                   int slots, int64_t* out) {
+  int b;
+  const int s0 = warp_slots(blob, slots, args.batch, b);
+  if (s0 < 0) return;
+  const int lane = threadIdx.x % kLanes;
+  // the staging slots of a step's lines (at most 2 kMaxLegs) follow the
+  // programs' temporaries
+  const uint32_t stage = s0 + __ldg(blob);
+  if (lane < 12) slot_store(s0 + kSlotA + lane, lane ? fp_zero() : fp_one());
 #pragma unroll 1
-  for (int s = 0; s < kAteSteps; ++s) {
-    f = f12_sqr(f);
-#pragma unroll 1
-    for (int l = 0; l < args.legs; ++l)
-      f = line_step(f, args, l, 0, s, b, px[l], py[l]);
-    if ((kAteBits >> (kAteSteps - 1 - s)) & 1) {
-#pragma unroll 1
-      for (int l = 0; l < args.legs; ++l)
-        f = line_step(f, args, l, 4, s, b, px[l], py[l]);
-    }
+  for (int st = 0; st < kAteSteps; ++st) {
+    // the double lines, then where the bit is set the add lines
+    const int n = args.legs * (1 + ((kAteBits >> (kAteSteps - 1 - st)) & 1));
+    load_lines(args, n, 0, 1, st, 0, b, stage, lane);
+    run(blob, kSqr, s0, lane);
+    lines(blob, n, stage, s0, lane);
   }
-#pragma unroll 1
-  for (int i = 0; i < 2; ++i)
-#pragma unroll 1
-    for (int l = 0; l < args.legs; ++l)
-      f = line_step(f, args, l, 8, i, b, px[l], py[l]);
-  f12_store(out + 192 * (long long)b, f);
+  load_lines(args, 2 * args.legs, 8, 0, 0, 1, b, stage, lane);
+  lines(blob, 2 * args.legs, stage, s0, lane);
+  if (lane < 12)
+    fp_store(out + 192 * (long long)b + 16 * lane,
+             slot_load(s0 + kSlotA + lane));
 }
 
 // ------------------------------------------------------------------ P2
 
-// a^BN_X by cyclotomic squares from the bit after the leading one (a in
-// the cyclotomic subgroup): FE_PROGRAM's pow_x
-__device__ __noinline__ Fp12 f12_pow_x_cyclo(const Fp12 a) {
-  Fp12 acc = a;
-#pragma unroll 1
-  for (int i = kBnXBits - 2; i >= 0; --i) {
-    acc = f12_cyclotomic_sqr(acc);
-    if ((kBnX >> i) & 1) acc = f12_mul(acc, a);
-  }
-  return acc;
-}
+// FE_PROGRAM's registers r0 .. r14, 12 slots each from slot r0 (the blob's
+// word 0, the first slot after the programs' temporaries).
+struct FeWarp {
+  const uint32_t* blob;
+  int s0, r0, lane;
 
-__global__ void __launch_bounds__(kPairThreads)
-    k_final_exp(const int64_t* f, int64_t* out, int batch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const Fp12 x = f12_load(f + 192 * (long long)b);
-  // easy part: t = f^(p^6 - 1), m = t^(p^2) t
-  const Fp12 t = f12_mul(f12_conj(x), f12_inv(x));
-  const Fp12 m = f12_mul(f12_frobenius(t, 2), t);
-  // x-power ladder
-  const Fp12 fx = f12_pow_x_cyclo(m);
-  const Fp12 fx2 = f12_pow_x_cyclo(fx);
-  const Fp12 fx3 = f12_pow_x_cyclo(fx2);
-  // y terms
-  const Fp12 y0 = f12_mul(f12_mul(f12_frobenius(m, 1), f12_frobenius(m, 2)),
-                          f12_frobenius(m, 3));
-  const Fp12 y1 = f12_conj(m);
-  const Fp12 y2 = f12_frobenius(fx2, 2);
-  const Fp12 y3 = f12_conj(f12_frobenius(fx, 1));
-  const Fp12 y4 = f12_conj(f12_mul(fx, f12_frobenius(fx2, 1)));
-  const Fp12 y5 = f12_conj(fx2);
-  const Fp12 y6 = f12_conj(f12_mul(fx3, f12_frobenius(fx3, 1)));
+  __device__ int reg(int i) const { return s0 + r0 + 12 * i; }
+
+  // r[dst] = op(r[a], r[b]) (b < 0: a unary op)
+  __device__ __noinline__ void op(int prog, int a, int b, int dst) const {
+    copy12(s0 + kSlotA, reg(a), lane);
+    if (b >= 0) copy12(s0 + kSlotB, reg(b), lane);
+    __syncwarp();
+    run(blob, prog, s0, lane);
+    copy12(reg(dst), s0 + kSlotA, lane);
+    __syncwarp();
+  }
+
+  // r[dst] = r[src]^BN_X by cyclotomic squares from the bit after the
+  // leading one (FE_PROGRAM's pow_x), in the A slots, r[src] in B
+  __device__ __noinline__ void pow_x(int src, int dst) const {
+    copy12(s0 + kSlotA, reg(src), lane);
+    copy12(s0 + kSlotB, reg(src), lane);
+    __syncwarp();
+#pragma unroll 1
+    for (int i = kBnXBits - 2; i >= 0; --i) {
+      run(blob, kCyclo, s0, lane);
+      if ((kBnX >> i) & 1) run(blob, kMul, s0, lane);
+    }
+    copy12(reg(dst), s0 + kSlotA, lane);
+    __syncwarp();
+  }
+};
+
+__global__ void __launch_bounds__(kLanes * kWarps)
+    k_final_exp(const int64_t* f, const uint32_t* __restrict__ blob,
+                int slots, int64_t* out, int batch) {
+  int b;
+  const int s0 = warp_slots(blob, slots, batch, b);
+  if (s0 < 0) return;
+  const int lane = threadIdx.x % kLanes;
+  const FeWarp fe{blob, s0, (int)__ldg(blob), lane};
+  const uint32_t* gamma = &kGamma[0][0][0][0];
+#pragma unroll 1
+  for (int i = lane; i < 36; i += kLanes) {
+    Fp g;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) g.v[w] = gamma[8 * i + w];
+    slot_store(s0 + kSlotK + i, g);
+  }
+  if (lane < 12)
+    slot_store(fe.reg(0) + lane,
+               fp_load(f + 192 * (long long)b + 16 * lane));
+  __syncwarp();
+  fe.op(kInv, 0, -1, 1);  // r1 = f^-1
+  // easy part: r2 = f^(p^6 - 1), then m = r2^(p^2) r2
+  fe.op(kConj, 0, -1, 2);
+  fe.op(kMul, 2, 1, 2);
+  fe.op(kFrob2, 2, -1, 1);
+  fe.op(kMul, 1, 2, 2);
+  // x-power ladder: fx, fx2, fx3
+  fe.pow_x(2, 3);
+  fe.pow_x(3, 4);
+  fe.pow_x(4, 5);
+  // y terms: r6 = y0, r7 = y1, r8 = y2, r9 = y3, r10 = y4, r11 = y5,
+  // r12 = y6
+  fe.op(kFrob1, 2, -1, 6);
+  fe.op(kFrob2, 2, -1, 7);
+  fe.op(kMul, 6, 7, 6);
+  fe.op(kFrob3, 2, -1, 7);
+  fe.op(kMul, 6, 7, 6);
+  fe.op(kConj, 2, -1, 7);
+  fe.op(kFrob2, 4, -1, 8);
+  fe.op(kFrob1, 3, -1, 9);
+  fe.op(kConj, 9, -1, 9);
+  fe.op(kFrob1, 4, -1, 10);
+  fe.op(kMul, 3, 10, 10);
+  fe.op(kConj, 10, -1, 10);
+  fe.op(kConj, 4, -1, 11);
+  fe.op(kFrob1, 5, -1, 12);
+  fe.op(kMul, 5, 12, 12);
+  fe.op(kConj, 12, -1, 12);
   // Scott et al. combine
-  Fp12 t0 = f12_mul(f12_mul(f12_cyclotomic_sqr(y6), y4), y5);
-  Fp12 t1 = f12_mul(f12_mul(y3, y5), t0);
-  t0 = f12_mul(t0, y2);
-  t1 = f12_cyclotomic_sqr(f12_mul(f12_cyclotomic_sqr(t1), t0));
-  t0 = f12_mul(t1, y1);
-  t1 = f12_mul(t1, y0);
-  f12_store(out + 192 * (long long)b,
-            f12_mul(f12_cyclotomic_sqr(t0), t1));
+  fe.op(kCyclo, 12, -1, 12);
+  fe.op(kMul, 12, 10, 12);
+  fe.op(kMul, 12, 11, 12);
+  fe.op(kMul, 9, 11, 13);
+  fe.op(kMul, 13, 12, 13);
+  fe.op(kMul, 12, 8, 12);
+  fe.op(kCyclo, 13, -1, 13);
+  fe.op(kMul, 13, 12, 13);
+  fe.op(kCyclo, 13, -1, 13);
+  fe.op(kMul, 13, 7, 14);
+  fe.op(kMul, 13, 6, 13);
+  fe.op(kCyclo, 14, -1, 14);
+  fe.op(kMul, 14, 13, 14);
+  if (lane < 12)
+    fp_store(out + 192 * (long long)b + 16 * lane,
+             slot_load(fe.reg(14) + lane));
 }
 
 }  // namespace zk
@@ -428,20 +470,27 @@ extern "C" {
 
 int miller_args_size() { return (int)sizeof(zk::MillerArgs); }
 
-int miller_lines(const zk::MillerArgs* args, int64_t* out, void* stream) {
-  if (args->legs < 1 || args->legs > zk::kMaxLegs || args->batch < 1)
+int miller_lines(const zk::MillerArgs* args, const uint32_t* blob, int first,
+                 int64_t* out, void* stream) {
+  if (args->legs < 1 || args->legs > zk::kMaxLegs || args->batch < 1 ||
+      first < 1)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (args->batch + zk::kPairThreads - 1) / zk::kPairThreads;
-  zk::k_miller_lines<<<blocks, zk::kPairThreads, 0, (cudaStream_t)stream>>>(
-      *args, out);
+  const int slots = zk::miller_slots(first);
+  const int blocks = (args->batch + zk::kWarps - 1) / zk::kWarps;
+  zk::k_miller_lines<<<blocks, zk::kLanes * zk::kWarps,
+                       (size_t)zk::kWarps * slots * 32,
+                       (cudaStream_t)stream>>>(*args, blob, slots, out);
   return (int)cudaGetLastError();
 }
 
-int final_exp(const int64_t* f, int64_t* out, int batch, void* stream) {
-  if (batch < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (batch + zk::kPairThreads - 1) / zk::kPairThreads;
-  zk::k_final_exp<<<blocks, zk::kPairThreads, 0, (cudaStream_t)stream>>>(
-      f, out, batch);
+int final_exp(const int64_t* f, const uint32_t* blob, int first,
+              int64_t* out, int batch, void* stream) {
+  if (batch < 1 || first < 1) return (int)cudaErrorInvalidValue;
+  const int slots = zk::final_exp_slots(first);
+  const int blocks = (batch + zk::kWarps - 1) / zk::kWarps;
+  zk::k_final_exp<<<blocks, zk::kLanes * zk::kWarps,
+                    (size_t)zk::kWarps * slots * 32, (cudaStream_t)stream>>>(
+      f, blob, slots, out, batch);
   return (int)cudaGetLastError();
 }
 

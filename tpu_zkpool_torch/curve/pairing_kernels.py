@@ -1,8 +1,13 @@
 """Wrappers of the pairing kernels P1 and P2 (``csrc/pairing.cu``).
 
 P1 ``k_miller_lines`` computes ``pairing.miller_loop_lines`` and P2
-``k_final_exp`` computes ``pairing.final_exponentiation``, one thread a
-batch element. They replace no ``pl.pallas_call``: the JAX package compiles
+``k_final_exp`` computes ``pairing.final_exponentiation``, one warp a batch
+element, two warps a block (``pairing.cu``'s ``kWarps``): each Fp12
+operation runs as a lane program of ``pairing_program`` (a step's
+independent Fp products one a lane), whose blob is uploaded once a device
+and passed to both kernels with its first free slot (the launchers add the
+kernels' own slots).
+They replace no ``pl.pallas_call``: the JAX package compiles
 ``tpu_zkpool/curve/pairing_jax.py:miller_loop_lines`` (l.412) and
 ``:final_exponentiation`` (l.305) into one XLA program (``_ppl_jit``). The
 library builds like the other kernel sources (``cuda_build``). Each
@@ -20,9 +25,11 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpu_zkpool_torch import cuda_build
+from tpu_zkpool_torch.curve import pairing_program
 from tpu_zkpool_torch.curve.lines import N_STEPS, LineArrays
 
 SOURCE = "pairing.cu"
@@ -33,6 +40,7 @@ MAX_LEGS = 3
 LAUNCHES = {"miller_lines": 0, "final_exp": 0}
 
 _lib = None
+_blobs = {}
 
 
 class MillerArgs(ctypes.Structure):
@@ -63,8 +71,8 @@ def _load():
     if _lib is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib = cuda_build.load(SOURCE, {
-            "miller_lines": [ctypes.POINTER(MillerArgs), P],
-            "final_exp": [P, P, I]})
+            "miller_lines": [ctypes.POINTER(MillerArgs), P, I, P],
+            "final_exp": [P, P, I, P, I]})
         lib.miller_args_size.restype = ctypes.c_int
         lib.miller_args_size.argtypes = []
         if lib.miller_args_size() != ctypes.sizeof(MillerArgs):
@@ -72,6 +80,15 @@ def _load():
                                "ctypes mirror")
         _lib = lib
     return _lib
+
+
+def _blob(device):
+    """(the lane programs' blob on ``device``, its first free slot)."""
+    if device not in _blobs:
+        blob = pairing_program.program()
+        _blobs[device] = (torch.from_numpy(blob.view(np.int32)).to(device),
+                          int(blob[0]))
+    return _blobs[device]
 
 
 def _check_legs(g1s, legs) -> int:
@@ -123,8 +140,10 @@ def miller_lines(g1s, legs) -> torch.Tensor:
         for k, t in enumerate(lg):
             args.line[i][k] = t.data_ptr()
         args.stride[i] = 16 if lg.dbl_an0.dim() == 3 else 0
+    blob, first = _blob(dev)
     cuda_build.launch(LAUNCHES, "miller_lines", dev, _load().miller_lines,
-                      ctypes.byref(args), out.data_ptr())
+                      ctypes.byref(args), blob.data_ptr(), first,
+                      out.data_ptr())
     return out
 
 
@@ -140,6 +159,8 @@ def final_exp(f) -> torch.Tensor:
         return pairing.final_exponentiation_plain(f)
     cuda_build.check_tensors("final_exp", f)
     out = torch.empty_like(f)
+    blob, first = _blob(f.device)
     cuda_build.launch(LAUNCHES, "final_exp", f.device, _load().final_exp,
-                      f.data_ptr(), out.data_ptr(), f.shape[0])
+                      f.data_ptr(), blob.data_ptr(), first, out.data_ptr(),
+                      f.shape[0])
     return out
