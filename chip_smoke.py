@@ -15,8 +15,9 @@ Phases, one line each:
   2 kernels  the product microbenchmark first (one thread, a dependent
              chain of 4,096 Fp and Fp2 products: out of line, inlined C,
              inlined PTX carry chains, three chains interleaved, PTX out
-             of line, three chains on three lanes of a warp; us a product,
-             every form on the same limbs), then the inverse
+             of line, three chains on three lanes of a warp, and over Fp
+             one chain with each product split over 4 and over 8 lanes;
+             us a product, every form on form a's limbs), then the inverse
              microbenchmark (one thread, 16 inversions x <- 1/x + y as
              Fermat with fp_mul, Fermat with a 4-bit window and dedicated
              squares, and safegcd; 4,096 squares by fp_mul and by fp_sqr;
@@ -108,7 +109,8 @@ Phases, one line each:
              3); the plain sponge timed on the card at B = 256 (its
              FieldCtx calls, a permutation's device launches) beside P3,
              and P3 alone at B = 1, 256, 4,096 beside its bound and chain
-             floor; keygen from rlwe_ref.keygen(42)'s randomness, Shamir
+             floor (192 product levels a permutation at phase 2's form g
+             time); keygen from rlwe_ref.keygen(42)'s randomness, Shamir
              shares and every pair's reconstruction on the card; 256
              identities encrypted with their quotient witnesses (four held
              to rlwe_ref.encrypt, all to k q + rem = full in int64 numpy),
@@ -674,20 +676,23 @@ def _layout_name(lanes):
 
 MUL_FORMS = ("a out-of-line", "b inlined C", "c inlined PTX",
              "d 3 chains C", "d 3 chains PTX", "e out-of-line PTX",
-             "f 3 chains on 3 lanes")
+             "f 3 chains on 3 lanes", "g a product on 4 lanes",
+             "g a product on 8 lanes")
 # the forms K2 and K6 run: K2 one thread's fp_mul_fast (e), K6 a level of
-# products on the lanes of one warp (f)
+# products on the lanes of one warp (f); (g), one product split over 4 or 8
+# lanes, is timed over Fp only
 K2_FORM, K6_FORM = 5, 6
+LANE_FORMS = (7, 8)
 
 
 def time_products(device, n=4096, reps=3):
-    """One thread (form f: one warp) walking a dependent chain of n
+    """One thread (forms f, g: one warp) walking a dependent chain of n
     Montgomery products (``csrc/mul_bench.cu``), Fp and Fp2, in each of the
-    seven forms: the best of ``reps`` launches by CUDA events, in us a
-    product (a step of the three-chain forms holds three products:
-    ``us_step`` is the step, ``us`` the step over 3) and in clock64 cycles
-    a step. Every form must end on the limbs of form (a). Returns {(ncomp,
-    form): dict}."""
+    seven forms (a)-(f), and over Fp form (g) at 4 and 8 lanes a product:
+    the best of ``reps`` launches by CUDA events, in us a product (a step
+    of the three-chain forms holds three products: ``us_step`` is the
+    step, ``us`` the step over 3) and in clock64 cycles a step. Every form
+    must end on the limbs of form (a). Returns {(ncomp, form): dict}."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.load("mul_bench.cu", {"mul_chain": [P, P, P, I, I, I,
                                                          P]})
@@ -699,6 +704,8 @@ def time_products(device, n=4096, reps=3):
         inp = torch.as_tensor(np.stack([pair] * 3), device=device)
         want = None
         for form in range(len(MUL_FORMS)):
+            if ncomp == 2 and form in LANE_FORMS:
+                continue
             out = torch.empty((3, ncomp, 16), dtype=torch.int64,
                               device=device)
             cyc = torch.zeros(1, dtype=torch.int64, device=device)
@@ -1794,11 +1801,14 @@ P3_NS = (0, 1, 2, 3, 4, AUDIT_FIELDS)   # sponge lengths held
 P3_TIMED_BS = (1, 256, 4096)
 # One permutation: 88 S-boxes (4 a full round, 1 a partial round) of two
 # squares and a product, and 4 diagonal products a partial round: 176
-# squares and 312 products, 488 in all; 3 dependent product levels a full
-# round and 4 a partial round.
+# squares and 312 products, 488 in all. Its least chain is 3 dependent
+# product levels a round, full or partial (x^2, x^4, x^5; a partial round's
+# d_0 x^5 = x^4 (d_0 x) shares the third): 192.
 P2_SBOXES = poseidon2.R_F * poseidon2.T + poseidon2.R_P
 P2_PRODUCTS = 3 * P2_SBOXES + poseidon2.R_P * poseidon2.T
-P2_LEVELS = 3 * poseidon2.R_F + 4 * poseidon2.R_P
+P2_LEVELS = 3 * (poseidon2.R_F + poseidon2.R_P)
+# the product form P3 runs: each product on 4 lanes (form g)
+P3_FORM = 7
 
 
 def p2_perms(n):
@@ -1828,10 +1838,11 @@ def p3_bound(B, n, clock_hz, sponge=True):
 
 
 def p3_floor(n, products, sponge=True):
-    """(product levels, floor ms) of one thread's chain: P2_LEVELS a
-    permutation at form (a)'s time a product."""
+    """(product levels, floor ms) of one state's chain: P2_LEVELS a
+    permutation at the time of a dependent product in the form P3 runs
+    (form g, a product on 4 lanes)."""
     levels = P2_LEVELS * (p2_perms(n) if sponge else 1)
-    return levels, levels * products[(1, 0)]["us"] / 1e3
+    return levels, levels * products[(1, P3_FORM)]["us"] / 1e3
 
 
 def check_poseidon2(device, Bs=P3_BS, ns=P3_NS, seed=400):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s phase 11 alone on one NVIDIA GPU: the Poseidon2
 kernel P3 built (``-Xptxas -v``) with the kernels the audit proof needs,
-held to its plain version in both forms (``check_poseidon2``), the need
-for it and P3 alone timed (``time_poseidon2``), then, unless ``--check``,
+held to its plain version in both forms (``check_poseidon2``), the
+product forms' times (a dependent product or level: one thread, three on
+three lanes, one split over 4 and over 8 lanes, the last P3's), the need
+for P3 and P3 alone timed (``time_poseidon2``), then, unless ``--check``,
 the audit path of ``phase_audit`` (keygen, Shamir, 256 encryptions with
 their quotient witnesses, ``ct_commitment`` through P3, the committed audit
 proof proved and verified, the auditor's decrypt).
@@ -64,9 +66,13 @@ def main(argv):
     out.update(check_s=time.perf_counter() - t0, modes=len(errs),
                errs={f"{k[1]} {k[2]}": v for k, v in errs.items()},
                plain_permutation_ms=perm_ms,
-               product_us=products[(1, 0)]["us"])
+               level_us={r["form"]: r["us_step"]
+                         for (ncomp, form), r in products.items()
+                         if ncomp == 1 and form in (0, 2, cs.K6_FORM,
+                                                    *cs.LANE_FORMS)})
     print(json.dumps(out, default=str), flush=True)
-    ok = not any(errs.values())
+    ok = not any(errs.values()) and not any(
+        r["max_abs_err"] for r in products.values())
     out["p3"] = cs.time_poseidon2(device, clock_hz, products)
     ok &= out["p3"]["max_abs_err"] == 0
     print(json.dumps(out["p3"], default=str), flush=True)

@@ -9,7 +9,15 @@
   carry-across (``limbs.from_jax``);
 - ``ct_commitment_plain`` equals ``ct_commitment_ref`` at n = 0 .. 8 and at
   the audit's 157 packed fields;
-- P3's g++ build equals the plain versions in both forms.
+- P3's g++ build equals the plain versions in both forms, launched as the
+  wrapper shapes the grid (16 threads a state), on ragged batches (B = 1,
+  3, 9: two states a warp) and in blocks of 32 and 128 threads;
+- ``lanes.cuh``'s split addition and product (4 lanes a value), which P3
+  runs, equal (a + b) mod r and a b 2^-256 mod r on edge values.
+
+The g++ builds run a block's threads as fibers on one host thread
+(``_SHIMS``), each barrier handing control to the next thread, with the
+warp's shuffles and ballots on per-lane slots.
 """
 
 import os
@@ -30,6 +38,7 @@ from tpu_zkpool_torch.fields.fctx import FR
 from tpu_zkpool_torch.fields.limbs import from_jax
 from tpu_zkpool_torch.hash import poseidon2 as p2
 from tpu_zkpool_torch.hash import poseidon2_kernels as p2k
+from tpu_zkpool_torch.hash.kernels import block_size
 
 torch.set_num_threads(1)
 
@@ -107,48 +116,207 @@ def test_kernel_words_are_the_constants():
     with open(os.path.join(CSRC, "poseidon2.cu")) as f:
         src = f.read()
     for name, v in (("kP2FullRounds", p2.R_F), ("kP2PartialRounds", p2.R_P),
-                    ("kP2Width", p2.T)):
+                    ("kP2Width", p2.T), ("kP2Split", p2k.SPLIT)):
         assert f"constexpr int {name} = {v};" in src
+    assert "kP2Lanes = kP2Width * kP2Split;" in src
 
 
-_HARNESS = r"""
+_SHIMS = r"""
+#define ZK_HOST_TEST
+#define ZK_HOST_THREADS
+#include <ucontext.h>
+
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <vector>
-#include "field.cuh"
-inline void __syncthreads() {}
-#include "poseidon2_host.cu"
-using namespace zk;
-
+struct ZkDim3 {
+  unsigned x, y, z;
+};
+inline ZkDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{32, 1, 1};
+// A block's threads are fibers on one host thread, run in turn: a barrier
+// passes control to the next thread, and the last one's to the first, so a
+// thread resumes once every thread of the block has reached the barrier
+// (the kernel's threads meet the same barriers in the same order). A
+// shuffle writes the lane's value, waits, reads the source lane's and
+// waits again; a ballot reads every lane's of its warp.
+inline std::vector<ucontext_t> zk_fiber;
+inline ucontext_t zk_main;
+inline unsigned zk_done;
+inline uint64_t zk_slot[128];
+inline void zk_wait() {
+  const unsigned t = threadIdx.x, next = (t + 1) % blockDim.x;
+  threadIdx.x = next;
+  swapcontext(&zk_fiber[t], &zk_fiber[next]);
+}
+template <class T>
+inline T zk_shfl(T v, int src) {
+  const unsigned warp = threadIdx.x & ~31u;
+  zk_slot[threadIdx.x] = (uint64_t)v;
+  zk_wait();
+  const T r = (T)zk_slot[warp + (src & 31)];
+  zk_wait();
+  return r;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int s, int = 32) {
+  return zk_shfl(v, s);
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int m, int = 32) {
+  return zk_shfl(v, (int)(threadIdx.x % 32) ^ m);
+}
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, int d, int = 32) {
+  const int t = threadIdx.x % 32;
+  return zk_shfl(v, t >= d ? t - d : t);
+}
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, int d, int = 32) {
+  const int t = threadIdx.x % 32;
+  return zk_shfl(v, t + d < 32 ? t + d : t);
+}
+inline uint32_t __ballot_sync(unsigned, int pred) {
+  const unsigned warp = threadIdx.x & ~31u;
+  zk_slot[threadIdx.x] = pred ? 1 : 0;
+  zk_wait();
+  uint32_t m = 0;
+  for (int i = 0; i < 32; ++i) m |= (uint32_t)zk_slot[warp + i] << i;
+  zk_wait();
+  return m;
+}
+inline void __syncthreads() { zk_wait(); }
+// Run `fn` as the `block` threads of one block, one after another up to
+// each barrier.
+inline void (*zk_fn)();
+inline void zk_thread() {
+  zk_fn();
+  const unsigned t = threadIdx.x;
+  if (++zk_done == blockDim.x) setcontext(&zk_main);
+  threadIdx.x = (t + 1) % blockDim.x;
+  setcontext(&zk_fiber[threadIdx.x]);
+}
+inline void zk_run_block(unsigned block, void (*fn)()) {
+  constexpr size_t kStack = 1 << 16;
+  static std::vector<char> stacks;
+  stacks.resize((size_t)block * kStack);
+  zk_fiber.resize(block);
+  blockDim.x = block;
+  zk_fn = fn;
+  zk_done = 0;
+  for (unsigned t = 0; t < block; ++t) {
+    getcontext(&zk_fiber[t]);
+    zk_fiber[t].uc_stack.ss_sp = stacks.data() + (size_t)t * kStack;
+    zk_fiber[t].uc_stack.ss_size = kStack;
+    zk_fiber[t].uc_link = nullptr;
+    makecontext(&zk_fiber[t], zk_thread, 0);
+  }
+  threadIdx.x = 0;
+  swapcontext(&zk_main, &zk_fiber[0]);
+}
 static std::vector<int64_t> rd(size_t n) {
   std::vector<int64_t> v(n);
   if (n && fread(v.data(), 8, n, stdin) != n) std::abort();
   return v;
 }
+"""
 
-// stdin: mode, B, n, the table (96 x 8 words), the inputs; stdout: the
-// outputs. Blocks of one thread, one after another (each block loads the
-// whole table before its thread runs).
+_HARNESS = _SHIMS + r"""#include "poseidon2_host.cu"
+using namespace zk;
+
+static int g_mode, g_B, g_n;
+static const int64_t* g_in;
+static int64_t* g_out;
+static const uint4* g_tab;
+
+static void p3_thread() {
+  if (g_mode == 0)
+    k_poseidon2<0>(g_in, g_out, g_tab, g_B, g_n);
+  else
+    k_poseidon2<1>(g_in, g_out, g_tab, g_B, g_n);
+}
+
+// stdin: mode, B, n, block, the table (96 x 8 words), the inputs; stdout:
+// the outputs. The grid the launcher gives (kP2Lanes threads a state, B
+// states, `block` threads a block), its blocks one after another.
 int main() {
-  std::vector<int64_t> h = rd(3);
-  const int mode = (int)h[0], B = (int)h[1], n = (int)h[2];
+  std::vector<int64_t> h = rd(4);
+  g_mode = (int)h[0];
+  g_B = (int)h[1];
+  g_n = (int)h[2];
+  const int block = (int)h[3];
   std::vector<int64_t> tw = rd(kP2Table * 8);
   std::vector<uint4> tab(2 * kP2Table);
   uint32_t* w = reinterpret_cast<uint32_t*>(tab.data());
   for (int i = 0; i < kP2Table * 8; ++i) w[i] = (uint32_t)tw[i];
-  std::vector<int64_t> in = rd((size_t)B * n * 16);
-  std::vector<int64_t> out((size_t)B * (mode ? 1 : 4) * 16);
-  blockDim.x = 1;
-  for (unsigned b = 0; b < (unsigned)B; ++b) {
+  std::vector<int64_t> in = rd((size_t)g_B * g_n * 16);
+  // two more states' rows than the outputs: a dead state must store nothing
+  const size_t row = (g_mode ? 1 : 4) * 16;
+  std::vector<int64_t> out((size_t)(g_B + 2) * row, -7);
+  g_in = in.data();
+  g_out = out.data();
+  g_tab = tab.data();
+  if (block % 32 || block > 128) std::abort();
+  const long long threads = (long long)g_B * kP2Lanes;
+  const unsigned grid = (unsigned)((threads + block - 1) / block);
+  for (unsigned b = 0; b < grid; ++b) {
     blockIdx.x = b;
-    if (mode == 0)
-      k_poseidon2<0>(in.data(), out.data(), tab.data(), B, n);
-    else
-      k_poseidon2<1>(in.data(), out.data(), tab.data(), B, n);
+    zk_run_block(block, p3_thread);
   }
-  fwrite(out.data(), 8, out.size(), stdout);
+  for (size_t i = (size_t)g_B * row; i < out.size(); ++i)
+    if (out[i] != -7) std::abort();
+  fwrite(out.data(), 8, (size_t)g_B * row, stdout);
 }
 """
+
+# lanes.cuh alone: split_add and split_mul on 4 lanes a value, eight pairs a
+# warp, against Python's (a + b) mod r and a b 2^-256 mod r.
+_SPLIT_MAIN = r"""#include "field.cuh"
+#include "lanes.cuh"
+using namespace zk;
+
+static std::vector<int64_t> g_in, g_out;
+static size_t g_pair;
+
+static void split_thread() {
+  using S = Split<FrMod, 4>;
+  const unsigned t = threadIdx.x, q = t % 4, i = g_pair + t / 4;
+  const int64_t* a = &g_in[16 * i];
+  const S x{{(uint32_t)a[2 * q], (uint32_t)a[2 * q + 1]}};
+  const S y{{(uint32_t)a[8 + 2 * q], (uint32_t)a[8 + 2 * q + 1]}};
+  const S p = split_modulus<FrMod, 4>();
+  const S s = split_add(x, y, p), m = split_mul(x, y, p);
+  int64_t* o = &g_out[16 * i];
+  o[2 * q] = s.v[0];
+  o[2 * q + 1] = s.v[1];
+  o[8 + 2 * q] = m.v[0];
+  o[8 + 2 * q + 1] = m.v[1];
+}
+
+// stdin: n, then n pairs of 8 + 8 words (n a multiple of 8); stdout: n
+// times the sum's 8 words and the product's 8.
+int main() {
+  const size_t n = (size_t)rd(1)[0];
+  g_in = rd(16 * n);
+  g_out.assign(16 * n, -7);
+  for (g_pair = 0; g_pair < n; g_pair += 8) zk_run_block(32, split_thread);
+  fwrite(g_out.data(), 8, g_out.size(), stdout);
+}
+"""
+
+
+def _gxx(d, name, src):
+    """Build ``src`` with g++ in ``d`` (``-DZK_HOST_TEST`` from the shims,
+    csrc/ on the include path); returns the executable's path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is absent: the host build cannot be made")
+    (d / f"{name}.cpp").write_text(src)
+    exe = d / name
+    subprocess.run([gxx, "-std=c++17", "-O1", f"-I{CSRC}", f"-I{d}", "-x",
+                    "c++", str(d / f"{name}.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True, text=True)
+    return str(exe)
 
 
 @pytest.fixture(scope="module")
@@ -156,9 +324,6 @@ def host_p3(tmp_path_factory):
     """poseidon2.cu built with g++ -DZK_HOST_TEST: the source cut at the
     end of its namespace (the launcher follows), without
     <cuda_runtime.h>."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is absent: poseidon2.cu's host build cannot be made")
     d = tmp_path_factory.mktemp("poseidon2_host")
     with open(os.path.join(CSRC, "poseidon2.cu")) as f:
         src = f.read()
@@ -166,17 +331,17 @@ def host_p3(tmp_path_factory):
     src = src[:src.rindex(end) + len(end)].replace(
         "#include <cuda_runtime.h>\n", "")
     (d / "poseidon2_host.cu").write_text(src + "\n")
-    (d / "harness.cpp").write_text(_HARNESS)
-    exe = d / "harness"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-DZK_HOST_TEST", f"-I{CSRC}",
-                    f"-I{d}", "-x", "c++", str(d / "harness.cpp"), "-o",
-                    str(exe)], check=True, capture_output=True, text=True)
-    return str(exe)
+    return _gxx(d, "harness", _HARNESS)
 
 
-def _host(exe, mode, x):
+def _host(exe, mode, x, block=None):
+    """P3's g++ build on x, launched as the wrapper launches it: ``block``
+    threads a block (default the wrapper's ``block_size`` on a card of 132
+    SMs), 16 a state."""
     B, n = x.shape[0], x.shape[1]
-    words = np.concatenate([[mode, B, n], p2.kernel_words().view(
+    if block is None:
+        block = block_size(B * p2k.LANES, 132)
+    words = np.concatenate([[mode, B, n, block], p2.kernel_words().view(
         np.uint32).astype(np.int64).ravel(), x.numpy().ravel()])
     out = subprocess.run([exe], input=words.astype(np.int64).tobytes(),
                          capture_output=True, check=True).stdout
@@ -189,6 +354,22 @@ def test_kernel_on_the_host_permutation(host_p3):
     assert torch.equal(_host(host_p3, 0, x), p2.permutation_plain(x))
 
 
+@pytest.mark.parametrize("B, block", [(1, None), (3, None), (9, None),
+                                      (9, 128)])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_kernel_on_the_host_ragged(host_p3, mode, B, block):
+    """Batches that fill no warp (two states a warp) or block: the dead
+    states run on zeros beside the live ones and store nothing."""
+    rng = random.Random(300 + 10 * B + mode)
+    n = p2.T   # the sponge: a block of three fields and a remainder of one
+    vals = [[rng.choice([0, 1, R - 1, rng.randrange(R)]) for _ in range(n)]
+            for _ in range(B)]
+    x = _mont(vals, (B, n))
+    want = (p2.ct_commitment_plain(x) if mode
+            else p2.permutation_plain(x))
+    assert torch.equal(_host(host_p3, mode, x, block), want)
+
+
 @pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 7])
 def test_kernel_on_the_host_sponge(host_p3, n):
     rng = random.Random(200 + n)
@@ -199,6 +380,33 @@ def test_kernel_on_the_host_sponge(host_p3, n):
     assert torch.equal(got, p2.ct_commitment_plain(x))
     assert [int(v) for v in FR.from_mont(got)] == [
         p2.ct_commitment_ref(v) for v in vals]
+
+
+def test_split_field_on_the_host(tmp_path):
+    """lanes.cuh's split_add and split_mul (4 lanes a value, as P3 runs
+    them) on values whose sums and products carry through whole lanes of
+    all-ones words, meet r exactly or wrap: 0, 1, r - 1, 2^64k - 1, 2^64k,
+    (r -+ 1) / 2, random values and their negations, every pair."""
+    exe = _gxx(tmp_path, "split", _SHIMS + _SPLIT_MAIN)
+    rng = random.Random(17)
+    edge = [0, 1, R - 1, (R - 1) // 2, (R + 1) // 2]
+    for k in (1, 2, 3):
+        edge += [(1 << 64 * k) - 1, 1 << 64 * k, (1 << 64 * k) + 1]
+    vals = edge + [rng.randrange(R) for _ in range(4)]
+    vals += [(R - v) % R for v in vals if v]
+    pairs = [(a, b) for a in vals for b in vals]
+    pairs += [(0, 0)] * (-len(pairs) % 8)
+    words = [[(v >> 32 * i) & 0xFFFFFFFF for v in ab for i in range(8)]
+             for ab in pairs]
+    inp = np.asarray([len(pairs)] + sum(words, []), dtype=np.int64)
+    out = subprocess.run([exe], input=inp.tobytes(), capture_output=True,
+                         check=True).stdout
+    got = np.frombuffer(out, np.int64).reshape(len(pairs), 2, 8)
+    rinv = pow(1 << 256, -1, R)
+    for (a, b), (s, m) in zip(pairs, got):
+        assert sum(int(w) << 32 * i for i, w in enumerate(s)) == (a + b) % R
+        assert sum(int(w) << 32 * i for i, w in enumerate(m)) == (
+            a * b * rinv % R)
 
 
 def test_wrappers_check_shapes_on_the_cpu():

@@ -59,6 +59,9 @@ struct ZkDim3 {
 inline ZkDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 inline uint32_t __shfl_sync(unsigned, uint32_t v, int, int = 32) { return v; }
 #endif
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };

@@ -11,7 +11,10 @@
 //   5 (e) fp_mul_fast, form (c) out of line: the product K2 runs;
 //   6 (f) three chains, one a lane of one warp (FpWarp / Fp2Warp::muls<3>:
 //         lane i computes product i, shuffles hand every lane all three):
-//         one dependency level of K6.
+//         one dependency level of K6;
+//   7 (g) one chain, each product spread over K = 4 lanes (lanes.cuh:
+//         split_mul), Fp only;
+//   8 (g) the same over K = 8 lanes.
 // Every latency-bound kernel pays this figure: K6 and K2 on the prover's
 // path, K8's tree levels and K7's narrow levels off it. The kernel reads
 // three (x, y) pairs, runs `n` steps, writes the three x (one chain's
@@ -27,7 +30,7 @@
 // forms 1-2 to form 0's limbs and form 4 to form 3's; K8 pays one
 // inversion a block, K7 two squares and a product an S-box.
 //
-// Interface: plain C, launched <<<1, 1>>> (form 6: <<<1, 32>>>) on the
+// Interface: plain C, launched <<<1, 1>>> (forms 6-8: <<<1, 32>>>) on the
 // caller's stream; returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -36,6 +39,7 @@
 #include <type_traits>
 
 #include "field.cuh"
+#include "lanes.cuh"
 
 namespace zk {
 
@@ -98,6 +102,39 @@ __global__ void k_mul_chain(const int64_t* __restrict__ in,
   if (threadIdx.x != 0) return;
 #pragma unroll
   for (int k = 0; k < 3; ++k) F::store(out + k * E, x[CH == 3 ? k : 0]);
+  cycles[0] = t1 - t0;
+}
+
+// Form (g): every group of K lanes of one warp walks the chain x = x y of
+// the first pair, K lanes a product (lanes.cuh: split_mul). in (3, 2, 1,
+// 16); out (3, 1, 16).
+template <int K>
+__global__ void k_mul_lanes(const int64_t* __restrict__ in,
+                            int64_t* __restrict__ out,
+                            long long* __restrict__ cycles, int n) {
+  using S = Split<FpMod, K>;
+  constexpr int W = S::W;
+  const int q = threadIdx.x & (K - 1);
+  const Fp x0 = fp_load(in), y0 = fp_load(in + 16);
+  S x, y;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j / W == q) {
+      x.v[j % W] = x0.v[j];
+      y.v[j % W] = y0.v[j];
+    }
+  const S p = split_modulus<FpMod, K>();
+  long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) x = split_mul(x, y, p);
+  long long t1 = clock64();
+  Fp r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    r.v[j] = __shfl_sync(0xffffffffu, x.v[j % W], j / W);
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fp_store(out + k * 16, r);
   cycles[0] = t1 - t0;
 }
 
@@ -198,7 +235,13 @@ int mul_chain(const int64_t* in, int64_t* out, long long* cycles, int n,
     case 6: ZK_CHAIN(6, NC_); break; \
     default: return (int)cudaErrorInvalidValue; \
   }
-  if (ncomp == 1) {
+  if (form == 7 || form == 8) {  // Fp only
+    if (ncomp != 1) return (int)cudaErrorInvalidValue;
+    if (form == 7)
+      zk::k_mul_lanes<4><<<1, 32, 0, s>>>(in, out, cycles, n);
+    else
+      zk::k_mul_lanes<8><<<1, 32, 0, s>>>(in, out, cycles, n);
+  } else if (ncomp == 1) {
     ZK_FORMS(1)
   } else {
     ZK_FORMS(2)

@@ -1,8 +1,9 @@
 """Wrapper of the Poseidon2 kernel P3 (``csrc/poseidon2.cu``).
 
 P3 computes ``poseidon2.permutation_plain`` (form a) and
-``poseidon2.ct_commitment_plain`` (form b), one thread a state or a
-ciphertext. It replaces no ``pl.pallas_call``: the JAX package runs
+``poseidon2.ct_commitment_plain`` (form b), ``LANES`` = 16 lanes a state
+or a ciphertext (four a state word, each product and addition split over
+a word's lanes). It replaces no ``pl.pallas_call``: the JAX package runs
 ``tpu_zkpool/hash/poseidon2.py:permutation`` (l.155) and ``ct_commitment``
 (l.181) as XLA scans. It has its own library (``cuda_build``), apart from
 K7's. Each wrapper:
@@ -29,6 +30,10 @@ from tpu_zkpool_torch.hash import poseidon2
 from tpu_zkpool_torch.hash.kernels import block_size
 
 SOURCE = "poseidon2.cu"
+# threads a state (or a ciphertext's sponge), csrc/poseidon2.cu:kP2Lanes:
+# SPLIT lanes a state word
+SPLIT = 4
+LANES = SPLIT * poseidon2.T
 
 # Launches since the last reset (a path's evidence that it ran through the
 # kernel).
@@ -79,7 +84,7 @@ def _launch(x, out, mode):
     cuda_build.launch(LAUNCHES, "poseidon2", x.device, _load().poseidon2,
                       x.data_ptr(), out.data_ptr(),
                       kernel_table(x.device).data_ptr(), B, x.shape[1], mode,
-                      block_size(B, sms))
+                      block_size(B * LANES, sms))
     return out
 
 
