@@ -121,11 +121,37 @@ Phases, one line each:
              ct + 1 and a tampered proof of knowledge rejected; the
              auditor's decrypt from shares 1 and 2, its K7 hash equal to
              the proof's wa_commitment;
+ 12 pool     the pool as its users touch it. (a) The client curves (A8,
+             FieldCtx torch ops, no kernel): CurveOps.add and double on
+             the embedded curve and G1 at B = 256 with identity, doubling
+             and cancelling lanes planted, scalar_mul at B = 256 (128 bits
+             embedded, 64 bits G1), the c = 8 keygen table at B = 1, 256
+             and 4,096 (k = 0, 1, order - 1, 2^128 - 1 and the committed
+             identity vector planted), all held to curve_ref and
+             pairing_ref, with warm ms and CUDA launches a call (the
+             profiler; one keygen's extrapolated launches beside a whole
+             profile, and one window's kernels by name at B = 1 and 256).
+             (b) The demo app (webui.DemoApp) on the card behind its HTTP
+             server on 127.0.0.1: 64 deposits, 16 withdrawals to distinct
+             recipients, a double spend (400, the typed nullifier error),
+             16 decrypts, the tables; stored commitments against
+             poseidon_hash_ref, every sibling path against its root, the
+             root against build_levels on the card, a restart on the same
+             store; s a request. Then a new app on a store pre-filled with
+             2,048 deposits: its restart, 2 deposits, a withdrawal and a
+             decrypt, the same oracles; K7 launched 16 times a deposit
+             during each app's requests, exactly. (c) Phase 4's withdraw-shape proofs and
+             phase 11's audit proofs through emit_proof, proof_hex bundles,
+             save / load and parse_proof, equal to the originals, verified
+             by verify_batch (P1, P2); one flipped byte in each of two
+             proofs rejects exactly those two;
   5 launches every kernel's launch count on its main path, K1-K6 during
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
              proofs, K9 during phase 9's rdma products, P1 and P2 during
-             phase 10's verify batches, and K1-K7, P1, P2 and P3 from phase
-             11's encryptions to its end (must be > 0); it runs last.
+             phase 10's verify batches, K1-K7, P1, P2 and P3 from phase
+             11's encryptions to its end, and K7 during phase 12's HTTP
+             requests, P1 and P2 during its wire checks (must be > 0); it
+             runs last.
 ``--profile`` traces one warm proof of each path, one warm 2^16 build and
 one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
@@ -136,20 +162,26 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
 import random
+import struct
 import subprocess
 import sys
 import threading
 import time
+import types
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from tpu_zkpool_torch import cuda_build, native_bridge
+from tpu_zkpool_torch.curve import fixed_base, weierstrass
 from tpu_zkpool_torch.curve import lines as plines
 from tpu_zkpool_torch.curve import pairing, tower
 from tpu_zkpool_torch.curve import pairing_kernels as pkern
@@ -158,7 +190,7 @@ from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
-from tpu_zkpool_torch.groth16 import domain
+from tpu_zkpool_torch.groth16 import domain, gnark_fmt
 from tpu_zkpool_torch.groth16 import prove as tp
 from tpu_zkpool_torch.groth16 import solver_native
 from tpu_zkpool_torch.groth16 import verify as tverify
@@ -167,7 +199,7 @@ from tpu_zkpool_torch.hash import poseidon, poseidon2
 from tpu_zkpool_torch.hash import poseidon2_kernels as p2k
 from tpu_zkpool_torch.hash.poseidon_params import N_ROUNDS_F, N_ROUNDS_P
 from tpu_zkpool_torch.hash.poseidon_params import poseidon_hash_ref
-from tpu_zkpool_torch.merkle import MerkleTree, build_levels
+from tpu_zkpool_torch.merkle import TREE_DEPTH, MerkleTree, build_levels
 from tpu_zkpool_torch.msm import affine_tree, grid, kernels
 from tpu_zkpool_torch.msm import tree_kernels as tkern
 from tpu_zkpool_torch.parallel import Mesh, ntt_rdma, ntt_sharded
@@ -176,13 +208,16 @@ from tpu_zkpool_torch.parallel.msm_sharded import (msm_grid_sharded,
                                                    msm_grid_sharded_2d)
 from tpu_zkpool_torch.parallel.prove_stages import msm_legs_sharded
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
-from tpu_zkpool_torch.protocol import audit_circuit
+from tpu_zkpool_torch.protocol import audit_circuit, flows, proof_hex
+from tpu_zkpool_torch.protocol import errors as perrors
+from tpu_zkpool_torch.protocol import storage as pstorage
 from tpu_zkpool_torch.refimpl import curve_ref, pedersen, rlwe_ref
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS, setup, verify
 from tpu_zkpool_torch.rlwe import encrypt as renc
 from tpu_zkpool_torch.rlwe import ntt as rntt
 from tpu_zkpool_torch.rlwe import quotient
 from tpu_zkpool_torch.shamir import reconstruct_batch, share_batch
+from tpu_zkpool_torch.webui import DemoApp, make_server, write_rlwe_dir
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -1894,16 +1929,22 @@ def count_fieldctx(fn):
     return out, calls[0]
 
 
-def device_launches(fn):
-    """(output, CUDA kernel launches of ``fn`` by torch.profiler)."""
+def kernel_launches(fn):
+    """(output, {CUDA kernel name: launches of ``fn``}) by torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(e.count for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+    return out, {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+
+
+def device_launches(fn):
+    """(output, CUDA kernel launches of ``fn`` by torch.profiler)."""
+    out, names = kernel_launches(fn)
+    return out, sum(names.values())
 
 
 def time_poseidon2(device, clock_hz, products, B=256, Bs=P3_TIMED_BS,
@@ -1968,7 +2009,8 @@ def _timed_step(steps, name, fn):
     return out
 
 
-def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255)):
+def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
+                keep=None):
     """The audit path on the card (phase 11): RLWE keygen from
     ``rlwe_ref.keygen(42)``'s randomness, Shamir shares and every pair's
     reconstruction; B identities encrypted with their quotient witnesses,
@@ -1978,7 +2020,9 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255)):
     three warm proofs) and verified through P1 and P2, ct + 1 and a
     tampered proof of knowledge rejected; the auditor's decrypt from
     shares 1 and 2 and the K7 hash of the recovered point. The launches of
-    K1-K7, P1, P2 and P3 are counted from the encryption to the end."""
+    K1-K7, P1, P2 and P3 are counted from the encryption to the end.
+    ``keep``, if a dict, receives the VK and the four audit proofs with
+    their public inputs."""
     Q, N, MS = rlwe_ref.RLWE_Q, rlwe_ref.N, rlwe_ref.MSG_SLOTS
     info, steps, checks = {}, {}, {}
     # 3. keygen and Shamir
@@ -2115,6 +2159,8 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255)):
                                device=device)
     steps["verify_s"] = time.perf_counter() - t0
     checks["verify"] = got.tolist() == [True] * 4 + [False, False]
+    if keep is not None:           # the committed proofs, for phase 12
+        keep.update(vk=vk, proofs=[(p, [wa, ct]) for p in proofs])
     # 6. the auditor's decrypt from shares 1 and 2
     t0 = time.perf_counter()
     rec = reconstruct_batch(shares[[0, 1]], (1, 2))
@@ -2135,6 +2181,481 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255)):
                 prove_s=prove_s, prove_phases=phases, checks=checks,
                 launches=launches, ok=all(checks.values()))
     return info
+
+
+# ------------------------------------------- the pool: A8 and phase 12
+
+POOL_B = 256                   # phase 12's curve batches
+KEYGEN_BS = (1, 256, 4096)     # identities keyed through the c = 8 table
+POOL_DEPOSITS, POOL_WITHDRAWS, POOL_DECRYPTS = 64, 16, 16
+# the app at size: a store pre-filled with deposits, then a few more
+POOL_PREFILL, SIZED_DEPOSITS, SIZED_WITHDRAWS = 2048, 2, 1
+
+
+def _affine_add(name):
+    return curve_ref.add if name == "embedded" else pr.g1_add
+
+
+def _affine_mul(name, k):
+    """[k]G by the host oracle: curve_ref on the embedded curve,
+    pairing_ref on G1 (the identity as None)."""
+    if name == "embedded":
+        return curve_ref.scalar_mul(k)
+    return pr.g1_mul(k, weierstrass.G1.gen)
+
+
+def planted_curve_lanes(name, B, device, seed):
+    """(P, Q, P + Q, 2Q) for B lanes on the card and host oracles: P a
+    doubling (Z != 1), Q affine; lane 0 P = inf, 1 Q = inf, 2 both, 3
+    P = Q at different Z, 4 P = -Q, 5 P = Q at equal limbs, the rest
+    generic."""
+    C = weierstrass.EMBEDDED if name == "embedded" else weierstrass.G1
+    mod = C.F.modulus
+    rng = random.Random(seed)
+    half = [_affine_mul(name, rng.getrandbits(64) | 1) for _ in range(B)]
+    two = [_affine_add(name)(h, h) for h in half]
+    q = [_affine_mul(name, rng.getrandbits(64) | 1) for _ in range(B)]
+    q[3], q[4] = two[3], (two[4][0], (-two[4][1]) % mod)
+    P = [t.clone() for t in C.double(C.from_affine_ints(
+        *zip(*half), device=device))]
+    Q = [t.clone() for t in C.from_affine_ints(*zip(*q), device=device)]
+    for i in range(3):
+        P[i][5] = Q[i][5]
+        for lane, T in ((0, P), (1, Q), (2, P), (2, Q)):
+            T[i][lane] = 0
+    p_aff = [None, two[1], None, two[3], two[4], q[5]] + two[6:]
+    q_aff = [q[0], None, None] + q[3:]
+    add = _affine_add(name)
+    return (C, tuple(P), tuple(Q), [add(a, b) for a, b in zip(p_aff, q_aff)],
+            [add(b, b) for b in q_aff])
+
+
+def _affine_list(C, T):
+    xs, ys = C.to_affine_ints(T)
+    return [(int(x), int(y)) for x, y in zip(xs, ys)]
+
+
+def _warm_call(fn, reps):
+    """(warm ms by the host clock over ``reps`` synchronized calls, the
+    CUDA launches of one call by torch.profiler, the output), after one
+    unprofiled call that makes the first-use constants."""
+    fn()
+    _, launches = device_launches(fn)
+    ms, out = _host_ms(fn, reps)
+    return ms, launches, out
+
+
+def _loop_call(step_fn, n):
+    """``step_fn(k)`` runs a loop of k steps of one shape whose op sequence
+    does not depend on the data (FieldCtx ops only). (warm ms of the n-step
+    call by the host clock, its CUDA launches, its output). The launches
+    are extrapolated, base + n x step from torch.profiler over 1 and 2
+    steps, since profiling a loop of 10^5 launches takes seconds to
+    minutes; ``pool_curves`` holds one keygen's to a whole profile."""
+    step_fn(1)                        # first-use constants, unprofiled
+    one = device_launches(lambda: step_fn(1))[1]
+    two = device_launches(lambda: step_fn(2))[1]
+    ms, out = _host_ms(lambda: step_fn(n))
+    return ms, (2 * one - two) + n * (two - one), out
+
+
+def pool_curves(device, B=POOL_B, seed=601):
+    """A8 on the card (phase 12 a): ``CurveOps.add`` and ``double`` on
+    planted lanes, ``scalar_mul`` (128 bits on the embedded curve, 64 on
+    G1) and the c = 8 keygen table at B = 1, 256, 4,096, each held to the
+    host oracles in affine form; warm ms and launches a call."""
+    info, checks = {}, {}
+    for name, nbits in (("embedded", 128), ("g1", 64)):
+        C, P, Q, want_add, want_dbl = planted_curve_lanes(name, B, device,
+                                                          seed)
+        for op, fn, want in (("add", lambda: C.add(P, Q), want_add),
+                             ("double", lambda: C.double(Q), want_dbl)):
+            ms, launches, out = _warm_call(fn, 5)
+            info[f"{name}_{op}"] = dict(B=B, ms=ms, launches=launches)
+            checks[f"{name}_{op}"] = _affine_list(C, out) == [
+                w or (0, 0) for w in want]
+        rng = random.Random(seed + nbits)
+        ks = [0, 1, (1 << nbits) - 1] + [rng.getrandbits(nbits)
+                                          for _ in range(B - 3)]
+        if name == "embedded":
+            ks[3] = SECRET_KEY
+        bits = torch.as_tensor(C.bits_from_ints(ks, nbits), device=device)
+        G = C.from_affine_ints([C.gen[0]] * B, [C.gen[1]] * B, device=device)
+        ms, launches, out = _loop_call(
+            lambda n: C.scalar_mul(bits[:, :n], G), nbits)
+        info[f"{name}_scalar_mul"] = dict(B=B, bits=nbits, ms=ms,
+                                          launches=launches)
+        got = _affine_list(C, out)
+        checks[f"{name}_scalar_mul"] = got == [
+            _affine_mul(name, k) or (0, 0) for k in ks]
+        if name == "embedded":
+            checks["scalar_mul_vector"] = got[3] == (OWNER_X, OWNER_Y)
+    t0 = time.perf_counter()
+    tbl = fixed_base.embedded_generator_table(8, device=device)
+    info["table_s"] = time.perf_counter() - t0
+    C = weierstrass.EMBEDDED
+    rng = random.Random(seed + 1)
+    ks = [SECRET_KEY, 0, 1, C.order - 1, (1 << 128) - 1] + [
+        rng.getrandbits(128) for _ in range(max(KEYGEN_BS) - 5)]
+    step = {}
+    for b in KEYGEN_BS:
+        digits = torch.as_tensor(tbl.digits(ks[:b]), device=device)
+        ms, launches, out = _loop_call(lambda n: tbl.mul(digits[:, :n]),
+                                       tbl.n_windows)
+        row = info[f"keygen_B{b}"] = dict(B=b, c=8, windows=tbl.n_windows,
+                                          ms=ms, launches=launches)
+        if b == B:       # the extrapolation against one whole profile
+            t0 = time.perf_counter()
+            row["launches_whole"] = device_launches(
+                lambda: tbl.mul(digits))[1]
+            row["whole_profile_s"] = time.perf_counter() - t0
+        step[b] = kernel_launches(lambda: tbl.mul(digits[:, :1]))[1]
+    # one window's kernels by name where B = 1 and B = 256 differ
+    info["keygen_window_kernels_B1_B256"] = {
+        k: (step[1].get(k, 0), step[B].get(k, 0))
+        for k in sorted(set(step[1]) | set(step[B]))
+        if step[1].get(k, 0) != step[B].get(k, 0)}
+    t0 = time.perf_counter()
+    got = _affine_list(C, out)
+    checks["keygen_vector"] = got[0] == (OWNER_X, OWNER_Y)
+    checks["keygen_oracle"] = got == [curve_ref.scalar_mul(k) or (0, 0)
+                                      for k in ks]
+    info["keygen_oracle_s"] = time.perf_counter() - t0
+    return dict(info, checks=checks, ok=all(checks.values()))
+
+
+def _http(base, method, path, body=None):
+    """(status, JSON payload) of one request to the pool's server."""
+    req = urllib.request.Request(
+        base + path, method=method,
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _stats(xs):
+    return dict(n=len(xs), mean_s=sum(xs) / max(1, len(xs)),
+                min_s=min(xs, default=0), max_s=max(xs, default=0))
+
+
+@contextlib.contextmanager
+def _served(app):
+    """The base URL of ``make_server(app)`` on 127.0.0.1 at an ephemeral
+    port, served from a thread; shut down and joined on exit."""
+    srv = make_server(app, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join()
+
+
+def _timed_http(base, method, path, body=None):
+    """(s, status, JSON payload) of one request."""
+    t0 = time.perf_counter()
+    code, payload = _http(base, method, path, body)
+    return time.perf_counter() - t0, code, payload
+
+
+def _deposits(base, rng, n):
+    """n deposits over HTTP: (s of each, payload of each 200 else None)."""
+    out = [_timed_http(base, "POST", "/api/deposit",
+                       {"amount": rng.randrange(1, 10) * 1_000_000})
+           for _ in range(n)]
+    return [t for t, _, _ in out], [d if c == 200 else None
+                                    for _, c, d in out]
+
+
+def _withdrawals(base, rng, deps):
+    """One withdrawal of each deposit to a distinct random recipient: (s of
+    each, the recipients, all of them answered as sent)."""
+    rcpts = [bytes(rng.getrandbits(8) for _ in range(32)).hex()
+             for _ in deps]
+    out = [_timed_http(base, "POST", "/api/withdraw",
+                       {"commitment": d["commitment"], "recipient": r})
+           for d, r in zip(deps, rcpts)]
+    ok = all(c == 200 and w["recipient"] == "0000" + r[:60]
+             and w["audit_was_new"] for (_, c, w), r in zip(out, rcpts))
+    return [t for t, _, _ in out], rcpts, ok
+
+
+def _records_hold(app, commitments):
+    """The stored records of ``commitments`` against the host oracles:
+    each commitment is poseidon_hash_ref of its fields, each sibling path
+    proves it under the root stored beside it."""
+    recs = [app.store.get_deposit(c) for c in commitments]
+    return dict(commitments=all(
+        int(r.commitment, 16) == poseidon_hash_ref(
+            [int(r.public_key_x, 16), int(r.public_key_y, 16),
+             int(r.amount), int(r.randomness, 16)]) for r in recs),
+        deposit_paths=all(MerkleTree.verify_proof(
+            int(r.commitment, 16), r.leaf_index,
+            [int(v, 16) for v in r.siblings], int(r.root, 16))
+            for r in recs))
+
+
+def _device_root(leaves, device):
+    """The root over ``leaves`` by ``build_levels`` on the card, the leaves
+    zero-padded to a power of two."""
+    pad = 1 << max(0, len(leaves) - 1).bit_length()
+    leaves = list(leaves) + [0] * (pad - len(leaves))
+    _, root = build_levels(torch.as_tensor(
+        FR.to_mont(np.asarray(leaves, dtype=object)), device=device))
+    return int(FR.from_mont(root))
+
+
+def pool_journey(device, out_dir, seed=602):
+    """The pool over HTTP (phase 12 b): a ``DemoApp`` on the card with its
+    store in ``out_dir``, served by ``make_server`` on 127.0.0.1; the page,
+    the status, 64 deposits, 16 withdrawals to distinct recipients, a
+    double spend (400, the typed nullifier error), 16 decrypts, the
+    tables; K7's launches over those requests (one 16-level build a
+    deposit); every stored commitment against ``poseidon_hash_ref``, every
+    stored and withdrawn sibling path against the root it proves, the
+    app's root against ``build_levels`` of the same leaves; then a second
+    app on the same store."""
+    rng = random.Random(seed)
+    root = os.path.join(out_dir, "pool")
+    rlwe_dir = write_rlwe_dir(os.path.join(root, "rlwe"))
+    store = os.path.join(root, "store.json")
+    info, checks = {}, {}
+    app = DemoApp(store_path=store, rlwe_dir=rlwe_dir, fresh=True,
+                  device=device)
+    with _served(app) as base:
+        hkern.reset_launches()        # the main path starts here
+        with urllib.request.urlopen(base + "/") as r:
+            checks["page"] = r.status == 200 and b"shielded pool" in r.read()
+        code, st = _http(base, "GET", "/api/status")
+        checks["status"] = code == 200 and st["leaves"] == 0
+        dep_s, deps = _deposits(base, rng, POOL_DEPOSITS)
+        checks["deposits"] = [d and d["leaf_index"] for d in deps] == list(
+            range(POOL_DEPOSITS))
+        picked = rng.sample(range(POOL_DEPOSITS), POOL_WITHDRAWS)
+        wd_s, recipients, checks["withdrawals"] = _withdrawals(
+            base, rng, [deps[i] for i in picked])
+        code, err = _http(base, "POST", "/api/withdraw",
+                          {"commitment": deps[picked[0]]["commitment"],
+                           "recipient": recipients[0]})
+        checks["double_spend"] = (
+            code == 400 and "nullifier" in err.get("error", "")
+            and err.get("hint") == perrors.RECOVERY_HINTS[
+                perrors.ErrorCode.NULLIFIER_ALREADY_USED])
+        dec = [_timed_http(base, "POST", "/api/decrypt",
+                           {"commitment": deps[i]["commitment"]})
+               for i in rng.sample(range(POOL_DEPOSITS), POOL_DECRYPTS)]
+        checks["decrypts"] = all(c == 200 and d["matches_deposit"]
+                                 for _, c, d in dec)
+        table = _http(base, "GET", "/api/deposits")[1]["deposits"]
+        audits = _http(base, "GET", "/api/audits")[1]["audits"]
+        checks["tables"] = (
+            len(table) == POOL_DEPOSITS and len(audits) == POOL_WITHDRAWS
+            and sum(d["status"] == "withdrawn" for d in table)
+            == POOL_WITHDRAWS)
+        info["k7_launches"] = hkern.LAUNCHES["poseidon"]   # ... and ends
+    checks["k7_launches"] = info["k7_launches"] == POOL_DEPOSITS * TREE_DEPTH
+    # the host oracles
+    t0 = time.perf_counter()
+    checks.update(_records_hold(app, [d["commitment"] for d in deps]))
+    final = app.tree.get_root()
+    ok_paths = True
+    for i in picked:
+        r = app.store.get_deposit(deps[i]["commitment"])
+        note = flows.Note(flows.Identity(int(r.secret_key, 16),
+                                         int(r.public_key_x, 16),
+                                         int(r.public_key_y, 16)),
+                          amount=int(r.amount),
+                          randomness=int(r.randomness, 16))
+        w = flows.build_withdraw_witness(app.tree, note, r.leaf_index,
+                                         b"\x00" * 32, note.amount)
+        ok_paths &= w.root == final and MerkleTree.verify_proof(
+            note.commitment, r.leaf_index, w.siblings, final)
+        ok_paths &= hex(w.nullifier) in {a["nullifier"] for a in audits}
+    checks["withdraw_paths"] = bool(ok_paths)
+    checks["root"] = _device_root(app.tree.leaves, device) == final
+    info["oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = DemoApp(store_path=store, rlwe_dir=rlwe_dir, device=device)
+    info["restart_s"] = time.perf_counter() - t0
+    checks["restart"] = (again.tree.leaves == app.tree.leaves
+                         and again.tree.get_root() == final
+                         and again.status()["root_age"] == 0)
+    info.update(leaves=len(app.tree.leaves), deposit=_stats(dep_s),
+                withdraw=_stats(wd_s), decrypt=_stats([t for t, _, _ in dec]),
+                store_mb=os.path.getsize(store) / 2 ** 20)
+    os.remove(store)
+    return dict(info, checks=checks, ok=all(checks.values()))
+
+
+def pool_at_size(device, out_dir, seed=603):
+    """The app at a pool's size (phase 12 b, second part). A store
+    pre-filled with ``POOL_PREFILL`` deposits: identities keyed on the card
+    by the c = 8 table, the records made by the port's
+    ``deposit_record_from_flow`` (sibling paths from the pre-filled tree;
+    every record shares the RLWE fields of one real encryption, so each
+    has a deposit's size); a new ``DemoApp`` opens it (the restart re-inserts every leaf),
+    then ``SIZED_DEPOSITS`` deposits, ``SIZED_WITHDRAWS`` withdrawals of
+    them and one decrypt over HTTP, s a request, K7's launches over them;
+    the new records against the host oracles, the root against
+    ``build_levels`` on the card; one read and one rewrite of the store
+    timed alone."""
+    rng = random.Random(seed)
+    rlwe_dir = os.path.join(out_dir, "pool", "rlwe")   # pool_journey's
+    store = os.path.join(out_dir, "pool", "store-sized.json")
+    info, checks = {}, {}
+    t0 = time.perf_counter()
+    sks = [rng.getrandbits(128) for _ in range(POOL_PREFILL)]
+    xs, ys = weierstrass.EMBEDDED.to_affine_ints(
+        fixed_base.embedded_generator_table(8, device=device).mul_ints(sks))
+    notes = [flows.Note(flows.Identity(sk, int(x), int(y)),
+                        amount=rng.randrange(1, 10) * 1_000_000,
+                        randomness=rng.getrandbits(200))
+             for sk, x, y in zip(sks, xs, ys)]
+    leaves = [n.commitment for n in notes]
+    paths = MerkleTree(device=device)
+    paths.leaves = leaves             # get_proof reads the leaves alone
+    filled = types.SimpleNamespace(get_proof=paths.get_proof)
+    filled.root = _device_root(leaves, device)
+    filled.get_root = lambda: filled.root
+    kg = rlwe_ref.keygen(42)          # write_rlwe_dir's key
+    enc = rlwe_ref.encrypt(kg["a"], kg["b"], int(xs[0]), int(ys[0]),
+                           seed=rng.getrandbits(30))
+    ct = audit_circuit.ct_commitment_of(enc)
+    now = time.time()
+    first = pstorage.deposit_record_from_flow(notes[0], filled, 0, enc, ct)
+    recs = [first] + [pstorage.deposit_record_from_flow(n, filled, i)
+                      for i, n in enumerate(notes[1:], start=1)]
+    for r in recs:
+        r.created_at = now
+        r.rlwe_ciphertext, r.rlwe_noise, r.rlwe_quotients = (
+            first.rlwe_ciphertext, first.rlwe_noise, first.rlwe_quotients)
+        r.ct_commitment = first.ct_commitment
+    st = pstorage.Store(store)
+    st.import_deposits(recs)
+    st.save_merkle_state([hex(v) for v in leaves], hex(filled.root))
+    info["prefill_s"] = time.perf_counter() - t0
+    info["store_mb_before"] = os.path.getsize(store) / 2 ** 20
+    t0 = time.perf_counter()
+    pstorage.Store(store)
+    info["load_s"] = time.perf_counter() - t0     # the restart's JSON read
+    t0 = time.perf_counter()
+    app = DemoApp(store_path=store, rlwe_dir=rlwe_dir, device=device)
+    info["restart_s"] = time.perf_counter() - t0
+    checks["restart"] = (app.tree.leaves == leaves
+                         and app.tree.get_root() == filled.root)
+    with _served(app) as base:
+        hkern.reset_launches()        # the main path starts here
+        dep_s, deps = _deposits(base, rng, SIZED_DEPOSITS)
+        checks["deposits"] = [d and d["leaf_index"] for d in deps] == list(
+            range(POOL_PREFILL, POOL_PREFILL + SIZED_DEPOSITS))
+        wd_s, _, checks["withdrawals"] = _withdrawals(
+            base, rng, deps[:SIZED_WITHDRAWS])
+        dec_s, code, dec = _timed_http(
+            base, "POST", "/api/decrypt", {"commitment": deps[-1][
+                "commitment"]})
+        checks["decrypt"] = code == 200 and dec["matches_deposit"]
+        info["k7_launches"] = hkern.LAUNCHES["poseidon"]   # ... and ends
+    checks["k7_launches"] = info["k7_launches"] == (SIZED_DEPOSITS
+                                                    * TREE_DEPTH)
+    t0 = time.perf_counter()          # one rewrite of the whole store
+    app.store.save_merkle_state([hex(v) for v in app.tree.leaves],
+                                hex(app.tree.get_root()))
+    info["rewrite_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks.update(_records_hold(app, [d["commitment"] for d in deps]))
+    checks["root"] = (_device_root(app.tree.leaves, device)
+                      == app.tree.get_root())
+    info["oracle_s"] = time.perf_counter() - t0
+    info.update(leaves=len(app.tree.leaves), deposit=_stats(dep_s),
+                withdraw=_stats(wd_s), decrypt=_stats([dec_s]),
+                store_mb=os.path.getsize(store) / 2 ** 20)
+    os.remove(store)
+    return dict(info, checks=checks, ok=all(checks.values()))
+
+
+def _witness_blob(pub):
+    n = len(pub)
+    return struct.pack(">III", n, 0, n) + b"".join(
+        (v % FR_MOD).to_bytes(32, "big") for v in pub)
+
+
+def pool_wire(device, out_dir, withdraw, audit, flips=((1, 40), (2, 150))):
+    """The wire format on real proofs (phase 12 c): each withdraw-shape
+    proof of phase 4 bundled with an audit proof of phase 11
+    (``emit_proof``, ``proof_hex.bundle``, ``save_bundle`` /
+    ``load_bundle``), parsed back (``parse_proof``,
+    ``parse_public_witness``) equal to the originals, and verified through
+    ``verify_batch`` on the card; then one flipped byte in a withdraw and
+    in an audit proof: exactly those two fail, at parsing or at
+    verification."""
+    checks, info = {}, {}
+    path = os.path.join(out_dir, "pool", "proof-hex.json")
+    legs = {"withdraw": [], "audit": []}
+    parsed_ok = True
+    for i, (proof, pub) in enumerate(withdraw["proofs"]):
+        aproof, apub = audit["proofs"][i % len(audit["proofs"])]
+        payload = proof_hex.bundle(proof, _witness_blob(pub), aproof,
+                                   flows.audit_witness_blob(*apub))
+        proof_hex.save_bundle(path, payload)
+        loaded = proof_hex.load_bundle(path)
+        for leg, orig, opub in (("withdraw", proof, pub),
+                                ("audit", aproof, apub)):
+            raw = bytes.fromhex(loaded[leg]["proof_hex"])
+            wit = bytes.fromhex(loaded[leg]["witness_hex"])
+            pf = gnark_fmt.parse_proof(raw)
+            back = (pf.ar, pf.bs, pf.krs) + (
+                (pf.commitments[0], pf.pok) if pf.commitments else ())
+            parsed_ok &= back == tuple(orig)
+            parsed_ok &= gnark_fmt.parse_public_witness(wit) == list(opub)
+            legs[leg].append((raw, list(opub)))
+    os.remove(path)
+    checks["parsed"] = bool(parsed_ok)
+    info["bytes"] = {k: sorted({len(r) for r, _ in v})
+                     for k, v in legs.items()}
+    for (leg, vk), (i, pos) in zip((("withdraw", withdraw["vk"]),
+                                    ("audit", audit["vk"])), flips):
+        rows = legs[leg][:len(withdraw["proofs"])]
+        t0 = time.perf_counter()
+        clean = _parse_and_verify(vk, rows, device)
+        info[f"{leg}_verify_s"] = time.perf_counter() - t0
+        bad = list(rows)
+        raw = bytearray(bad[i][0])
+        raw[pos] ^= 0x01
+        bad[i] = (bytes(raw), bad[i][1])
+        flipped = _parse_and_verify(vk, bad, device)
+        checks[f"{leg}_valid"] = clean == ["ok"] * len(rows)
+        checks[f"{leg}_flip"] = [j for j, s in enumerate(flipped)
+                                 if s != "ok"] == [i]
+        info[f"{leg}_flip"] = dict(proof=i, byte=pos, stage=flipped[i],
+                                   n=len(rows))
+    return dict(info, checks=checks, ok=all(checks.values()))
+
+
+def _parse_and_verify(vk, rows, device):
+    """Each wire proof's fate: "ok", "parse" (``parse_proof`` raised) or
+    "verify" (``verify_batch`` on the card rejected it)."""
+    fate, proofs, pubs, at = [], [], [], []
+    for j, (raw, pub) in enumerate(rows):
+        try:
+            pf = gnark_fmt.parse_proof(raw)
+        except (AssertionError, ValueError, struct.error):
+            fate.append("parse")
+            continue
+        fate.append(None)
+        proofs.append((pf.ar, pf.bs, pf.krs) + (
+            (pf.commitments[0], pf.pok) if pf.commitments else ()))
+        pubs.append(pub)
+        at.append(j)
+    got = tverify.verify_batch(vk, proofs, pubs, device=device)
+    for j, ok in zip(at, got):
+        fate[j] = "ok" if ok else "verify"
+    return fate
 
 
 # ------------------------------------------------- mesh: K9 and sharding
@@ -2561,12 +3082,13 @@ def phase_prove(device, profile=False):
     info["cold_s"] = time.perf_counter() - t0
     ok = verify(vk, proof, pub)
     ok &= not verify(vk, proof, [pub[0] + 1] + pub[1:])
-    warm = []
+    warm, kept = [], [(proof, pub)]
     for i in range(3):
         t0 = time.perf_counter()
         p = tp.prove(dpk, r1cs, w, seed=8 + i)
         warm.append(time.perf_counter() - t0)
         ok &= verify(vk, p, pub)
+        kept.append((p, pub))
     per_proof = {k: v // 4 for k, v in kernels.LAUNCHES.items()}
     phases = {}          # one more proof, synchronized around each phase
     tp.prove(dpk, r1cs, w, seed=11, timings=phases)
@@ -2585,8 +3107,9 @@ def phase_prove(device, profile=False):
                 warm_s=warm, proofs_per_s=len(warm) / sum(warm),
                 phases_s=phases, launches=launches,
                 launches_per_proof=per_proof)
+    kept += [(p, wi[1:r1cs.num_public]) for p, wi in zip(batch, ws)]
     return info, dict(r1cs=r1cs, w=w, pk=pk, vk=vk, proof=proof, dpk=dpk,
-                      witness=witness)
+                      witness=witness, proofs=kept)
 
 
 def ptxas_summary(text, kernels=("k_prefix<", "k_addn<", "k_scale_add<",
@@ -2873,11 +3396,35 @@ def main(argv):
                 f"{u['bound_ms']:.5f} ms ({u['bound_by']}), chain floor "
                 f"{u['floor_ms']:.4f} ms ({u['chain_levels']} product "
                 f"levels)")
-    audit = phase_audit(device)
+    audit_proofs = {}
+    audit = phase_audit(device, keep=audit_proofs)
     audit["phase_s"] = time.perf_counter() - t0
     log(11, "audit " + json.dumps(audit, default=str))
     if not audit["ok"]:
         raise AssertionError(f"the audit path failed: {audit['checks']}")
+
+    # ---- 12: the pool: A8 on the card, the journey over HTTP, the wire
+    # format on real proofs
+    t0 = time.perf_counter()
+    curves = pool_curves(device)
+    log(12, "curves " + json.dumps(curves))
+    if not curves["ok"]:
+        raise AssertionError(f"A8 differs from the host oracles: "
+                             f"{curves['checks']}")
+    journey = pool_journey(device, out_dir)
+    log(12, "journey " + json.dumps(journey))
+    sized = pool_at_size(device, out_dir)
+    log(12, "at size " + json.dumps(sized))
+    pkern.reset_launches()            # the main path starts here
+    wire = pool_wire(device, out_dir, ctx, audit_proofs)
+    pool_launches = dict(             # K7 from the requests of each app
+        poseidon=journey["k7_launches"] + sized["k7_launches"],
+        **pkern.LAUNCHES)             # the main path ends here
+    wire["phase_s"] = time.perf_counter() - t0
+    log(12, "wire " + json.dumps(wire))
+    if not (journey["ok"] and sized["ok"] and wire["ok"]):
+        raise AssertionError(f"the pool failed: {journey['checks']}, "
+                             f"{sized['checks']}, {wire['checks']}")
 
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
     # tree proofs: K8, the sharded NTT's rdma products: K9, the verify:
@@ -2888,10 +3435,12 @@ def main(argv):
                     **ver["launches"],
                     poseidon2=audit["launches"]["poseidon2"])
     missing = [k for k, v in launches.items() if v <= 0] + [
-        f"audit {k}" for k, v in audit["launches"].items() if v <= 0]
+        f"audit {k}" for k, v in audit["launches"].items() if v <= 0] + [
+        f"pool {k}" for k, v in pool_launches.items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}; a withdraw-shape proof "
            f"(phase 4) {json.dumps(info['launches_per_proof'])}; the audit "
-           f"path (phase 11) {json.dumps(audit['launches'])}")
+           f"path (phase 11) {json.dumps(audit['launches'])}; the pool "
+           f"(phase 12) {json.dumps(pool_launches)}")
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
@@ -2919,7 +3468,9 @@ def main(argv):
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
             prove=info, merkle=merkle, chain=chain, tree=tree,
             mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp),
-            verify=ver, audit=audit),
+            verify=ver, audit=audit, pool=dict(
+                curves=curves, journey=journey, at_size=sized, wire=wire,
+                launches=pool_launches)),
             f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

@@ -64,7 +64,20 @@ def test_port_imports_no_jax_and_no_jax_package():
                 os.path.join("parallel", f) for f in (
                     "__init__.py", "mesh.py", "ntt_rdma.py", "ntt_sharded.py",
                     "msm_sharded.py", "multihost.py", "prove_stages.py",
-                    "merkle_sharded.py")} <= names
+                    "merkle_sharded.py")} | {
+                "config.py",
+                os.path.join("curve", "weierstrass.py"),
+                os.path.join("curve", "fixed_base.py"),
+                os.path.join("groth16", "gnark_fmt.py"),
+                os.path.join("groth16", "cache.py")} | {
+                os.path.join("protocol", f) for f in (
+                    "state.py", "errors.py", "relayer.py", "storage.py",
+                    "proof_hex.py", "flows.py")} | {
+                os.path.join("utils", f) for f in (
+                    "__init__.py", "metrics.py", "profiling.py")} | {
+                os.path.join("webui", f) for f in (
+                    "__init__.py", "__main__.py", "app.py",
+                    "server.py")} <= names
     for path in files:
         for mod in _imported(path):
             top = mod.split(".")[0]
