@@ -46,6 +46,9 @@ Phases, one line each:
              chain floor; K7 alone at every width;
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
+             the MSM benchmark's inputs at 2^17 (benchvec: bases and
+             scalars from random.Random(7)) against the committed point of
+             bench_expected.json;
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
              rows, domain 2^14): setup, one cold and three warm proofs, each
              verified and a tampered input rejected, prove_batch (B = 4)
@@ -116,8 +119,8 @@ Phases, one line each:
              to rlwe_ref.encrypt, all to k q + rem = full in int64 numpy),
              decrypted, and committed through P3 against
              ct_commitment_ref; the committed 24,070-row audit circuit
-             built, set up, solved, proved on the card (one cold and three
-             warm proofs, per-phase times) and verified through P1 and P2,
+             built, set up, solved, proved on the card (one cold and one
+             warm proof, per-phase times; AUDIT_PROOFS, cut for time) and verified through P1 and P2,
              ct + 1 and a tampered proof of knowledge rejected; the
              auditor's decrypt from shares 1 and 2, its K7 hash equal to
              the proof's wa_commitment;
@@ -132,26 +135,53 @@ Phases, one line each:
              profiler; one keygen's extrapolated launches beside a whole
              profile, and one window's kernels by name at B = 1 and 256).
              (b) The demo app (webui.DemoApp) on the card behind its HTTP
-             server on 127.0.0.1: 64 deposits, 16 withdrawals to distinct
+             server on 127.0.0.1: 32 deposits, 8 withdrawals to distinct
              recipients, a double spend (400, the typed nullifier error),
-             16 decrypts, the tables; stored commitments against
+             8 decrypts, the tables (cut for time, as the pre-filled
+             store); stored commitments against
              poseidon_hash_ref, every sibling path against its root, the
              root against build_levels on the card, a restart on the same
              store; s a request. Then a new app on a store pre-filled with
-             2,048 deposits: its restart, 2 deposits, a withdrawal and a
+             1,024 deposits: its restart, 2 deposits, a withdrawal and a
              decrypt, the same oracles; K7 launched 16 times a deposit
              during each app's requests, exactly. (c) Phase 4's withdraw-shape proofs and
              phase 11's audit proofs through emit_proof, proof_hex bundles,
              save / load and parse_proof, equal to the originals, verified
              by verify_batch (P1, P2); one flipped byte in each of two
              proofs rejects exactly those two;
+ 13 withdraw the withdraw proof from an ACIR program. (a) The depth-16
+             withdraw artifact written by scripts/withdraw_acir.py under
+             --out, parsed and converted (rows, domain); the committed
+             vector (tests/vectors.py) solved by the interpreter and the
+             native CompiledSolver (s a solve each), equal, with the
+             committed root, nullifier and wa_commitment; a forged owner
+             point unsatisfiable. (b) examples/torch_withdraw_e2e.py on it:
+             parse, convert, native solve, a satisfied R1CS, cached_setup
+             (cold, then warm), the proving key on the card, a cold and a
+             warm proof with their phases, verify_batch (public + 1
+             rejected), the wire format, a pool withdrawal, a double spend
+             rejected. (c) DemoApp(prover="groth16") on the card behind
+             make_server: 8 deposits, 4 withdrawals to distinct recipients
+             with real proofs (solved natively, proved through K1-K6,
+             verified by the pool through P1 and P2; s of each and its
+             split), one proof re-verified on the host, three wrong
+             proofs of one deposit refused (400): one flipped byte of A's
+             y (fails to parse), a real proof of another recipient and A
+             negated (both well formed, rejected by P1 and P2, whose
+             launches rise for each), then that deposit withdrawn for
+             real, a double spend (400, the typed nullifier error). The
+             app's lock keeps two withdrawals of one note apart
+             (tests/test_torch_webui.py sends them at once). (d) The naive
+             pairing, pairing_product_is_one at B = 4 on planted true and
+             false pairs, against pairing_ref;
   5 launches every kernel's launch count on its main path, K1-K6 during
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
              proofs, K9 during phase 9's rdma products, P1 and P2 during
              phase 10's verify batches, K1-K7, P1, P2 and P3 from phase
-             11's encryptions to its end, and K7 during phase 12's HTTP
-             requests, P1 and P2 during its wire checks (must be > 0); it
-             runs last.
+             11's encryptions to its end, K7 during phase 12's HTTP
+             requests, P1 and P2 during its wire checks, and K1-K7, P1 and
+             P2 during phase 13's HTTP requests (must be > 0); it runs
+             last.
 ``--profile`` traces one warm proof of each path, one warm 2^16 build and
 one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
@@ -164,6 +194,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import importlib.util
 import json
 import os
 import random
@@ -180,7 +212,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tpu_zkpool_torch import cuda_build, native_bridge
+from tpu_zkpool_torch import benchvec, cuda_build, native_bridge
 from tpu_zkpool_torch.curve import fixed_base, weierstrass
 from tpu_zkpool_torch.curve import lines as plines
 from tpu_zkpool_torch.curve import pairing, tower
@@ -190,9 +222,12 @@ from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
-from tpu_zkpool_torch.groth16 import domain, gnark_fmt
+from tpu_zkpool_torch.groth16 import acir, domain, gnark_fmt
 from tpu_zkpool_torch.groth16 import prove as tp
+from tpu_zkpool_torch.groth16 import r1cs as acir_r1cs
+from tpu_zkpool_torch.groth16 import solver as acir_solver
 from tpu_zkpool_torch.groth16 import solver_native
+from tpu_zkpool_torch.groth16.cache import cached_setup
 from tpu_zkpool_torch.groth16 import verify as tverify
 from tpu_zkpool_torch.hash import kernels as hkern
 from tpu_zkpool_torch.hash import poseidon, poseidon2
@@ -1271,7 +1306,26 @@ def phase_msm(device):
         out[ncomp] = dict(n=n, warm_ms=warm, ok=got == want)
         if ncomp == 1:
             g1 = dict(pts=pts, ks=ks, pts_dev=pts_dev, limbs=limbs, want=want)
+    out["bench"] = bench_msm(device)
     return out, g1
+
+
+def bench_msm(device, log2n=17):
+    """The MSM benchmark's inputs (``benchvec``: ``random.Random(7)``, bases
+    as exponents of the generator) at 2^log2n, through ``msm_grid_g1``,
+    against the committed point of ``bench_expected.json``; s of the host
+    arrays (built, or read from the disk cache), cold and warm ms."""
+    t0 = time.perf_counter()
+    X, Y, Z, L = benchvec.msm_device_arrays(log2n, device=device)
+    torch.cuda.synchronize()
+    arrays_s = time.perf_counter() - t0
+    cold, _ = _host_ms(lambda: grid.msm_grid_g1((X, Y, Z), L))
+    warm, res = _host_ms(lambda: grid.msm_grid_g1((X, Y, Z), L))
+    got = tp._g1_affine(tuple(t.cpu() for t in res))
+    want = benchvec.load_expected(log2n)
+    return dict(n=1 << log2n, key=benchvec.expected_key(log2n),
+                arrays_s=arrays_s, cold_ms=cold, warm_ms=warm,
+                ok=want is not None and got == want)
 
 
 def phase_merkle(device, clock_hz, products, inverses, log2n=16,
@@ -1834,6 +1888,9 @@ AUDIT_ROWS = 24070             # const_pk_e_witness, logderiv
 P3_BS = (1, 2, 33, 256, 4096)  # P3's batches held to the plain version
 P3_NS = (0, 1, 2, 3, 4, AUDIT_FIELDS)   # sponge lengths held
 P3_TIMED_BS = (1, 256, 4096)
+# the committed audit proofs: one cold, one warm (each ~17-30 s of host
+# Python; cut for the run's time limit)
+AUDIT_PROOFS = 2
 # One permutation: 88 S-boxes (4 a full round, 1 a partial round) of two
 # squares and a product, and 4 diagonal products a partial round: 176
 # squares and 312 products, 488 in all. Its least chain is 3 dependent
@@ -2017,11 +2074,11 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
     held to the oracle, to k q + rem = full in int64 numpy, decrypted, and
     committed through P3 against ``ct_commitment_ref``; the committed
     24,070-row audit circuit built, set up, solved, proved (one cold and
-    three warm proofs) and verified through P1 and P2, ct + 1 and a
+    AUDIT_PROOFS - 1 warm proofs) and verified through P1 and P2, ct + 1 and a
     tampered proof of knowledge rejected; the auditor's decrypt from
     shares 1 and 2 and the K7 hash of the recovered point. The launches of
     K1-K7, P1, P2 and P3 are counted from the encryption to the end.
-    ``keep``, if a dict, receives the VK and the four audit proofs with
+    ``keep``, if a dict, receives the VK and the audit proofs with
     their public inputs."""
     Q, N, MS = rlwe_ref.RLWE_Q, rlwe_ref.N, rlwe_ref.MSG_SLOTS
     info, steps, checks = {}, {}, {}
@@ -2145,7 +2202,7 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
     torch.cuda.synchronize()
     steps["upload_s"] = time.perf_counter() - t0
     proofs, prove_s, phases = [], [], []
-    for i in range(4):             # one cold, three warm
+    for i in range(AUDIT_PROOFS):  # one cold, the rest warm
         sp = {}
         t0 = time.perf_counter()
         proofs.append(tp.prove(dpk, r1cs, w, seed=70 + i, timings=sp))
@@ -2153,12 +2210,12 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
         phases.append(sp)
     A, B2, C, cm, pok = proofs[1]
     tampered = (A, B2, C, cm, pr.g1_add(pok, (1, 2)))
-    pubs = [[wa, ct]] * 4 + [[wa, ct + 1], [wa, ct]]
+    pubs = [[wa, ct]] * AUDIT_PROOFS + [[wa, ct + 1], [wa, ct]]
     t0 = time.perf_counter()
     got = tverify.verify_batch(vk, proofs + [proofs[0], tampered], pubs,
                                device=device)
     steps["verify_s"] = time.perf_counter() - t0
-    checks["verify"] = got.tolist() == [True] * 4 + [False, False]
+    checks["verify"] = got.tolist() == [True] * AUDIT_PROOFS + [False, False]
     if keep is not None:           # the committed proofs, for phase 12
         keep.update(vk=vk, proofs=[(p, [wa, ct]) for p in proofs])
     # 6. the auditor's decrypt from shares 1 and 2
@@ -2187,9 +2244,10 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
 
 POOL_B = 256                   # phase 12's curve batches
 KEYGEN_BS = (1, 256, 4096)     # identities keyed through the c = 8 table
-POOL_DEPOSITS, POOL_WITHDRAWS, POOL_DECRYPTS = 64, 16, 16
+# (cut for the run's time limit, as AUDIT_PROOFS)
+POOL_DEPOSITS, POOL_WITHDRAWS, POOL_DECRYPTS = 32, 8, 8
 # the app at size: a store pre-filled with deposits, then a few more
-POOL_PREFILL, SIZED_DEPOSITS, SIZED_WITHDRAWS = 2048, 2, 1
+POOL_PREFILL, SIZED_DEPOSITS, SIZED_WITHDRAWS = 1024, 2, 1
 
 
 def _affine_add(name):
@@ -2656,6 +2714,255 @@ def _parse_and_verify(vk, rows, device):
     for j, ok in zip(at, got):
         fate[j] = "ok" if ok else "verify"
     return fate
+
+
+# ----------------------------------- the withdraw proof from ACIR: phase 13
+
+# the app's journey with real proofs
+WD_DEPOSITS, WD_WITHDRAWS = 8, 4
+# solves timed per path (the interpreter's take ~0.05-0.1 s each)
+WD_SOLVES = 5
+# the naive pairing's batch
+PPIO_B = 4
+
+
+def _load_script(rel):
+    """A script of the checkout (``scripts/``, ``examples/``) as a module."""
+    name = os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE,
+                                                                     rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _vectors():
+    """The committed withdraw vector (``tests/vectors.py``)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import vectors
+    return vectors
+
+
+def withdraw_program(out_dir):
+    """Phase 13 (a): the depth-16 withdraw artifact written by
+    ``scripts/withdraw_acir.py`` under ``out_dir``, parsed and converted;
+    the committed vector solved by the interpreter and by the native
+    ``CompiledSolver`` (equal, with the committed root, nullifier and
+    wa_commitment), and a forged owner point (twice the real one, every
+    other witness recomputed by the program without its MSM) leaving the
+    R1CS unsatisfied. Returns (info, the artifact's path)."""
+    vectors = _vectors()
+    writer = _load_script(os.path.join("scripts", "withdraw_acir.py"))
+    info, checks = {}, {}
+    t0 = time.perf_counter()
+    wp = writer.withdraw_program(16)
+    os.makedirs(os.path.join(out_dir, "withdraw"), exist_ok=True)
+    path = writer.write_artifact(
+        os.path.join(out_dir, "withdraw", "withdraw.json"), wp.program, wp.abi)
+    info["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, prog = acir.load_artifact(path)
+    info["parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ar = acir_r1cs.convert(prog)
+    info["convert_s"] = time.perf_counter() - t0
+    circ = prog.circuits[0]
+    info.update(opcodes=len(circ.opcodes),
+                witnesses=circ.current_witness_index + 1,
+                rows=len(ar.r1cs.a_rows), wires=ar.r1cs.num_vars,
+                domain=1 << (len(ar.r1cs.a_rows) - 1).bit_length())
+    ins = vectors.withdraw_inputs()
+    ms, w = _host_ms(lambda: acir_solver.solve(prog, ins), WD_SOLVES)
+    info["interpreter_s"] = ms / 1e3
+    t0 = time.perf_counter()
+    cs = solver_native.CompiledSolver(prog, ins)
+    info["compile_s"] = time.perf_counter() - t0
+    ms, wn = _host_ms(lambda: cs.solve(ins), 4 * WD_SOLVES)
+    ms_raw, _ = _host_ms(lambda: cs.solve_raw(ins), 4 * WD_SOLVES)
+    info.update(native_s=ms / 1e3, native_raw_s=ms_raw / 1e3)
+    out = wp.outputs
+    checks["native_equal"] = wn == w
+    checks["committed"] = (w[out["root"]], w[out["nullifier"]],
+                           w[out["wa_commitment"]]) == (
+        vectors.ROOT, vectors.NULLIFIER, vectors.WA_COMMITMENT)
+    full = acir_r1cs.build_witness(ar, w)
+    checks["satisfied"] = ar.r1cs.is_satisfied(full)
+    # the forged owner point
+    forged_in, forged = writer.forged_owner(wp, ins, w)
+    checks["forged_unsatisfied"] = not ar.r1cs.is_satisfied(
+        acir_r1cs.build_witness(ar, forged))
+    try:
+        acir_solver.solve(prog, forged_in)
+        checks["forged_unsolvable"] = False
+    except acir_solver.SolveError:
+        checks["forged_unsolvable"] = True
+    return dict(info, checks=checks), path
+
+
+def withdraw_app(device, out_dir, artifact, seed=1301):
+    """Phase 13 (c): ``DemoApp(prover="groth16")`` on the card behind its
+    HTTP server: WD_DEPOSITS deposits, WD_WITHDRAWS withdrawals to distinct
+    recipients, each solved natively, proved on the card and verified by
+    the pool through ``verify_batch`` (P1, P2), with its split; one proof
+    of each checked again by ``refimpl`` on the host; three withdrawals of
+    one deposit with wrong proofs (400, "proof verification failed"): one
+    flipped byte of A's y, which fails to parse, and two well-formed ones
+    that only the pairing check refuses, a real proof of another recipient
+    and A negated (P1 and P2 launched for each); the deposit, still
+    unspent, then withdrawn with a real proof; a double spend (400, the
+    typed nullifier error). Launches of K1-K7, P1, P2 over the requests."""
+    rng = random.Random(seed)
+    root = os.path.join(out_dir, "withdraw")
+    rlwe_dir = write_rlwe_dir(os.path.join(root, "rlwe"))
+    store = os.path.join(root, "store.json")
+    info, checks = {}, {}
+    t0 = time.perf_counter()
+    app = DemoApp(store_path=store, rlwe_dir=rlwe_dir, prover="groth16",
+                  fresh=True, device=device, artifact=artifact)
+    torch.cuda.synchronize()
+    info["startup_s"] = time.perf_counter() - t0
+    sent = []                            # (proof bytes, witness) a request
+    real_prove = app._prove_withdraw
+    tamper = {"how": None}
+
+    def recorded(wit, timings):
+        if tamper["how"] == "recipient":  # a real proof of another recipient
+            proof = real_prove(dataclasses.replace(
+                wit, recipient_field=wit.recipient_field + 1), timings)
+        else:
+            proof = real_prove(wit, timings)
+        if tamper["how"] == "flip":      # one flipped byte of A's y
+            raw = bytearray(proof)
+            raw[40] ^= 0x01
+            proof = bytes(raw)
+        elif tamper["how"] == "neg_a":   # A replaced by -A, still on G1
+            y = int.from_bytes(proof[32:64], "big")
+            proof = (proof[:32] + (FP_MOD - y).to_bytes(32, "big")
+                     + proof[64:])
+        sent.append((proof, wit))
+        return proof
+
+    app._prove_withdraw = recorded
+    with _served(app) as base:
+        for reset in (kernels.reset_launches, hkern.reset_launches,
+                      pkern.reset_launches):
+            reset()                          # the main path starts here
+        dep_s, deps = _deposits(base, rng, WD_DEPOSITS)
+        checks["deposits"] = [d and d["leaf_index"] for d in deps] == list(
+            range(WD_DEPOSITS))
+        rcpts = [bytes(rng.getrandbits(8) for _ in range(32)).hex()
+                 for _ in range(WD_WITHDRAWS + 1)]
+        wds = [_timed_http(base, "POST", "/api/withdraw",
+                           {"commitment": d["commitment"], "recipient": r})
+               for d, r in zip(deps, rcpts[:WD_WITHDRAWS])]
+        checks["withdrawals"] = all(
+            c == 200 and w["recipient"] == "0000" + r[:60]
+            for (_, c, w), r in zip(wds, rcpts))
+        # three wrong proofs of one deposit, each refused by the pool's
+        # verifier: one flipped byte of A's y (off the curve, so it fails
+        # to parse), a real proof of another recipient and A negated (both
+        # well formed, so P1 and P2 reject them)
+        victim = deps[WD_WITHDRAWS]["commitment"]
+        rejected = {}
+        for how in ("flip", "recipient", "neg_a"):
+            before = dict(pkern.LAUNCHES)
+            tamper["how"] = how
+            code, err = _http(base, "POST", "/api/withdraw",
+                              {"commitment": victim, "recipient": rcpts[-1]})
+            tamper["how"] = None
+            rejected[how] = dict(code=code, error=err.get("error"), **{
+                k: pkern.LAUNCHES[k] - before[k] for k in before})
+            checks[how] = (code == 400 and "proof verification failed"
+                           in err.get("error", ""))
+        checks["paired"] = all(rejected[how][k] > 0
+                               for how in ("recipient", "neg_a")
+                               for k in pkern.LAUNCHES)
+        fresh_s, code, w = _timed_http(base, "POST", "/api/withdraw",
+                                       {"commitment": victim,
+                                        "recipient": rcpts[-1]})
+        checks["after_rejects"] = code == 200
+        code, err = _http(base, "POST", "/api/withdraw",
+                          {"commitment": deps[0]["commitment"],
+                           "recipient": rcpts[0]})
+        checks["double_spend"] = (
+            code == 400 and "nullifier" in err.get("error", "")
+            and err.get("hint") == perrors.RECOVERY_HINTS[
+                perrors.ErrorCode.NULLIFIER_ALREADY_USED])
+        launches = dict(kernels.LAUNCHES, poseidon=hkern.LAUNCHES["poseidon"],
+                        **pkern.LAUNCHES)    # the main path ends here
+    # the proofs sent: the flipped one no longer parses, the others do; the
+    # first, against refimpl's verify on the host
+    parsed = []
+    for proof, _ in sent:
+        try:
+            parsed.append(gnark_fmt.parse_proof(proof))
+        except (AssertionError, ValueError):
+            parsed.append(None)
+    checks["sent"] = [p is not None for p in parsed] == (
+        [True] * WD_WITHDRAWS + [False, True, True, True, True])
+    pf, wit = parsed[0], sent[0][1]
+    checks["host_verify"] = verify(app.circuit.vk, (pf.ar, pf.bs, pf.krs),
+                                   wit.public_inputs())
+    splits = [w["timings"] for _, c, w in wds if c == 200]
+    info.update(deposit=_stats(dep_s), withdraw=_stats([t for t, _, _ in wds]),
+                withdraw_split={k: _stats([sp[k] for sp in splits])
+                                for k in ("solve_s", "witness_s", "prove_s",
+                                          "verify_s")},
+                withdraw_after_rejects_s=fresh_s, rejected=rejected,
+                launches=launches,
+                rows=len(app.circuit.ar.r1cs.a_rows))
+    os.remove(store)
+    return dict(info, checks=checks, ok=all(checks.values()))
+
+
+def naive_pairing(device, B=PPIO_B, seed=1302):
+    """Phase 13 (d): ``pairing_product_is_one`` on the card at B over two
+    pairs, the lanes alternating e(P, Q) e(-P, Q) (true) and e(P, Q)
+    e(-P, 2 Q) (false), against ``pairing_ref``; s of the one call (the
+    Miller loops as torch ops, then P2) and its P1 / P2 launches."""
+    rng = random.Random(seed)
+    ps, qs, want = [[], []], [[], []], []
+    for b in range(B):
+        p = pr.g1_mul(rng.randrange(1, FR_MOD), (1, 2))
+        q = pr.g2_mul(rng.randrange(1, FR_MOD), pr.G2_GEN)
+        q2 = q if b % 2 == 0 else pr.g2_add(q, q)
+        ps[0].append(p)
+        ps[1].append((p[0], (-p[1]) % FP_MOD))
+        qs[0].append(q)
+        qs[1].append(q2)
+        want.append(pr.f12_mul(pr.pairing(p, q), pr.pairing(ps[1][-1], q2))
+                    == pr.F12_ONE)
+    g1s = [pairing.g1_to_limbs(p, device) for p in ps]
+    g2s = [pairing.g2_to_limbs(q, device) for q in qs]
+    pkern.reset_launches()
+    ms, got = _host_ms(lambda: pairing.pairing_product_is_one(g1s, g2s))
+    checks = dict(reference=got.tolist() == want == [b % 2 == 0
+                                                     for b in range(B)])
+    return dict(B=B, s=ms / 1e3, launches=dict(pkern.LAUNCHES),
+                checks=checks, ok=all(checks.values()))
+
+
+def phase_withdraw(device, out_dir):
+    """Phase 13: the withdraw proof from an ACIR program, (a) to (d)."""
+    t0 = time.perf_counter()
+    prog, artifact = withdraw_program(out_dir)
+    log(13, "program " + json.dumps(prog))
+    e2e_mod = _load_script(os.path.join("examples", "torch_withdraw_e2e.py"))
+    t1 = time.perf_counter()
+    e2e = e2e_mod.main(["--artifact", artifact])
+    e2e["total_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    _, prog_ar = acir.load_artifact(artifact)
+    cached_setup(acir_r1cs.convert(prog_ar).r1cs)
+    e2e["setup_warm_s"] = time.perf_counter() - t1
+    log(13, "e2e " + json.dumps(e2e, default=str))
+    app = withdraw_app(device, out_dir, artifact)
+    log(13, "app " + json.dumps(app))
+    ppio = naive_pairing(device)
+    log(13, "naive pairing " + json.dumps(ppio))
+    return dict(program=prog, e2e=e2e, app=app, naive_pairing=ppio,
+                phase_s=time.perf_counter() - t0,
+                ok=all(prog["checks"].values()) and app["ok"] and ppio["ok"])
 
 
 # ------------------------------------------------- mesh: K9 and sharding
@@ -3426,21 +3733,35 @@ def main(argv):
         raise AssertionError(f"the pool failed: {journey['checks']}, "
                              f"{sized['checks']}, {wire['checks']}")
 
+    # ---- 13: the withdraw proof from an ACIR program: solved natively,
+    # proved through K1-K6, verified through P1 and P2, over HTTP
+    withdraw = phase_withdraw(device, out_dir)
+    log(13, f"phase {withdraw['phase_s']:.1f} s, ok {withdraw['ok']}")
+    if not withdraw["ok"]:
+        raise AssertionError(
+            f"the withdraw path failed: {withdraw['program']['checks']}, "
+            f"{withdraw['app']['checks']}, "
+            f"{withdraw['naive_pairing']['checks']}")
+
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
     # tree proofs: K8, the sharded NTT's rdma products: K9, the verify:
-    # P1 and P2; the audit path: K1-K7, P1, P2 and P3)
+    # P1 and P2; the audit path: K1-K7, P1, P2 and P3; the withdrawals
+    # over HTTP: K1-K7, P1 and P2)
     launches = dict(info["launches"], poseidon=merkle["launches"],
                     tree_level=tree["launches"],
                     exchange_butterfly=mesh_ntt["rdma_launches"],
                     **ver["launches"],
                     poseidon2=audit["launches"]["poseidon2"])
+    wd_launches = withdraw["app"]["launches"]
     missing = [k for k, v in launches.items() if v <= 0] + [
         f"audit {k}" for k, v in audit["launches"].items() if v <= 0] + [
-        f"pool {k}" for k, v in pool_launches.items() if v <= 0]
+        f"pool {k}" for k, v in pool_launches.items() if v <= 0] + [
+        f"withdraw {k}" for k, v in wd_launches.items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}; a withdraw-shape proof "
            f"(phase 4) {json.dumps(info['launches_per_proof'])}; the audit "
            f"path (phase 11) {json.dumps(audit['launches'])}; the pool "
-           f"(phase 12) {json.dumps(pool_launches)}")
+           f"(phase 12) {json.dumps(pool_launches)}; the withdrawals over "
+           f"HTTP (phase 13) {json.dumps(wd_launches)}")
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
@@ -3470,7 +3791,7 @@ def main(argv):
             mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp),
             verify=ver, audit=audit, pool=dict(
                 curves=curves, journey=journey, at_size=sized, wire=wire,
-                launches=pool_launches)),
+                launches=pool_launches), withdraw=withdraw),
             f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

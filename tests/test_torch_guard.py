@@ -15,9 +15,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tpu_zkpool_torch")
 
 
+SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
+           os.path.join("examples", "torch_withdraw_e2e.py"),
+           os.path.join("examples", "torch_demo_cli.py"),
+           os.path.join("examples", "torch_audit_e2e.py"),
+           os.path.join("scripts", "withdraw_phase13.py")]
+
+
 def _port_sources():
-    """chip_smoke.py and every module of the port, found by walking it."""
-    yield os.path.join(ROOT, "chip_smoke.py")
+    """The port's scripts and every module of the port, found by walking
+    it."""
+    for f in SCRIPTS:
+        yield os.path.join(ROOT, f)
     for d, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
@@ -77,7 +86,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                     "__init__.py", "metrics.py", "profiling.py")} | {
                 os.path.join("webui", f) for f in (
                     "__init__.py", "__main__.py", "app.py",
-                    "server.py")} <= names
+                    "server.py")} | {
+                "benchvec.py"} | {
+                os.path.join("groth16", f) for f in (
+                    "acir.py", "solver.py", "r1cs.py", "ccs.py",
+                    "ccs_solve.py")} <= names
     for path in files:
         for mod in _imported(path):
             top = mod.split(".")[0]

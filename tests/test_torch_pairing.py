@@ -17,6 +17,12 @@ each warp as 32 threads, over full and partial blocks.
 
 The JAX ``miller_loop_lines``, ``final_exponentiation`` and ``_ppl_jit`` are
 never jitted here: they compile for minutes.
+
+The naive pairing (``pairing.miller_loop``, ``pairing_product_is_one``,
+``f12_pow_const``) is held to ``refimpl.pairing_ref``, whose affine Miller
+loop computes the same value as JAX's ``miller_loop``: that JAX function
+jitted at B = 2 compiled for 255 s on a CPU, far above this file's budget.
+One batched Miller loop (2 pairs x B = 2) serves every naive case.
 """
 
 import ctypes
@@ -165,6 +171,58 @@ def test_inverse_and_pow_x_equal_reference(three_legs):
         [pr.f12_mul(mv[0], mv[0])]
     assert tw.f12_to_ints(pairing.f12_pow_x_cyclo(m[:1])) == \
         [pr.f12_pow_x_cyclo(mv[0])] == [pr.f12_pow(mv[0], BN_X)]
+
+
+@pytest.fixture(scope="module")
+def naive_pairs():
+    """``pairing_product_is_one`` at B = 2 over two pairs: element 0 is
+    e(P, Q) e(-P, Q), element 1 the perturbed e(P', Q') e(-P', 2 Q').
+    Returns (the result, the points, the stacked Miller values the call
+    computed)."""
+    P0, P1 = pr.g1_mul(3, G1), pr.g1_mul(5, G1)
+    Q0, Q1 = pr.g2_mul(7, pr.G2_GEN), pr.g2_mul(11, pr.G2_GEN)
+    ps = [[P0, P1], [pr.g1_mul(FR_MOD - 1, P0), pr.g1_mul(FR_MOD - 1, P1)]]
+    qs = [[Q0, Q1], [Q0, pr.g2_add(Q1, Q1)]]
+    seen = []
+
+    def spy(*args):
+        seen.append(naive(*args))
+        return seen[-1]
+
+    naive = pairing.miller_loop
+    pairing.miller_loop = spy
+    try:
+        ok = pairing.pairing_product_is_one(
+            [pairing.g1_to_limbs(p, "cpu") for p in ps],
+            [pairing.g2_to_limbs(q, "cpu") for q in qs])
+    finally:
+        pairing.miller_loop = naive
+    return ok, (ps, qs), seen[0]
+
+
+def test_naive_pairing_product(naive_pairs):
+    ok, _, ml = naive_pairs
+    assert ok.tolist() == [True, False] and ok.device.type == "cpu"
+    assert ml.shape == (2, 2, 12, 16)
+
+
+def test_naive_miller_loop_equals_reference(naive_pairs):
+    _, (ps, qs), ml = naive_pairs
+    for i in range(2):
+        assert tw.f12_to_ints(ml[i]) == [pr.miller_loop(p, q)
+                                         for p, q in zip(ps[i], qs[i])]
+    fe = pairing.final_exponentiation(ml[:, 1].contiguous())
+    assert tw.f12_to_ints(fe) == [pr.pairing(ps[i][1], qs[i][1])
+                                  for i in range(2)]
+
+
+def test_f12_pow_const_equals_reference():
+    rng = random.Random(64)
+    a = tuple((rng.randrange(P), rng.randrange(P)) for _ in range(6))
+    t = tw.f12_from_ints([a, pr.F12_ONE], "cpu")
+    for e in (0, 1, 0x2D3B):
+        assert tw.f12_to_ints(pairing.f12_pow_const(t, e)) == [
+            pr.f12_pow(a, e), pr.F12_ONE]
 
 
 def test_fe_program_is_jax_program():

@@ -6,12 +6,14 @@ the port's ``refimpl.rlwe_ref.keygen(42)`` in the reference's JSON layout
 (``rlwe_pk.json``: ``{"a": [hex], "b": [hex]}``;
 ``rlwe_sk_shares/share_{i}.json``: ``{"coefficients": [{"x", "y"}]}``), so
 nothing is read from outside the repository. The app's tree lives on the
-CPU here (``device="cpu"``); ``prover="groth16"`` raises, and so does an app
-with no device named and no CUDA, or with no key directory.
+CPU here (``device="cpu"``); ``prover="groth16"`` without its artifact
+raises, and so does an app with no device named and no CUDA, or with no
+key directory.
 """
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -117,9 +119,19 @@ def test_full_journey(server, rlwe_dir):
 
 
 def test_groth16_prover_raises(tmp_path, rlwe_dir):
-    with pytest.raises(NotImplementedError, match="ACIR"):
+    """``prover="groth16"`` without its ACIR artifact fails at startup (it
+    never falls back to the stub), as does a prover the app does not
+    know; neither creates the store."""
+    with pytest.raises(FileNotFoundError, match="withdraw_acir.py"):
+        DemoApp(store_path=str(tmp_path / "s.json"), rlwe_dir=rlwe_dir,
+                prover="groth16", device="cpu",
+                artifact=str(tmp_path / "none.json"))
+    with pytest.raises(FileNotFoundError, match="shielded_pool_verifier"):
         DemoApp(store_path=str(tmp_path / "s.json"), rlwe_dir=rlwe_dir,
                 prover="groth16", device="cpu")
+    with pytest.raises(ValueError, match="unknown prover 'plonk'"):
+        DemoApp(store_path=str(tmp_path / "s.json"), rlwe_dir=rlwe_dir,
+                prover="plonk", device="cpu")
     assert not (tmp_path / "s.json").exists()
 
 
@@ -146,3 +158,53 @@ def test_missing_key_directory_fails_at_startup(tmp_path, monkeypatch):
         DemoApp(store_path=str(store), rlwe_dir=str(tmp_path / "keys"),
                 device="cpu")
     assert not store.exists()
+
+
+def test_concurrent_withdrawals_of_one_note(tmp_path, rlwe_dir):
+    """Two withdrawals of one note sent at once: exactly one is paid. The
+    verifier is slowed (as the device verifier of ``prover="groth16"``
+    takes tens of ms), so the second request arrives while the first is
+    between the pool's nullifier check and its record."""
+    app = DemoApp(store_path=str(tmp_path / "s.json"), rlwe_dir=rlwe_dir,
+                  fresh=True, device="cpu")
+    verify = app.pool.withdraw_verifier
+
+    def slow_verifier(proof, witness):
+        time.sleep(0.3)
+        return verify(proof, witness)
+
+    app.pool.withdraw_verifier = slow_verifier
+    srv = make_server(app, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        # two notes, so the vault could pay the first one out twice
+        for _ in range(2):
+            st, dep = call(base, "POST", "/api/deposit",
+                           {"amount": 5_000_000})
+            assert st == 200
+        vault = app.pool.vault_lamports
+        start = threading.Barrier(2)
+        results = []
+
+        def withdraw(recipient):
+            start.wait()
+            results.append(call(base, "POST", "/api/withdraw",
+                                {"commitment": dep["commitment"],
+                                 "recipient": recipient}))
+
+        threads = [threading.Thread(target=withdraw, args=(r,))
+                   for r in ("0000" + "ab" * 30, "0000" + "cd" * 30)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert sorted(st for st, _ in results) == [200, 400]
+    refused = next(body for st, body in results if st == 400)
+    assert refused["hint"] == er.RECOVERY_HINTS[
+        er.ErrorCode.NULLIFIER_ALREADY_USED]
+    assert app.pool.vault_lamports == vault - 5_000_000
+    assert len(app.pool.nullifiers) == 1

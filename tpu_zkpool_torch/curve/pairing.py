@@ -1,10 +1,10 @@
-"""Batched BN254 optimal-ate pairing over precomputed lines, on the GPU.
+"""Batched BN254 optimal-ate pairing, on the GPU.
 
-The port of the device side of ``tpu_zkpool/curve/pairing_jax.py`` that the
-batched Groth16 verify runs: the multi-leg Miller loop over precomputed
-line coefficients (``miller_loop_lines``), the cyclotomic final
-exponentiation (``final_exponentiation``) and the check of their product
-against a target (``pairing_lines_equal``). The JAX package compiles the
+The port of ``tpu_zkpool/curve/pairing_jax.py``. The batched Groth16 verify
+runs the multi-leg Miller loop over precomputed line coefficients
+(``miller_loop_lines``), the cyclotomic final exponentiation
+(``final_exponentiation``) and the check of their product against a target
+(``pairing_lines_equal``). The JAX package compiles the
 two into one XLA program (``_ppl_jit``), with no ``pl.pallas_call``; as
 eager torch ops on the card they would be ~1.5-2 million small kernel
 launches a batch, so here each is one hand-written CUDA kernel, P1
@@ -12,9 +12,13 @@ launches a batch, so here each is one hand-written CUDA kernel, P1
 ``pairing_kernels``). On a CUDA tensor both dispatch to the kernels, on a
 CPU tensor to the plain versions below, built on ``tower``.
 
-Fp12 values are int64[B, 12, 16] Montgomery limbs (``tower``'s layout). Not
-ported: the naive in-loop-G2 ``miller_loop`` and ``pairing_product_is_one``
-(the verify does not use them) and the TPU's AOT export cache.
+The naive pairing (``miller_loop``, the G2 point walked in the loop with
+affine lines and an Fp2 inverse a step, ``f12_pow_const`` and
+``pairing_product_is_one``) is torch ops over ``tower`` on the points'
+device; only its final exponentiation is P2 on a CUDA tensor. The verify
+does not use it. The TPU's AOT export cache has no counterpart.
+
+Fp12 values are int64[B, 12, 16] Montgomery limbs (``tower``'s layout).
 """
 
 from __future__ import annotations
@@ -271,3 +275,100 @@ def pairing_lines_equal(g1_points, legs, target=None) -> torch.Tensor:
         tl = f12_to_limbs(target, dev)
     fe = final_exponentiation(miller_loop_lines(list(g1_points), list(legs)))
     return (fe == tl).flatten(-2).all(-1)
+
+
+# ------------------------------------------------------- the naive pairing
+
+def _line(t, q, px, py, is_double: bool):
+    """Line through t, q (affine Fp2 points, each coordinate [..., 2, 16])
+    evaluated at the G1 point (px, py) [..., 16]. Returns (new_t, (l0, l1,
+    l3)), the coefficients of w^0, w^1, w^3. Batched; the caller guarantees
+    the non-degenerate case (subgroup points in the Miller loop)."""
+    tx, ty = t
+    qx, qy = q
+    if is_double:
+        num = tw.f2_scalar_small(tw.f2_sqr(tx), 3)
+        den = tw.f2_add(ty, ty)
+    else:
+        num = tw.f2_sub(qy, ty)
+        den = tw.f2_sub(qx, tx)
+    lam = tw.f2_mul(num, tw.f2_inv(den))
+    x3 = tw.f2_sub(tw.f2_sub(tw.f2_sqr(lam), tx), qx)
+    y3 = tw.f2_sub(tw.f2_mul(lam, tw.f2_sub(tx, x3)), ty)
+    l0 = torch.stack([py, torch.zeros_like(py)], -2)
+    l1 = tw.f2_neg(FP.mont_mul(lam, px.unsqueeze(-2)))
+    l3 = tw.f2_sub(tw.f2_mul(lam, tx), ty)
+    return (x3, y3), (l0, l1, l3)
+
+
+def _g2_frobenius(q):
+    """pi(x, y) = (conj(x) xi^((p-1)/3), conj(y) xi^((p-1)/2))."""
+    x, y = q
+    dev = x.device
+    return (tw.f2_mul(tw.f2_conj(x), tw.f2_const(pr._XI_P_13, dev)),
+            tw.f2_mul(tw.f2_conj(y), tw.f2_const(pr._XI_P_12, dev)))
+
+
+def miller_loop(px, py, qx, qy):
+    """f_{6x+2,Q}(P) with the Frobenius end-steps, batched over the leading
+    shape: px, py int64[..., 16] G1 affine (Montgomery), qx, qy Fp2
+    [..., 2, 16] of the same batch shape -> Fp12 [..., 12, 16]. The add
+    step runs where an ATE bit is set (JAX computes it at every bit and
+    selects)."""
+    f = tw.f12_one(px.shape[:-1], px.device)
+    q = (qx, qy)
+    t = q
+    for bit in ATE_BITS:
+        f = tw.f12_sqr(f)
+        t, line = _line(t, t, px, py, True)
+        f = tw.f12_mul_sparse_line(f, *line)
+        if bit:
+            t, line = _line(t, q, px, py, False)
+            f = tw.f12_mul_sparse_line(f, *line)
+    q1 = _g2_frobenius(q)
+    q2 = _g2_frobenius(q1)
+    q2 = (q2[0], tw.f2_neg(q2[1]))
+    t, line = _line(t, q1, px, py, False)
+    f = tw.f12_mul_sparse_line(f, *line)
+    t, line = _line(t, q2, px, py, False)
+    return tw.f12_mul_sparse_line(f, *line)
+
+
+def f12_pow_const(a, e: int):
+    """a^e for a fixed Python-int exponent, MSB first from one."""
+    acc = tw.f12_one(a.shape[:-2], a.device)
+    for ch in bin(e)[2:]:
+        acc = tw.f12_sqr(acc)
+        if ch == "1":
+            acc = tw.f12_mul(acc, a)
+    return acc
+
+
+def g2_to_limbs(pts, device):
+    """Affine G2 int points (pairs of Fp2 pairs) -> (qx, qy) Montgomery
+    limbs, each int64[n, 2, 16]."""
+    def coord(i):
+        arr = np.asarray([[p[i][0], p[i][1]] for p in pts], dtype=object)
+        return torch.as_tensor(FP.to_mont(arr), device=device)
+    return coord(0), coord(1)
+
+
+def pairing_product_is_one(g1_points, g2_points) -> torch.Tensor:
+    """Batched check prod_i e(P_i, Q_i) == 1 -> bool[...] on the points'
+    device. g1_points: list of (px, py) int64[..., 16]; g2_points: the
+    matching list of (qx, qy) Fp2 [..., 2, 16]. The pairs' Miller loops run
+    as one batch of torch ops (stacked on a leading axis: the loop is
+    launch-bound, so k pairs cost about one); the final exponentiation is
+    P2 on a CUDA tensor, its plain version on a CPU tensor."""
+    def stack(ts):
+        return torch.stack(torch.broadcast_tensors(*ts))
+    ml = miller_loop(stack([p[0] for p in g1_points]),
+                     stack([p[1] for p in g1_points]),
+                     stack([q[0] for q in g2_points]),
+                     stack([q[1] for q in g2_points]))
+    f = ml[0]
+    for i in range(1, ml.shape[0]):
+        f = tw.f12_mul(f, ml[i])
+    shape = f.shape[:-2]
+    fe = final_exponentiation(f.reshape(-1, 12, 16).contiguous())
+    return tw.f12_eq_one(fe).reshape(shape)

@@ -12,7 +12,8 @@ so every deposit's and withdraw's sibling path comes from ``build_levels``
 there.
 
 Run: ``python -m tpu_zkpool_torch.webui --rlwe-dir DIR [--port 8642]
-[--device cuda]``; ``write_rlwe_dir(DIR)`` writes a key directory.
+[--device cuda] [--prover groth16 --artifact PATH]``; ``write_rlwe_dir(DIR)``
+writes a key directory, ``scripts/withdraw_acir.py`` a withdraw artifact.
 """
 
 from tpu_zkpool_torch.webui.app import DemoApp, write_rlwe_dir

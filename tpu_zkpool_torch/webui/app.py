@@ -22,10 +22,17 @@ withdraw's sibling path comes from ``build_levels`` there (kernel K7 on the
 card). The RLWE encryption and ``ct_commitment`` of a deposit run on the
 host references, as in the JAX app.
 
-Proofs come from the stub prover (instant, verifier accepts any bytes).
-The JAX app's ``prover="groth16"`` mode proves the committed withdraw ACIR
-circuit; its ACIR/CCS modules are not ported yet (ROADMAP.md §A, A13b), so
-here that mode raises rather than falling back to the stub.
+Proofs come from the stub prover by default (instant, verifier accepts any
+bytes). ``prover="groth16"`` proves each withdrawal for real from the
+withdraw circuit's ACIR artifact (``artifact``; the reference checkout's,
+from its root, by default): at startup the app loads and converts the
+circuit, runs ``cached_setup`` and uploads one ``DeviceProvingKey`` to its
+device; each withdrawal is solved natively (``solver_native.solve``),
+extended to the R1CS witness (``r1cs.build_witness``), proved on the
+device (``groth16.prove``: K1-K6 on the card) with fresh blinding, and
+verified by the pool through ``verify_batch`` (P1 and P2). Malformed proof
+bytes are a failed verification. The app never falls back to the stub
+when ``groth16`` was asked for: without the artifact it fails at startup.
 """
 
 from __future__ import annotations
@@ -33,10 +40,19 @@ from __future__ import annotations
 import json
 import os
 import secrets
+import struct
 import tempfile
+import threading
 import time
 
 from tpu_zkpool_torch import resolve_device
+from tpu_zkpool_torch.groth16 import r1cs as r1cs_mod
+from tpu_zkpool_torch.groth16 import solver_native
+from tpu_zkpool_torch.groth16.acir import load_artifact
+from tpu_zkpool_torch.groth16.cache import cached_setup
+from tpu_zkpool_torch.groth16.gnark_fmt import emit_proof, parse_proof
+from tpu_zkpool_torch.groth16.prove import DeviceProvingKey, prove
+from tpu_zkpool_torch.groth16.verify import verify_batch
 from tpu_zkpool_torch.merkle.tree import MerkleTree
 from tpu_zkpool_torch.protocol import flows, storage as stg
 from tpu_zkpool_torch.protocol.audit_circuit import ct_commitment_of
@@ -48,6 +64,10 @@ from tpu_zkpool_torch.refimpl import rlwe_ref
 # The auditor key directory of the reference repository, relative to its
 # checkout's root (the JAX app names that checkout by an absolute path).
 DEFAULT_RLWE_DIR = os.path.join("demo-frontend", "public", "rlwe")
+# The withdraw circuit's ACIR artifact, relative to the same checkout's root.
+DEFAULT_ARTIFACT = os.path.join("noir_circuit", "target",
+                                "shielded_pool_verifier.json")
+PROVERS = ("stub", "groth16")
 DEFAULT_STORE = os.path.join(tempfile.gettempdir(),
                              "tpu_zkpool_torch_webui_store.json")
 
@@ -83,17 +103,60 @@ def write_rlwe_dir(path: str, seed: int = 42) -> str:
     return path
 
 
+class WithdrawCircuit:
+    """The withdraw circuit of an ACIR artifact, set up for proving on a
+    device: the program, its R1CS (``r1cs.convert``), the cached Groth16
+    keys and the proving key's query points on the device."""
+
+    def __init__(self, artifact: str, device):
+        _, self.program = load_artifact(artifact)
+        self.ar = r1cs_mod.convert(self.program)
+        self.pk, self.vk = cached_setup(self.ar.r1cs)
+        self.dpk = DeviceProvingKey(self.pk, device=device)
+        self.device = self.dpk.device
+
+    def prove(self, acir_inputs: dict, timings: dict) -> tuple:
+        """(A, B2, C) for one assignment of the ACIR inputs; ``timings``
+        receives the seconds of the native solve, the R1CS witness and the
+        device proof. The blinding is fresh for every proof."""
+        clock = time.perf_counter
+        t0 = clock()
+        w_acir = solver_native.solve(self.program, acir_inputs)
+        t1 = clock()
+        w = r1cs_mod.build_witness(self.ar, w_acir)
+        t2 = clock()
+        proof = prove(self.dpk, self.ar.r1cs, w, seed=secrets.randbits(128))
+        timings.update(solve_s=t1 - t0, witness_s=t2 - t1,
+                       prove_s=clock() - t2)
+        return proof
+
+    def verify(self, proof_bytes: bytes, witness_bytes: bytes) -> bool:
+        """The pool's withdraw verifier: the wire-format proof against the
+        public inputs of the witness blob, through ``verify_batch``.
+        Malformed bytes (a point off its curve, the identity) fail
+        verification rather than raise, as the reference's verifier CPI
+        fails the instruction (withdraw.rs:163-175)."""
+        try:
+            pf = parse_proof(proof_bytes)
+            n_pub = struct.unpack(">I", witness_bytes[:4])[0]
+        except (AssertionError, ValueError, struct.error):
+            return False
+        if None in (pf.ar, pf.bs, pf.krs):
+            return False
+        vals = [int.from_bytes(witness_bytes[12 + 32 * i: 44 + 32 * i], "big")
+                for i in range(n_pub)]
+        return bool(verify_batch(self.vk, [(pf.ar, pf.bs, pf.krs)], [vals],
+                                 device=self.device)[0])
+
+
 class DemoApp:
     def __init__(self, store_path: str = DEFAULT_STORE,
                  rlwe_dir: str = DEFAULT_RLWE_DIR, prover: str = "stub",
-                 fresh: bool = False, device=None):
-        if prover == "groth16":
-            raise NotImplementedError(
-                "prover='groth16' proves the committed withdraw ACIR circuit "
-                "through the ACIR/CCS modules, which the port does not have "
-                "yet (ROADMAP.md §A, A13b); use prover='stub'")
-        if prover != "stub":
-            raise ValueError(f"unknown prover {prover!r}")
+                 fresh: bool = False, device=None,
+                 artifact: str = DEFAULT_ARTIFACT):
+        if prover not in PROVERS:
+            raise ValueError(f"unknown prover {prover!r}, not one of "
+                             f"{PROVERS}")
         self.device = resolve_device(device)
         for need in (_pk_path(rlwe_dir), _share_path(rlwe_dir, 1),
                      _share_path(rlwe_dir, 2)):
@@ -101,6 +164,19 @@ class DemoApp:
                 raise FileNotFoundError(
                     f"auditor key directory {rlwe_dir!r} lacks {need!r} "
                     f"(write one with webui.app.write_rlwe_dir)")
+        if prover == "groth16" and not os.path.isfile(artifact):
+            raise FileNotFoundError(
+                f"prover='groth16' needs the withdraw circuit's ACIR artifact;"
+                f" {artifact!r} is missing (scripts/withdraw_acir.py writes "
+                f"one)")
+        # the HTTP server runs a thread a request. A deposit and a withdraw
+        # each run whole under this lock: the pool checks a nullifier, then
+        # verifies, then records it, so two withdrawals of one note must not
+        # overlap; and the device prover and verifier are not reentrant
+        self._lock = threading.Lock()
+        self._verify_s = None
+        self.circuit = (WithdrawCircuit(artifact, self.device)
+                        if prover == "groth16" else None)
         if fresh and os.path.exists(store_path):
             os.remove(store_path)
         self.store = stg.Store(store_path)
@@ -113,12 +189,31 @@ class DemoApp:
         if st:
             for leaf in st.leaves:
                 self.tree.insert(int(leaf, 16))
-        self.pool = Pool(withdraw_verifier=lambda proof, witness: True,
+        verifier = (self._verify if self.circuit is not None
+                    else lambda proof, witness: True)
+        self.pool = Pool(withdraw_verifier=verifier,
                          audit_verifier=lambda p, w: True)
         self.pool.initialize()
         if st:
             self.pool.state.add_root(self.tree.get_root())
         self.relayer = Relayer(self.pool)
+
+    # ------------------------------------------------------------- proving
+
+    def _prove_withdraw(self, wit: flows.WithdrawWitness,
+                        timings: dict) -> bytes:
+        if self.circuit is None:
+            return b"\x01" * PROOF_LEN          # the stub prover
+        proof = self.circuit.prove(wit.acir_inputs(), timings)
+        # the wire layout with one commitment slot and a proof of knowledge
+        # (placeholders, as the JAX app emits): 388 bytes, PROOF_LEN
+        return emit_proof(proof[0], proof[1], proof[2], [(1, 2)], (1, 2))
+
+    def _verify(self, proof_bytes: bytes, witness_bytes: bytes) -> bool:
+        t0 = time.perf_counter()
+        ok = self.circuit.verify(proof_bytes, witness_bytes)
+        self._verify_s = time.perf_counter() - t0
+        return ok
 
     # ----------------------------------------------------------- endpoints
 
@@ -134,6 +229,14 @@ class DemoApp:
         }
 
     def deposit(self, amount: int) -> dict:
+        with self._lock:
+            return self._deposit(amount)
+
+    def withdraw(self, commitment: str, recipient_hex: str) -> dict:
+        with self._lock:
+            return self._withdraw(commitment, recipient_hex)
+
+    def _deposit(self, amount: int) -> dict:
         t0 = time.time()
         ident = flows.Identity.generate()
         note = flows.Note(ident, amount=int(amount),
@@ -158,7 +261,7 @@ class DemoApp:
                 "ct_commitment": rec.ct_commitment,
                 "elapsed_s": round(time.time() - t0, 3)}
 
-    def withdraw(self, commitment: str, recipient_hex: str) -> dict:
+    def _withdraw(self, commitment: str, recipient_hex: str) -> dict:
         t0 = time.time()
         rec = self.store.get_deposit(commitment)
         note = flows.Note(
@@ -171,7 +274,9 @@ class DemoApp:
         wit = flows.build_withdraw_witness(
             self.tree, note, rec.leaf_index, recipient_pubkey=recipient,
             amount=note.amount)
-        proof = b"\x01" * PROOF_LEN          # the stub prover
+        timings: dict = {}
+        proof = self._prove_withdraw(wit, timings)
+        self._verify_s = None
         audit_blob = flows.audit_witness_blob(
             int(rec.wa_commitment, 16), int(rec.ct_commitment or "0x0", 16))
         res = self.relayer.relay_withdraw(
@@ -179,10 +284,13 @@ class DemoApp:
         self.store.mark_withdrawn(rec.id, "relayed")
         self.store.log_audit(hex(wit.nullifier), rec.wa_commitment,
                              rec.ct_commitment or "0x0", "relayed")
+        if self._verify_s is not None:
+            timings["verify_s"] = self._verify_s
         return {"recipient": res.recipient.hex(), "amount": res.amount,
                 "audit_was_new": res.audit_was_new,
                 "nullifier": hex(wit.nullifier),
-                "elapsed_s": round(time.time() - t0, 3)}
+                "elapsed_s": round(time.time() - t0, 3),
+                "timings": timings}
 
     def decrypt(self, commitment: str) -> dict:
         rec = self.store.get_deposit(commitment)

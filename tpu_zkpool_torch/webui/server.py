@@ -14,7 +14,8 @@ import json
 import os
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from tpu_zkpool_torch.webui.app import DEFAULT_RLWE_DIR, DEFAULT_STORE, DemoApp
+from tpu_zkpool_torch.webui.app import (DEFAULT_ARTIFACT, DEFAULT_RLWE_DIR,
+                                        DEFAULT_STORE, PROVERS, DemoApp)
 
 _STATIC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "static")
 
@@ -75,13 +76,22 @@ def main():
                     help="directory with rlwe_pk.json and "
                          "rlwe_sk_shares/share_{1,2}.json (default: the "
                          "reference checkout's, from its root)")
+    ap.add_argument("--prover", choices=PROVERS, default="stub",
+                    help="groth16 = real withdraw proofs on the device from "
+                         "the ACIR artifact (startup pays the setup)")
+    ap.add_argument("--artifact", default=DEFAULT_ARTIFACT,
+                    help="the withdraw circuit's ACIR artifact (.json) for "
+                         "--prover groth16 (default: the reference "
+                         "checkout's, from its root)")
     ap.add_argument("--device", default=None,
-                    help="the Merkle tree's device (default cuda)")
+                    help="the Merkle tree's and the prover's device "
+                         "(default cuda)")
     ap.add_argument("--fresh", action="store_true",
                     help="clear the persisted store on startup")
     args = ap.parse_args()
     serve(args.port, store_path=args.store, rlwe_dir=args.rlwe_dir,
-          device=args.device, fresh=args.fresh)
+          prover=args.prover, artifact=args.artifact, device=args.device,
+          fresh=args.fresh)
 
 
 if __name__ == "__main__":
