@@ -164,16 +164,33 @@ Phases, one line each:
              make_server: 8 deposits, 4 withdrawals to distinct recipients
              with real proofs (solved natively, proved through K1-K6,
              verified by the pool through P1 and P2; s of each and its
-             split), one proof re-verified on the host, three wrong
+             split), one proof re-verified on the host, four wrong
              proofs of one deposit refused (400): one flipped byte of A's
-             y (fails to parse), a real proof of another recipient and A
-             negated (both well formed, rejected by P1 and P2, whose
-             launches rise for each), then that deposit withdrawn for
+             y and B replaced by a twist point outside G2's subgroup (both
+             fail to parse, no P1 or P2 launch), a real proof of another
+             recipient and A negated (both well formed, rejected by P1
+             and P2, whose launches rise for each), then that deposit
+             withdrawn for
              real, a double spend (400, the typed nullifier error). The
              app's lock keeps two withdrawals of one note apart
              (tests/test_torch_webui.py sends them at once). (d) The naive
              pairing, pairing_product_is_one at B = 4 on planted true and
              false pairs, against pairing_ref;
+ 14 pod      the pod path across processes: two worker processes of this
+             script (--pod-worker RANK PORT DIR) on the one card, joined
+             by multihost.initialize over Gloo (NCCL takes one card a
+             rank), each with a (host 2, chip 4) pod_mesh of virtual
+             slots on cuda:0, the host axis the process boundary; inputs
+             from the parent as .npy under --out DIR/pod/ (deleted
+             after). Each runs phase 3's 2^18 G1 MSM cold and warm
+             (msm_grid_sharded_2d: one partial a process crosses, staged
+             through host memory for Gloo), equal to phase 3's oracle
+             point and phase 9's one-process (host 2, chip 4) point,
+             times the cross-process gather alone, and the 2^16-leaf
+             root over the eight slots of both processes, equal to phase
+             6's; init_process_group s, ms and K1-K7 launches a rank. A
+             worker that fails, outlives its timeout or prints no
+             sentinel fails the phase;
   5 launches every kernel's launch count on its main path, K1-K6 during
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
              proofs, K9 during phase 9's rdma products, P1 and P2 during
@@ -195,10 +212,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import importlib.util
 import json
 import os
 import random
+import socket
 import struct
 import subprocess
 import sys
@@ -237,7 +256,8 @@ from tpu_zkpool_torch.hash.poseidon_params import poseidon_hash_ref
 from tpu_zkpool_torch.merkle import TREE_DEPTH, MerkleTree, build_levels
 from tpu_zkpool_torch.msm import affine_tree, grid, kernels
 from tpu_zkpool_torch.msm import tree_kernels as tkern
-from tpu_zkpool_torch.parallel import Mesh, ntt_rdma, ntt_sharded
+from tpu_zkpool_torch.parallel import (Mesh, initialize, ntt_rdma,
+                                       ntt_sharded, pod_mesh)
 from tpu_zkpool_torch.parallel.merkle_sharded import root_sharded
 from tpu_zkpool_torch.parallel.msm_sharded import (msm_grid_sharded,
                                                    msm_grid_sharded_2d)
@@ -1368,6 +1388,7 @@ def phase_merkle(device, clock_hz, products, inverses, log2n=16,
             bad_nodes += poseidon_hash_ref([a, b]) != node
     info["bad_nodes"] = bad_nodes
     info["root_is_top"] = bool(torch.equal(root, levels[-1][0]))
+    info["root"] = str(int(FR.from_mont(root.cpu())))
     # the tree of host inserts: device-built root, proofs, tampering
     tl = torch.as_tensor(FR.to_mont(tree_leaves), device=device)
     _, troot = build_levels(tl, 16)
@@ -2804,11 +2825,12 @@ def withdraw_app(device, out_dir, artifact, seed=1301):
     HTTP server: WD_DEPOSITS deposits, WD_WITHDRAWS withdrawals to distinct
     recipients, each solved natively, proved on the card and verified by
     the pool through ``verify_batch`` (P1, P2), with its split; one proof
-    of each checked again by ``refimpl`` on the host; three withdrawals of
+    of each checked again by ``refimpl`` on the host; four withdrawals of
     one deposit with wrong proofs (400, "proof verification failed"): one
-    flipped byte of A's y, which fails to parse, and two well-formed ones
-    that only the pairing check refuses, a real proof of another recipient
-    and A negated (P1 and P2 launched for each); the deposit, still
+    flipped byte of A's y and B replaced by a twist point outside G2's
+    subgroup, which fail to parse (no P1 or P2 launch), and two well-formed
+    ones that only the pairing check refuses, a real proof of another
+    recipient and A negated (P1 and P2 launched for each); the deposit, still
     unspent, then withdrawn with a real proof; a double spend (400, the
     typed nullifier error). Launches of K1-K7, P1, P2 over the requests."""
     rng = random.Random(seed)
@@ -2839,6 +2861,11 @@ def withdraw_app(device, out_dir, artifact, seed=1301):
             y = int.from_bytes(proof[32:64], "big")
             proof = (proof[:32] + (FP_MOD - y).to_bytes(32, "big")
                      + proof[64:])
+        elif tamper["how"] == "b_subgroup":  # B on the twist, outside G2
+            (a0, a1), (b0, b1) = pr.twist_point_outside_g2(seed)
+            proof = (proof[:64] + b"".join(v.to_bytes(32, "big")
+                                           for v in (a1, a0, b1, b0))
+                     + proof[192:])
         sent.append((proof, wit))
         return proof
 
@@ -2858,13 +2885,14 @@ def withdraw_app(device, out_dir, artifact, seed=1301):
         checks["withdrawals"] = all(
             c == 200 and w["recipient"] == "0000" + r[:60]
             for (_, c, w), r in zip(wds, rcpts))
-        # three wrong proofs of one deposit, each refused by the pool's
-        # verifier: one flipped byte of A's y (off the curve, so it fails
-        # to parse), a real proof of another recipient and A negated (both
-        # well formed, so P1 and P2 reject them)
+        # four wrong proofs of one deposit, each refused by the pool's
+        # verifier: one flipped byte of A's y (off the curve) and B on the
+        # twist outside G2's subgroup, which fail to parse, a real proof of
+        # another recipient and A negated (both well formed, so P1 and P2
+        # reject them)
         victim = deps[WD_WITHDRAWS]["commitment"]
         rejected = {}
-        for how in ("flip", "recipient", "neg_a"):
+        for how in ("flip", "recipient", "neg_a", "b_subgroup"):
             before = dict(pkern.LAUNCHES)
             tamper["how"] = how
             code, err = _http(base, "POST", "/api/withdraw",
@@ -2877,6 +2905,9 @@ def withdraw_app(device, out_dir, artifact, seed=1301):
         checks["paired"] = all(rejected[how][k] > 0
                                for how in ("recipient", "neg_a")
                                for k in pkern.LAUNCHES)
+        checks["unpaired"] = all(rejected[how][k] == 0
+                                 for how in ("flip", "b_subgroup")
+                                 for k in pkern.LAUNCHES)
         fresh_s, code, w = _timed_http(base, "POST", "/api/withdraw",
                                        {"commitment": victim,
                                         "recipient": rcpts[-1]})
@@ -2890,8 +2921,9 @@ def withdraw_app(device, out_dir, artifact, seed=1301):
                 perrors.ErrorCode.NULLIFIER_ALREADY_USED])
         launches = dict(kernels.LAUNCHES, poseidon=hkern.LAUNCHES["poseidon"],
                         **pkern.LAUNCHES)    # the main path ends here
-    # the proofs sent: the flipped one no longer parses, the others do; the
-    # first, against refimpl's verify on the host
+    # the proofs sent: the flipped one and the one with B outside G2 no
+    # longer parse, the others do; the first, against refimpl's verify on
+    # the host
     parsed = []
     for proof, _ in sent:
         try:
@@ -2899,7 +2931,7 @@ def withdraw_app(device, out_dir, artifact, seed=1301):
         except (AssertionError, ValueError):
             parsed.append(None)
     checks["sent"] = [p is not None for p in parsed] == (
-        [True] * WD_WITHDRAWS + [False, True, True, True, True])
+        [True] * WD_WITHDRAWS + [False, True, True, False, True, True])
     pf, wit = parsed[0], sent[0][1]
     checks["host_verify"] = verify(app.circuit.vk, (pf.ar, pf.bs, pf.krs),
                                    wit.public_inputs())
@@ -3186,20 +3218,22 @@ def _g1_point(row):
 def phase_msm_sharded(device, g1):
     """Phase 3's 2^18 G1 MSM with the points sharded over dp = 2, 4, 8 and
     over a (host 2, chip 4) mesh (``hierarchical_fold``), each against
-    phase 3's native-oracle point; cold and warm ms by the host clock."""
+    phase 3's native-oracle point; cold and warm ms by the host clock.
+    Returns the results and each case's affine point."""
     rows = torch.stack(g1["pts_dev"], 1)[:, :, None, :].contiguous()
     limbs = g1["limbs"]
     cases = [(f"dp={D}", Mesh.virtual((D,), ("dp",), device),
               msm_grid_sharded) for D in (2, 4, 8)]
     cases.append(("host=2 chip=4", Mesh.virtual((2, 4), ("host", "chip"),
                                                 device), msm_grid_sharded_2d))
-    res = {}
+    res, points = {}, {}
     for name, mesh, msm in cases:
         cold, out = _host_ms(lambda: msm(rows, limbs, mesh))
         warm, out2 = _host_ms(lambda: msm(rows, limbs, mesh))
+        points[name] = _g1_point(out)
         res[name] = dict(cold_ms=cold, warm_ms=warm, ok=(
-            _g1_point(out) == _g1_point(out2) == g1["want"]))
-    return res
+            points[name] == _g1_point(out2) == g1["want"]))
+    return res, points
 
 
 def phase_legs(device, g1, n=1 << 14, seed=113):
@@ -3240,6 +3274,148 @@ def phase_dp_step(device, log2n=16, D=8):
     return dict(leaves=1 << log2n, D=D, cold_ms=cold, warm_ms=warm,
                 k7_launches=launches, ok=torch.equal(root, want)
                 and torch.equal(root2, want))
+
+
+# ------------------------------------ the pod path across processes: 14
+
+POD_CHIPS = 4                  # virtual slots a process on the one card
+POD_TIMEOUT_S = 300            # each worker's own bound
+POD_GATHER_REPS = 20
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _point_json(p):
+    return None if p is None else [str(v) for v in p]
+
+
+def phase_pod(device, out_dir, g1, points9, merkle):
+    """Phase 14: two worker processes of this script (``--pod-worker``) on
+    the one card, joined by ``multihost.initialize`` over Gloo (NCCL takes
+    one card a rank), each with a (host 2, chip 4) ``pod_mesh`` of four
+    virtual slots on cuda:0. Their inputs are phase 3's 2^18 G1 points and
+    scalars and phase 6's 2^16 leaves, written here as .npy files (deleted
+    after); each worker holds its MSM to phase 3's native-oracle point and
+    phase 9's single-process (host 2, chip 4) point, and its root to phase
+    6's. A worker that fails, outlives its timeout or prints no sentinel
+    raises here."""
+    d = os.path.abspath(os.path.join(out_dir, "pod"))
+    os.makedirs(d, exist_ok=True)
+    torch.cuda.empty_cache()           # the card's memory for the workers
+    try:
+        rows = torch.stack(g1["pts_dev"], 1)[:, :, None, :]
+        np.save(os.path.join(d, "rows.npy"), rows.cpu().numpy())
+        np.save(os.path.join(d, "limbs.npy"), g1["limbs"].cpu().numpy())
+        np.save(os.path.join(d, "leaves.npy"), random_mont(
+            (1 << 16,), device, seed=16).cpu().numpy())
+        with open(os.path.join(d, "want.json"), "w") as f:
+            json.dump(dict(oracle=_point_json(g1["want"]),
+                           single=_point_json(points9["host=2 chip=4"]),
+                           root=merkle["root"]), f)
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pod-worker",
+             str(r), str(port), d], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=POD_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall_s = time.perf_counter() - t0
+    finally:
+        for name in os.listdir(d):
+            os.remove(os.path.join(d, name))
+        os.rmdir(d)
+    ranks = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        with open(os.path.join(out_dir, f"pod_worker{r}.log"), "w") as f:
+            f.write(out)
+        if p.returncode != 0 or f"POD{r}_OK" not in out:
+            raise AssertionError(f"pod worker {r} failed (exit "
+                                 f"{p.returncode}):\n{out[-4000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("POD ")]
+        ranks.append(json.loads(line[-1][len("POD "):]))
+    return dict(ranks=ranks, wall_s=wall_s,
+                ok=all(r["ok"] for r in ranks))
+
+
+def pod_worker(rank, port, d, device="cuda:0"):
+    """One process of phase 14 (``--pod-worker RANK PORT DIR``): start the
+    runtime, build the pod mesh, run the 2^18 G1 MSM (host 2, chip 4) cold
+    and warm, time the cross-process gather of one partial a process (the
+    host axis of ``hierarchical_fold``: W = 20 window sums of (3, 1, 16)
+    int64, staged through host memory for Gloo), and the 2^16-leaf root
+    over the eight slots of both processes; print one "POD" JSON line, and
+    the sentinel only if every check held."""
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    initialize(f"127.0.0.1:{port}", num_processes=2, process_id=rank,
+               backend="gloo",
+               timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    init_s = time.perf_counter() - t0
+    mesh = pod_mesh(device=device, chips=POD_CHIPS)
+
+    def load(name):
+        return torch.from_numpy(np.load(os.path.join(d, name + ".npy"))) \
+            .to(device)
+
+    rows, limbs, leaves = load("rows"), load("limbs"), load("leaves")
+    with open(os.path.join(d, "want.json")) as f:
+        want = json.load(f)
+    kernels.reset_launches()
+    hkern.reset_launches()               # the pod path starts here
+    cold, out = _host_ms(lambda: msm_grid_sharded_2d(rows, limbs, mesh))
+    warm, out2 = _host_ms(lambda: msm_grid_sharded_2d(rows, limbs, mesh))
+    points = [_point_json(_g1_point(o)) for o in (out, out2)]
+    # the host axis's gather alone: one partial a process, on its first slot
+    part = torch.full((grid.n_windows(13), 3, 1, 16), rank + 1,
+                      dtype=torch.int64, device=device)
+    vals = [part if s.local and mesh.coord(s, "chip") == 0 else None
+            for s in mesh.slots]
+    gather_ms = []
+    for _ in range(POD_GATHER_REPS):
+        ms, g = _host_ms(lambda: mesh.all_gather(vals, "host"))
+        gather_ms.append(ms)
+    gathered_ok = (g[0] is None if rank else bool(
+        (g[0][1] == 2).all() and (g[0][0] == 1).all()))
+    root_cold, root = _host_ms(lambda: root_sharded(
+        leaves, mesh, axis=("host", "chip")))
+    root_warm, root2 = _host_ms(lambda: root_sharded(
+        leaves, mesh, axis=("host", "chip")))
+    launches = dict(kernels.LAUNCHES, poseidon=hkern.LAUNCHES["poseidon"])
+    roots = [str(int(FR.from_mont(t.cpu()))) for t in (root, root2)]
+    checks = dict(
+        msm_oracle=points == [want["oracle"]] * 2,
+        msm_single=points[0] == want["single"],
+        gather=gathered_ok,
+        root=roots == [want["root"]] * 2,
+        launches=all(launches[k] > 0 for k in (
+            "prefix_rows", "wsum", "addn", "scale_add", "poseidon"))
+        and (launches["horner"] > 0) == (rank == 0))
+    ok = all(checks.values())
+    print("POD " + json.dumps(dict(
+        rank=rank, slots=[s.index for s in mesh.slots if s.local],
+        init_s=init_s, msm_cold_ms=cold, msm_warm_ms=warm,
+        gather_ms=dict(min=min(gather_ms), median=float(np.median(
+            gather_ms)), bytes=part.numel() * 8),
+        root_cold_ms=root_cold, root_warm_ms=root_warm, launches=launches,
+        checks=checks, ok=ok)), flush=True)
+    torch.distributed.destroy_process_group()
+    if ok:
+        print(f"POD{rank}_OK", flush=True)
+    return 0 if ok else 1
 
 
 def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
@@ -3462,6 +3638,9 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--pod-worker" in argv:         # one process of phase 14
+        i = argv.index("--pod-worker")
+        return pod_worker(int(argv[i + 1]), argv[i + 2], argv[i + 3])
     os.makedirs(out_dir, exist_ok=True)
     device = torch.device("cuda", 0)
 
@@ -3638,7 +3817,7 @@ def main(argv):
         raise AssertionError("the sharded NTT differs from the single-device "
                              "NTT or the schoolbook, or ran K9 other than "
                              "3 log2(D) times a product")
-    mesh_msm = phase_msm_sharded(device, g1)
+    mesh_msm, mesh_points = phase_msm_sharded(device, g1)
     log(9, "msm " + json.dumps(mesh_msm))
     if not all(v["ok"] for v in mesh_msm.values()):
         raise AssertionError("a sharded MSM differs from the native oracle")
@@ -3743,6 +3922,27 @@ def main(argv):
             f"{withdraw['app']['checks']}, "
             f"{withdraw['naive_pairing']['checks']}")
 
+    # ---- 14: the pod path: two processes on the one card, a (host 2,
+    # chip 4) pod mesh whose host axis is the process boundary
+    t0 = time.perf_counter()
+    pod = phase_pod(device, out_dir, g1, mesh_points, merkle)
+    pod["phase_s"] = time.perf_counter() - t0
+    single = mesh_msm["host=2 chip=4"]
+    for r in pod["ranks"]:
+        log(14, f"rank {r['rank']} (slots {r['slots']}): init_process_group"
+                f" {r['init_s']:.3f} s; 2^18 pod MSM cold "
+                f"{r['msm_cold_ms']:.1f} ms, warm {r['msm_warm_ms']:.1f} ms "
+                f"(phase 9 in one process: cold {single['cold_ms']:.1f}, "
+                f"warm {single['warm_ms']:.1f} ms); cross-process gather "
+                f"{json.dumps(r['gather_ms'])} ms; 2^16 root cold "
+                f"{r['root_cold_ms']:.1f}, warm {r['root_warm_ms']:.1f} ms; "
+                f"launches {json.dumps(r['launches'])}; checks "
+                f"{json.dumps(r['checks'])}")
+    log(14, f"pod: two workers in {pod['wall_s']:.1f} s, phase "
+            f"{pod['phase_s']:.1f} s, ok {pod['ok']}")
+    if not pod["ok"]:
+        raise AssertionError(f"the pod path failed: {pod['ranks']}")
+
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
     # tree proofs: K8, the sharded NTT's rdma products: K9, the verify:
     # P1 and P2; the audit path: K1-K7, P1, P2 and P3; the withdrawals
@@ -3789,7 +3989,7 @@ def main(argv):
             f"{k[0]}/{k[1]}": v for k, v in times.items()}, msm=msm,
             prove=info, merkle=merkle, chain=chain, tree=tree,
             mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp),
-            verify=ver, audit=audit, pool=dict(
+            verify=ver, audit=audit, pod=pod, pool=dict(
                 curves=curves, journey=journey, at_size=sized, wire=wire,
                 launches=pool_launches), withdraw=withdraw),
             f, indent=1, default=str)

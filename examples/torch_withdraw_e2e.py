@@ -27,7 +27,6 @@ the script raises. ``--artifact`` defaults to the reference checkout's
 
 import argparse
 import os
-import struct
 import sys
 import time
 
@@ -41,7 +40,7 @@ from tpu_zkpool_torch.groth16 import solver_native  # noqa: E402
 from tpu_zkpool_torch.groth16.acir import load_artifact  # noqa: E402
 from tpu_zkpool_torch.groth16.cache import cached_setup  # noqa: E402
 from tpu_zkpool_torch.groth16.gnark_fmt import (  # noqa: E402
-    emit_proof, parse_proof)
+    emit_proof, parse_proof, parse_public_witness)
 from tpu_zkpool_torch.groth16.prove import (  # noqa: E402
     DeviceProvingKey, prove)
 from tpu_zkpool_torch.groth16.verify import verify_batch  # noqa: E402
@@ -113,9 +112,7 @@ def main(argv=None) -> dict:
 
     def verifier(proof_bytes, witness_bytes):
         pf = parse_proof(proof_bytes)
-        n_pub = struct.unpack(">I", witness_bytes[:4])[0]
-        vals = [int.from_bytes(witness_bytes[12 + 32 * i: 44 + 32 * i], "big")
-                for i in range(n_pub)]
+        vals = parse_public_witness(witness_bytes)
         return bool(verify_batch(vk, [(pf.ar, pf.bs, pf.krs)], [vals],
                                  device=dev)[0])
 

@@ -32,7 +32,7 @@ from tpu_zkpool.protocol import storage as jstg
 from tpu_zkpool.refimpl import groth16_ref as jg16
 
 from tpu_zkpool_torch import config as cfg
-from tpu_zkpool_torch.fields.bn254 import FR_MOD, G1_GX, G1_GY
+from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD, G1_GX, G1_GY
 from tpu_zkpool_torch.groth16 import cache
 from tpu_zkpool_torch.groth16 import gnark_fmt as gf
 from tpu_zkpool_torch.merkle.tree import MerkleTree
@@ -286,15 +286,42 @@ def test_parse_vk_and_public_witness_equal_jax():
         v.to_bytes(32, "big") for v in vals)
     assert gf.parse_public_witness(blob) == jgf.parse_public_witness(
         blob) == vals
-    with pytest.raises(AssertionError):
+    with pytest.raises(ValueError, match="trailing"):   # JAX asserts
         gf.parse_vk(raw + b"\x00")
     with pytest.raises(AssertionError):
         jgf.parse_vk(raw + b"\x00")
 
 
+def _port_refuses(parsed, raw):
+    """Whether a value JAX's parser returned holds what the port's checks
+    refuse: a coordinate not below p, a G2 point outside the order-r
+    subgroup, or a proof's commitments read past the end of its bytes."""
+    ints, g2s = [], []
+
+    def walk(v):
+        if isinstance(v, int):
+            ints.append(v)
+        elif isinstance(v, (tuple, list)):
+            if len(v) == 2 and all(isinstance(c, tuple) and len(c) == 2
+                                   and all(isinstance(w, int) for w in c)
+                                   for c in v):
+                g2s.append(v)
+            for w in v:
+                walk(w)
+
+    walk(parsed)
+    past_end = (len(parsed) == 5 and 260 + 64 * len(parsed[3]) > len(raw))
+    return past_end or any(v >= FP_MOD for v in ints) or any(
+        pr.g2_mul(FR_MOD, q) is not None for q in g2s
+        if max(max(c) for c in q) < FP_MOD)
+
+
 def test_malformed_bytes_fail_the_same_way():
-    """Flipped bytes in a proof and a VK: the port raises the same
-    exception type as JAX, or parses the same values."""
+    """Flipped bytes in a proof and a VK: where JAX parses, the port parses
+    the same values or refuses with ``ValueError`` what its stricter checks
+    refuse (a coordinate not below p, G2 outside its subgroup, points past
+    the end); where JAX raises, the port raises too (``ValueError`` where
+    JAX asserts)."""
     a, b2, c, cm, pok = _points()
     proof = gf.emit_proof(a, b2, c, [cm], pok)
     vk = _vk_bytes()
@@ -305,8 +332,15 @@ def test_malformed_bytes_fail_the_same_way():
                 rng.randrange(len(raw)) for _ in range(6)]:
             bad = bytearray(raw)
             bad[pos] ^= 1 << rng.randrange(8)
-            assert _outcome(fns[0], bytes(bad)) == _outcome(
-                fns[1], bytes(bad)), pos
+            got = _outcome(fns[0], bytes(bad))
+            want = _outcome(fns[1], bytes(bad))
+            if want[0] == "ok" and got[0] == "raised":
+                assert got[1] == "ValueError", pos
+                assert _port_refuses(want[1], bytes(bad)), pos
+            elif want[0] == "raised":
+                assert got in (want, ("raised", "ValueError")), pos
+            else:
+                assert got == want, pos
 
 
 def _r1cs(mod):

@@ -19,7 +19,9 @@ SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
            os.path.join("examples", "torch_withdraw_e2e.py"),
            os.path.join("examples", "torch_demo_cli.py"),
            os.path.join("examples", "torch_audit_e2e.py"),
-           os.path.join("scripts", "withdraw_phase13.py")]
+           os.path.join("scripts", "withdraw_phase13.py"),
+           os.path.join("scripts", "pod_phase14.py"),
+           os.path.join("scripts", "pod_nccl_probe.py")]
 
 
 def _port_sources():
@@ -95,6 +97,25 @@ def test_port_imports_no_jax_and_no_jax_package():
         for mod in _imported(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "tpu_zkpool"), (path, mod)
+
+
+def test_pod_worker_imports_only_the_port():
+    """The two-process test's worker script (the string the parent writes
+    out) imports the port and nothing of JAX."""
+    path = os.path.join(ROOT, "tests", "test_torch_multihost.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    src = next(node.value.value for node in tree.body
+               if isinstance(node, ast.Assign)
+               and getattr(node.targets[0], "id", None) == "_WORKER")
+    worker = ast.parse(src % dict(repo=ROOT, c=5, lanes=32, nbits=20,
+                                  depth=5))
+    mods = {a.name for n in ast.walk(worker) if isinstance(n, ast.Import)
+            for a in n.names} | {n.module for n in ast.walk(worker)
+                                 if isinstance(n, ast.ImportFrom)}
+    assert "tpu_zkpool_torch.parallel" in mods
+    assert not {m.split(".")[0] for m in mods} & {"jax", "jaxlib",
+                                                  "tpu_zkpool"}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -213,6 +234,61 @@ def test_mesh_and_sharded_ntt_raise_without_cuda(monkeypatch):
     assert [s.device.type for s in mesh.slots] == ["cpu", "cpu"]
     assert [s.stream for s in mesh.slots] == [None, None]
     assert negacyclic_mul_sharded(a, a, mesh).device.type == "cpu"
+
+
+def _fake_runtime(monkeypatch, rank, cuda):
+    """torch.distributed as a 2-process runtime seen from ``rank``, and
+    ``cuda`` CUDA devices, without starting anything."""
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: rank)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cuda)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+
+
+def test_pod_mesh_asks_for_its_own_card(monkeypatch):
+    """In a multi-process run ``pod_mesh()`` takes cuda:LOCAL_RANK: it
+    raises without CUDA, and raises rather than wrap rank 1 onto the one
+    card of a machine."""
+    from tpu_zkpool_torch.parallel.multihost import pod_mesh
+    _fake_runtime(monkeypatch, 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pod_mesh()
+    _fake_runtime(monkeypatch, 1, 1)
+    with pytest.raises(ValueError, match="cuda:1"):
+        pod_mesh()
+
+
+def test_cross_process_axis_refuses_ppermute_graphed_and_k9():
+    """On a (host, chip) mesh whose host axis is the process boundary,
+    ``ppermute``, ``graphed``, the sharded NTT and K9's partner read raise a
+    ValueError naming the axis; within a process ``ppermute`` still runs."""
+    import numpy as np
+    from tpu_zkpool_torch.parallel import Mesh, ntt_rdma, forward_sharded
+    grid = np.full((2, 2), "cpu", dtype=object)
+    mesh = Mesh(grid, ("host", "chip"), processes=[[0, 0], [1, 1]])
+    assert [s.local for s in mesh.slots] == [True, True, False, False]
+    assert [s.device for s in mesh.slots[2:]] == [None, None]
+    assert mesh.crossing("host") and not mesh.crossing("chip")
+    vals = [torch.full((2,), float(i)) for i in range(2)] + [None, None]
+    across = [mesh.partner(s, "host", 1).index for s in mesh.slots]
+    within = [mesh.partner(s, "chip", 1).index for s in mesh.slots]
+    with pytest.raises(ValueError, match="'host'.*crosses processes"):
+        mesh.ppermute(vals, across)
+    out = mesh.ppermute(vals, within)
+    assert [float(t[0]) for t in out[:2]] == [1.0, 0.0] and out[2:] == [
+        None, None]
+    with pytest.raises(ValueError, match="graphed over axis.*'host'"):
+        mesh.graphed("k", lambda t: t, torch.zeros(2))
+    with pytest.raises(ValueError, match="sharded NTT over axis 'host'"):
+        forward_sharded(torch.zeros((1, 8), dtype=torch.int32), mesh,
+                        axis="host")
+    with pytest.raises(ValueError, match="K9's partner read over axis"):
+        ntt_rdma.exchange_butterfly(mesh, vals, vals, [True] * 4, across)
+    assert mesh.shard(torch.arange(4.), (("host", "chip"),))[2:] == [
+        None, None]
 
 
 def test_exchange_butterfly_wrapper_rejects_bad_inputs():

@@ -6,21 +6,35 @@ Every case of ``tests/test_protocol.py`` runs on the port over a
 flows' blobs equal JAX's byte for byte. The JAX functions that read a tree
 get a stand-in whose ``get_root`` and ``get_proof`` answer from fixed lists,
 so no JAX tree is ever built. The committed withdraw vector
-(``tests/vectors.py``) is rebuilt end to end on the port's tree.
+(``tests/vectors.py``) is rebuilt end to end on the port's tree. The wire
+format's input checks (``groth16/gnark_fmt.py``), the verify's public-input
+count and the app's withdraw header are held to their refusals, and valid
+proofs and VKs to JAX's parser.
 """
 
+import dataclasses
 import random
+import struct
+import tracemalloc
+import types
 
 import pytest
+import torch
 
+from tpu_zkpool.groth16 import gnark_fmt as jgf
 from tpu_zkpool.protocol import flows as jflows
 from tpu_zkpool.protocol import state as jst
 
+from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD, G1_GX, G1_GY
+from tpu_zkpool_torch.groth16 import gnark_fmt as gf
+from tpu_zkpool_torch.groth16 import verify as tv
 from tpu_zkpool_torch.merkle import MerkleTree
 from tpu_zkpool_torch.protocol import flows
 from tpu_zkpool_torch.protocol import state as st
 from tpu_zkpool_torch.protocol.relayer import Relayer
 from tpu_zkpool_torch.protocol.state import Pool, PoolError
+from tpu_zkpool_torch.refimpl import pairing_ref as pr
+from tpu_zkpool_torch.webui.app import WithdrawCircuit
 
 import vectors
 
@@ -226,3 +240,113 @@ def test_committed_withdraw_vector_on_the_port_tree():
                                  vectors.WA_COMMITMENT]
     assert w.siblings == vectors.SIBLINGS
     assert w.acir_inputs() == vectors.withdraw_inputs()
+
+
+# ------------------------------------------ the wire format's input checks
+
+G1GEN = (G1_GX, G1_GY)
+
+
+def _proof_points():
+    return (pr.g1_mul(3, G1GEN), pr.g2_mul(7, pr.G2_GEN),
+            pr.g1_mul(5, G1GEN))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("a_x_plus_p", "not below p"), ("b_outside_subgroup", "subgroup"),
+    ("a_off_curve", "not on G1")])
+def test_parse_proof_rejects_bad_points(case, match):
+    """Each bad point raises ValueError. JAX's parser takes the first two
+    (it checks neither the range nor the subgroup) and asserts on the
+    third."""
+    a, b2, c = _proof_points()
+    raw = bytearray(gf.emit_proof(a, b2, c))
+    if case == "a_x_plus_p":
+        raw[0:32] = (a[0] + FP_MOD).to_bytes(32, "big")
+    elif case == "b_outside_subgroup":
+        raw = bytearray(gf.emit_proof(a, pr.twist_point_outside_g2(16), c))
+    else:
+        raw[32:64] = ((a[1] + 1) % FP_MOD).to_bytes(32, "big")
+    with pytest.raises(ValueError, match=match):
+        gf.parse_proof(bytes(raw))
+    if case == "a_off_curve":
+        with pytest.raises(AssertionError):
+            jgf.parse_proof(bytes(raw))
+    else:
+        assert jgf.parse_proof(bytes(raw)).krs == c
+
+
+def _g1b(p):
+    return p[0].to_bytes(32, "big") + p[1].to_bytes(32, "big")
+
+
+def _g2b(q):
+    (a0, a1), (b0, b1) = q
+    return b"".join(v.to_bytes(32, "big") for v in (a1, a0, b1, b0))
+
+
+def test_valid_proofs_and_vks_parse_as_jax():
+    a, b2, c = _proof_points()
+    cm, pok = pr.g1_mul(11, G1GEN), pr.g1_mul(13, G1GEN)
+    for raw in (gf.emit_proof(a, b2, c), gf.emit_proof(a, b2, c, [cm], pok),
+                gf.emit_proof(None, b2, c)):
+        assert dataclasses.astuple(gf.parse_proof(raw)) == \
+            dataclasses.astuple(jgf.parse_proof(raw))
+    g1 = [pr.g1_mul(k, G1GEN) for k in (2, 3, 5, 7, 11)]
+    g2 = [pr.g2_mul(k, pr.G2_GEN) for k in (19, 23, 29, 31, 37)]
+    vk = (_g1b(g1[0]) + _g1b(g1[1]) + _g2b(g2[0]) + _g2b(g2[1])
+          + _g1b(g1[2]) + _g2b(g2[2]) + struct.pack(">I", 2)
+          + _g1b(g1[3]) + _g1b(g1[4]) + struct.pack(">I", 1)
+          + struct.pack(">II", 1, 1) + struct.pack(">I", 1)
+          + _g2b(g2[3]) + _g2b(g2[4]))
+    got = gf.parse_vk(vk)
+    assert dataclasses.astuple(got) == dataclasses.astuple(jgf.parse_vk(vk))
+    assert got.beta_g2 == g2[0] and got.commitment_keys == [(g2[3], g2[4])]
+
+
+@pytest.mark.parametrize("header,n_vals,ok", [
+    ((5, 0, 5), 5, True), ((5, 1, 5), 5, False), ((4, 0, 5), 5, False),
+    ((5, 0, 5), 4, False)])
+def test_parse_public_witness_checks_its_header(header, n_vals, ok):
+    vals = [random.Random(9).getrandbits(254) for _ in range(n_vals)]
+    blob = struct.pack(">III", *header) + b"".join(
+        v.to_bytes(32, "big") for v in vals)
+    if ok:
+        assert gf.parse_public_witness(blob) == jgf.parse_public_witness(
+            blob) == vals
+    else:
+        with pytest.raises(ValueError, match="public witness"):
+            gf.parse_public_witness(blob)
+
+
+def test_verify_batch_refuses_wrong_public_counts():
+    """A VK of two public inputs: one list short, one long, and a list
+    count that differs from the proofs' are refused before any pairing; a
+    committed proof's derived input counts as one."""
+    vk = types.SimpleNamespace(gamma_abc=[G1GEN] * 3)
+    proof = _proof_points()
+    for pubs in ([[1]], [[1, 2, 3]], [[1, 2], [1, 2]]):
+        with pytest.raises(ValueError, match="public"):
+            tv.verify_batch(vk, [proof], pubs, device="cpu")
+    cm, pok = pr.g1_mul(11, G1GEN), pr.g1_mul(13, G1GEN)
+    tv.check_public_counts(vk, [proof, proof + (cm, pok)], [[1, 2], [1]])
+    with pytest.raises(ValueError, match="proof 1: 3 public inputs"):
+        tv.check_public_counts(vk, [proof + (cm, pok)] * 2, [[1], [1, 2]])
+
+
+@pytest.mark.parametrize("header", [(2**32 - 1, 0, 5), (4, 0, 4),
+                                    (5, 1, 5), (5, 0, 2**32 - 1)])
+def test_withdraw_verifier_refuses_other_headers(header):
+    """The app's withdraw verifier wants the (5, 0, 5) header: any other
+    is False before anything is allocated or verified."""
+    a, b2, c = _proof_points()
+    blob = struct.pack(">III", *header) + bytes(32 * 5)
+    stub = types.SimpleNamespace(vk=None, device=torch.device("cpu"))
+    tracemalloc.start()
+    try:
+        assert WithdrawCircuit.verify(stub, gf.emit_proof(a, b2, c),
+                                      blob) is False
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 1 << 20

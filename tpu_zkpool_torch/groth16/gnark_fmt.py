@@ -5,9 +5,17 @@ port's ``refimpl/pairing_ref``).
 
 Layouts reverse-engineered from the committed artifacts
 (``noir_circuit/target/shielded_pool_verifier.vk``,
-``audit_circuit/target/*.vk``) and validated by on-curve/subgroup checks.
-All curve coordinates are 32-byte big-endian; G2 (Fp2) coordinates are
-serialized imaginary-part-first (a1 | a0).
+``audit_circuit/target/*.vk``). All curve coordinates are 32-byte
+big-endian; G2 (Fp2) coordinates are serialized imaginary-part-first
+(a1 | a0).
+
+Every point read is checked, and a bad one raises ``ValueError`` (never an
+``assert``, which ``python -O`` strips): each coordinate must be below p, a
+G1 point on y^2 = x^3 + 3 (the whole curve is the order-r group), a G2
+point on the twist and in its order-r subgroup (r Q = O). All zeros is the
+identity. A public witness blob must declare no secret values and as many
+public values as its vector holds. Departures from the JAX copy, which
+asserts on-curve only and reads no count.
 
 VerifyingKey (uncompressed gnark `WriteTo`):
   [0]    Alpha  G1   (64)
@@ -38,24 +46,35 @@ from tpu_zkpool_torch.fields.bn254 import FP_MOD
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
 
 
+def _coords(b: bytes, off: int, n: int) -> list:
+    """n 32-byte big-endian coordinates at ``off``, each checked < p."""
+    if len(b) < off + 32 * n:
+        raise ValueError(f"a point at {off} runs past the end ({len(b)} B)")
+    vals = [int.from_bytes(b[off + 32 * i: off + 32 * i + 32], "big")
+            for i in range(n)]
+    if max(vals) >= FP_MOD:
+        raise ValueError(f"a coordinate at {off} is not below p")
+    return vals
+
+
 def _g1(b: bytes, off: int):
-    x = int.from_bytes(b[off : off + 32], "big")
-    y = int.from_bytes(b[off + 32 : off + 64], "big")
+    x, y = _coords(b, off, 2)
     if x == 0 and y == 0:
         return None
-    assert (y * y - (x**3 + 3)) % FP_MOD == 0, f"not on G1 at {off}"
+    if (y * y - (x**3 + 3)) % FP_MOD:
+        raise ValueError(f"not on G1 at {off}")
     return (x, y)
 
 
 def _g2(b: bytes, off: int):
-    a1 = int.from_bytes(b[off : off + 32], "big")
-    a0 = int.from_bytes(b[off + 32 : off + 64], "big")
-    b1 = int.from_bytes(b[off + 64 : off + 96], "big")
-    b0 = int.from_bytes(b[off + 96 : off + 128], "big")
+    a1, a0, b1, b0 = _coords(b, off, 4)
     q = ((a0, a1), (b0, b1))
     if q == ((0, 0), (0, 0)):
         return None
-    assert pr.g2_is_on_curve(q), f"not on G2 at {off}"
+    if not pr.g2_is_on_curve(q):
+        raise ValueError(f"not on G2 at {off}")
+    if pr.g2_mul(pr.R_ORDER, q) is not None:
+        raise ValueError(f"not in G2's order-r subgroup at {off}")
     return q
 
 
@@ -102,7 +121,8 @@ def parse_vk(raw: bytes) -> GnarkVK:
         gs = _g2(raw, off + 128)
         keys.append((g, gs))
         off += 256
-    assert off == len(raw), f"vk trailing bytes: {len(raw) - off}"
+    if off != len(raw):
+        raise ValueError(f"vk trailing bytes: {len(raw) - off}")
     return GnarkVK(alpha, beta1, beta2, gamma2, delta1, delta2, K, keys, committed)
 
 
@@ -130,8 +150,16 @@ def parse_proof(raw: bytes) -> GnarkProof:
 
 
 def parse_public_witness(raw: bytes) -> list:
+    """The public values of a witness blob; raises ``ValueError`` unless it
+    declares no secret values, ``nb_pub`` equals its vector's length and
+    the bytes hold that vector."""
     nb_pub, nb_sec, vec_len = struct.unpack(">III", raw[:12])
-    assert nb_sec == 0
+    if nb_sec != 0 or nb_pub != vec_len:
+        raise ValueError(f"public witness header ({nb_pub}, {nb_sec}, "
+                         f"{vec_len}): want (n, 0, n)")
+    if len(raw) != 12 + 32 * vec_len:
+        raise ValueError(f"public witness of {vec_len} values in "
+                         f"{len(raw)} B")
     vals = []
     for i in range(vec_len):
         vals.append(int.from_bytes(raw[12 + 32 * i : 44 + 32 * i], "big"))

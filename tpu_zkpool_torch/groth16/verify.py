@@ -91,30 +91,49 @@ def _l_pub(vk, proof, pub):
     return native_bridge.g1_msm(ks, pts)
 
 
+def check_public_counts(vk, proofs: list, publics: list):
+    """Raise ``ValueError`` unless there is one public list a proof and
+    each holds ``len(vk.gamma_abc) - 1`` inputs, a committed proof's
+    derived commitment input counted (the JAX copy pairs them by ``zip``,
+    so a short list verifies as if padded with zeros and a long one is
+    cut)."""
+    if len(publics) != len(proofs):
+        raise ValueError(f"{len(proofs)} proofs and {len(publics)} public "
+                         f"lists")
+    want = len(vk.gamma_abc) - 1
+    for i, (proof, pub) in enumerate(zip(proofs, publics)):
+        n = len(pub) + (len(proof) == 5 and proof[3] is not None)
+        if n != want:
+            raise ValueError(f"proof {i}: {n} public inputs, the VK takes "
+                             f"{want}")
+
+
 def verify_batch(vk, proofs: list, publics: list, device=None,
                  timings: dict | None = None) -> np.ndarray:
     """vk: ``refimpl.groth16_ref.VerifyingKey``; proofs: [(A, B2, C)] or
     [(A, B2, C, Commitment, Pok)] affine tuples; publics: [[ints]] without
-    the derived commitment-hash input. Returns bool[n], each proof's
-    validity. ``timings``, if a dict, receives the seconds of the host
-    parts (``vk``, ``l_pub``, ``b_lines``, ``b_pack``, ``g1``) and of the
-    device part (``device``: the two kernels and the fetch of the
-    result)."""
+    the derived commitment-hash input, each as many as the VK takes
+    (``check_public_counts`` raises ``ValueError`` otherwise). Returns
+    bool[n], each proof's validity. ``timings``, if a dict, receives the
+    seconds of the host parts (``vk``, ``l_pub``, ``b_lines``, ``b_pack``,
+    ``g1``) and of the device part (``device``: the two kernels and the
+    fetch of the result)."""
     dev = resolve_device(device)
     if not proofs:
         return np.zeros(0, dtype=bool)
     clock = time.perf_counter
     t = {}
-    t0 = clock()
     has_cm = any(len(p) == 5 for p in proofs)
+    # the batched Miller loop has no point-at-infinity lanes: a batch must
+    # be uniformly committed or uniformly not
+    assert not has_cm or all(len(p) == 5 and p[3] is not None
+                             and p[4] is not None
+                             for p in proofs), "mixed commitment batch"
+    check_public_counts(vk, proofs, publics)
+    t0 = clock()
     gamma_l, delta_l, target, pok_legs = _vk_fixed(vk, dev)
     t["vk"] = clock() - t0
-    if has_cm:
-        assert pok_legs is not None, "VK lacks a commitment key"
-        # the batched Miller loop has no point-at-infinity lanes: a batch
-        # must be uniformly committed or uniformly not
-        assert all(len(p) == 5 and p[3] is not None and p[4] is not None
-                   for p in proofs), "mixed commitment batch"
+    assert not has_cm or pok_legs is not None, "VK lacks a commitment key"
 
     t0 = clock()
     Ls = [_l_pub(vk, proof, pub) for proof, pub in zip(proofs, publics)]

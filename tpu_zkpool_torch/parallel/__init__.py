@@ -1,12 +1,17 @@
-"""Sharded paths over a single-process device mesh (``mesh.Mesh``).
+"""Sharded paths over a device mesh (``mesh.Mesh``), in one process or
+across the processes of a ``torch.distributed`` runtime.
 
 - ``mesh``: named axes over shard slots, each with a device and (CUDA) a
-  compute and a copy stream; shard / unshard, ``all_gather``, ``ppermute``.
+  compute and a copy stream, and its owning process; shard / unshard,
+  ``all_gather`` (across processes where its group spans them),
+  ``ppermute`` (within a process).
 - ``ntt_sharded``: the coefficient-axis-sharded negacyclic NTT, whose
   cross-shard stages run kernel K9 (``ntt_rdma``).
 - ``msm_sharded``: point-axis-sharded Pippenger, window sums per slot, one
   gather and a K4 fold, one Horner combine; ``prove_stages``: the four G1
-  legs on a (leg, pt) mesh; ``multihost``: the (host, chip) fold.
+  legs on a (leg, pt) mesh; ``multihost``: ``initialize`` (the
+  multi-process runtime), ``pod_mesh`` (its host axis the process
+  boundary) and the (host, chip) fold.
 - ``merkle_sharded``: subtrees per slot through K7, one root combine.
 """
 
@@ -15,3 +20,6 @@ from tpu_zkpool_torch.parallel.ntt_sharded import (  # noqa: F401
     forward_sharded, inverse_sharded, negacyclic_mul_sharded,
 )
 from tpu_zkpool_torch.parallel.msm_sharded import msm_grid_sharded  # noqa: F401
+from tpu_zkpool_torch.parallel.multihost import (  # noqa: F401
+    initialize, pod_mesh, process_count, process_index,
+)

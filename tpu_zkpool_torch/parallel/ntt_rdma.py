@@ -26,7 +26,9 @@ transfer and the warps in flight overlap them, so there is no receive
 buffer, no copy and no chunk. A slot whose partner lives on another card
 reads it over peer access, which ``exchange_butterfly`` enables once
 (``cudaDeviceEnablePeerAccess``) and which raises where the cards cannot
-reach each other; that path needs two cards and has not run. Under
+reach each other; that path needs two cards and has not run. A partner
+owned by another process raises (``Mesh.require_pairs_local``): the
+partner read has no cross-process form. Under
 ``exchange="ppermute"`` ``Mesh.ppermute`` copies each whole shard first,
 as JAX's ``lax.ppermute`` does, and K9 combines with the copies.
 
@@ -215,6 +217,7 @@ def exchange_butterfly(mesh, ys, tws, u_sides, partners, exchange="rdma",
     ``Mesh.ppermute``'s copies. Returns per slot a fresh int32[B, S],
     ready on the slot's compute stream."""
     if exchange == "rdma":
+        mesh.require_pairs_local(partners, "K9's partner read")
         others = [ys[p] for p in partners]
     elif exchange == "ppermute":
         others = mesh.ppermute(ys, partners)

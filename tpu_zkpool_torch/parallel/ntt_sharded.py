@@ -63,6 +63,7 @@ class _Shards:
     graph."""
 
     def __init__(self, mesh, axis, n, exchange):
+        mesh.require_local(axis, "the sharded NTT")
         D = mesh.shape[axis]
         S = n // D
         if D & (D - 1) or S * D != n or S < 2:

@@ -20,6 +20,10 @@ from tpu_zkpool_torch.parallel.msm_sharded import (check_points,
 N_G1_LEGS = 4   # A, B1, H, K
 
 
+def _leg(piece):
+    return None if piece is None else piece[0]
+
+
 @torch.inference_mode()
 def msm_legs_sharded(rows_legs, limbs_legs, mesh, axis_leg: str = "leg",
                      axis_pt: str = "pt", c: int = 13, lanes: int = TILE_N,
@@ -37,8 +41,8 @@ def msm_legs_sharded(rows_legs, limbs_legs, mesh, axis_leg: str = "leg",
                          f"{mesh.shape[axis_leg]}")
     check_points(rows_legs.shape[1], mesh.shape[axis_pt], lanes)
     spec = (axis_leg, axis_pt)
-    S = shard_window_sums(mesh, [r[0] for r in mesh.shard(rows_legs, spec)],
-                          [l[0] for l in mesh.shard(limbs_legs, spec)], c,
+    S = shard_window_sums(mesh, [_leg(r) for r in mesh.shard(rows_legs, spec)],
+                          [_leg(l) for l in mesh.shard(limbs_legs, spec)], c,
                           lanes, nbits)
     legs = []
     for s, acc in zip(mesh.slots, mesh.fold(mesh.all_gather(S, axis_pt),

@@ -12,6 +12,8 @@ self-generated Groth16 proofs against gnark-format artifacts.
 
 from __future__ import annotations
 
+import random
+
 from tpu_zkpool_torch.fields.bn254 import FP_MOD as P, FR_MOD as R_ORDER, BN_X, G2_GX, G2_GY
 
 # ----------------------------------------------------------------- Fp2
@@ -43,6 +45,23 @@ def f2_inv(a):
 
 def f2_conj(a):
     return (a[0], (-a[1]) % P)
+
+def f2_sqrt(a):
+    """A square root of a in Fp2 = Fp[i]/(i^2 + 1) (p = 3 mod 4), or None:
+    from the norm's root s, x0^2 = (a0 +- s)/2 and x1 = a1 / (2 x0)."""
+    u, v = a[0] % P, a[1] % P
+    n = (u * u + v * v) % P
+    s = pow(n, (P + 1) // 4, P)
+    if s * s % P != n:
+        return None
+    half = (P + 1) // 2
+    for t in ((u + s) * half % P, (u - s) * half % P):
+        x0 = pow(t, (P + 1) // 4, P)
+        if x0 and x0 * x0 % P == t:
+            root = (x0, v * pow(2 * x0, -1, P) % P)
+            if f2_sqr(root) == (u, v):
+                return root
+    return None
 
 F2_ZERO = (0, 0)
 F2_ONE = (1, 0)
@@ -293,6 +312,18 @@ def g2_mul(k, p):
         p = g2_add(p, p)
         k >>= 1
     return acc
+
+
+def twist_point_outside_g2(seed: int):
+    """A point on G2's twist curve y^2 = x^3 + b' with r Q != O: a random
+    x until x^3 + b' has a root (the twist's cofactor is large, so such a
+    point is outside the order-r subgroup; checked)."""
+    rng = random.Random(seed)
+    while True:
+        x = (rng.randrange(P), rng.randrange(P))
+        y = f2_sqrt(f2_add(f2_mul(f2_sqr(x), x), TWIST_B))
+        if y is not None and g2_mul(R_ORDER, (x, y)) is not None:
+            return (x, y)
 
 
 def g2_is_on_curve(p) -> bool:

@@ -50,7 +50,8 @@ from tpu_zkpool_torch.groth16 import r1cs as r1cs_mod
 from tpu_zkpool_torch.groth16 import solver_native
 from tpu_zkpool_torch.groth16.acir import load_artifact
 from tpu_zkpool_torch.groth16.cache import cached_setup
-from tpu_zkpool_torch.groth16.gnark_fmt import emit_proof, parse_proof
+from tpu_zkpool_torch.groth16.gnark_fmt import (emit_proof, parse_proof,
+                                                parse_public_witness)
 from tpu_zkpool_torch.groth16.prove import DeviceProvingKey, prove
 from tpu_zkpool_torch.groth16.verify import verify_batch
 from tpu_zkpool_torch.merkle.tree import MerkleTree
@@ -68,6 +69,9 @@ DEFAULT_RLWE_DIR = os.path.join("demo-frontend", "public", "rlwe")
 DEFAULT_ARTIFACT = os.path.join("noir_circuit", "target",
                                 "shielded_pool_verifier.json")
 PROVERS = ("stub", "groth16")
+# the withdraw witness blob's header (nbPublic, nbSecret, vectorLen),
+# withdraw.rs:70-90
+WITHDRAW_HEADER = (5, 0, 5)
 DEFAULT_STORE = os.path.join(tempfile.gettempdir(),
                              "tpu_zkpool_torch_webui_store.json")
 
@@ -133,18 +137,20 @@ class WithdrawCircuit:
     def verify(self, proof_bytes: bytes, witness_bytes: bytes) -> bool:
         """The pool's withdraw verifier: the wire-format proof against the
         public inputs of the witness blob, through ``verify_batch``.
-        Malformed bytes (a point off its curve, the identity) fail
-        verification rather than raise, as the reference's verifier CPI
-        fails the instruction (withdraw.rs:163-175)."""
+        Malformed bytes (a point off its curve or outside G2's subgroup, a
+        coordinate not below p, the identity, a witness header other than
+        the withdraw's (5, 0, 5)) fail verification rather than raise, as
+        the reference's verifier CPI fails the instruction
+        (withdraw.rs:163-175)."""
         try:
             pf = parse_proof(proof_bytes)
-            n_pub = struct.unpack(">I", witness_bytes[:4])[0]
-        except (AssertionError, ValueError, struct.error):
+            if struct.unpack(">III", witness_bytes[:12]) != WITHDRAW_HEADER:
+                return False
+            vals = parse_public_witness(witness_bytes)
+        except (ValueError, struct.error):
             return False
         if None in (pf.ar, pf.bs, pf.krs):
             return False
-        vals = [int.from_bytes(witness_bytes[12 + 32 * i: 44 + 32 * i], "big")
-                for i in range(n_pub)]
         return bool(verify_batch(self.vk, [(pf.ar, pf.bs, pf.krs)], [vals],
                                  device=self.device)[0])
 
