@@ -191,14 +191,24 @@ Phases, one line each:
              6's; init_process_group s, ms and K1-K7 launches a rank. A
              worker that fails, outlives its timeout or prints no
              sentinel fails the phase;
+  15 variant the var-PK audit circuit var_pk_e_witness (1,185,473 rows,
+             1,187,520 wires, domain 2^21) at full width through
+             scripts/torch_benchmark_variants.py's run_variant: built,
+             solved and checked, set up by setup (not cached), its query
+             points on the card (c = 13, 1,024 lanes, complete), one cold
+             and one warm proof (the split H(X) pipeline, 10- and 16-slice
+             MSMs folded through K4), both accepted by verify_batch and
+             rejected with a changed public input; each step's seconds,
+             each proof's phases, the peak device memory, the host RSS,
+             K1-K6, P1 and P2 launches over the phase;
   5 launches every kernel's launch count on its main path, K1-K6 during
              phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
              proofs, K9 during phase 9's rdma products, P1 and P2 during
              phase 10's verify batches, K1-K7, P1, P2 and P3 from phase
              11's encryptions to its end, K7 during phase 12's HTTP
-             requests, P1 and P2 during its wire checks, and K1-K7, P1 and
-             P2 during phase 13's HTTP requests (must be > 0); it runs
-             last.
+             requests, P1 and P2 during its wire checks, K1-K7, P1 and
+             P2 during phase 13's HTTP requests, and K1-K6, P1 and P2
+             during phase 15 (must be > 0); it runs last.
 ``--profile`` traces one warm proof of each path, one warm 2^16 build and
 one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
@@ -3418,6 +3428,39 @@ def pod_worker(rank, port, d, device="cuda:0"):
     return 0 if ok else 1
 
 
+# ----------------------------------- phase 15: a domain-2^21 proof
+
+VARIANT = "var_pk_e_witness"
+VARIANT_ROWS = 1185473
+VARIANT_WIRES = 1187520
+VARIANT_DOMAIN = 1 << 21
+
+
+def phase_variant(device, out_dir):
+    """Phase 15: the var-PK audit circuit at full width through
+    ``scripts/torch_benchmark_variants.py``'s ``run_variant`` (the
+    auditor key from ``write_rlwe_dir`` under ``out_dir``, ``setup``
+    called directly: a ~1 GB pickle buys nothing within one run). The
+    launches of K1-K6, P1 and P2 are counted over the whole phase."""
+    vb = _load_script(os.path.join("scripts", "torch_benchmark_variants.py"))
+    kernels.reset_launches()           # the main path starts here
+    pkern.reset_launches()
+    t0 = time.perf_counter()
+    a_pk, b_pk = vb.auditor_key(os.path.join(out_dir, "variants"))
+    rec = vb.run_variant(VARIANT, a_pk, b_pk, device=device, setup_fn=setup,
+                         log=lambda m: log(15, m.strip()))
+    rec["launches"] = dict(kernels.LAUNCHES, **pkern.LAUNCHES)
+    rec["phase_s"] = time.perf_counter() - t0   # the main path ends here
+    rec["checks"] = dict(
+        shape=(rec["constraints"], rec["wires"], rec["n_domain"]) == (
+            VARIANT_ROWS, VARIANT_WIRES, VARIANT_DOMAIN),
+        legs=rec["leg_points"] == dict(a=10 << 17, k=10 << 17, h=16 << 17,
+                                       b2=10 << 17),
+        verify=rec["verify"] == [True, True, False, False])
+    rec["ok"] = all(rec["checks"].values())
+    return rec
+
+
 def withdraw_shape_r1cs(m=8899, num_public=3, n_inputs=8, seed=2024):
     """Seeded synthetic R1CS of the withdraw proof's shape: ``m`` rows, wire
     0 the constant, wires 1..num_public-1 public outputs, ``n_inputs``
@@ -3943,10 +3986,32 @@ def main(argv):
     if not pod["ok"]:
         raise AssertionError(f"the pod path failed: {pod['ranks']}")
 
+    # ---- 15: the var-PK audit circuit at full width, domain 2^21
+    variant = phase_variant(device, out_dir)
+    steps = ("build_s", "witness_s", "check_s", "setup_s",
+             "device_pk_upload_s", "tables_s", "prove_device_cold_s",
+             "prove_device_warm_s", "verify_s")
+    log(15, f"{VARIANT}: {variant['constraints']} rows, {variant['wires']} "
+            f"wires, domain {variant['n_domain']}, legs "
+            f"{json.dumps(variant['leg_points'])}; s " + json.dumps(
+                {k: round(variant[k], 3) for k in steps}))
+    for k in ("prove_phases_cold", "prove_phases_warm"):
+        log(15, f"{k} s " + json.dumps(
+            {p: round(v, 4) for p, v in variant[k].items()}))
+    log(15, f"peak device memory {variant['peak_device_gb']:.2f} GiB "
+            f"across the proofs, host RSS {variant['host_rss_gb']:.2f} GiB; "
+            f"launches a proof {json.dumps(variant['launches_per_proof'])}, "
+            f"in the verify {json.dumps(variant['verify_launches'])}, over "
+            f"the phase {json.dumps(variant['launches'])}; verify "
+            f"{variant['verify']}; phase {variant['phase_s']:.1f} s, checks "
+            f"{json.dumps(variant['checks'])}")
+    if not variant["ok"]:
+        raise AssertionError(f"the var-PK proof failed: {variant['checks']}")
+
     # ---- 5: launches of each main path (prove: K1-K6, Merkle: K7,
     # tree proofs: K8, the sharded NTT's rdma products: K9, the verify:
     # P1 and P2; the audit path: K1-K7, P1, P2 and P3; the withdrawals
-    # over HTTP: K1-K7, P1 and P2)
+    # over HTTP: K1-K7, P1 and P2; the var-PK proofs: K1-K6, P1 and P2)
     launches = dict(info["launches"], poseidon=merkle["launches"],
                     tree_level=tree["launches"],
                     exchange_butterfly=mesh_ntt["rdma_launches"],
@@ -3956,12 +4021,14 @@ def main(argv):
     missing = [k for k, v in launches.items() if v <= 0] + [
         f"audit {k}" for k, v in audit["launches"].items() if v <= 0] + [
         f"pool {k}" for k, v in pool_launches.items() if v <= 0] + [
-        f"withdraw {k}" for k, v in wd_launches.items() if v <= 0]
+        f"withdraw {k}" for k, v in wd_launches.items() if v <= 0] + [
+        f"variant {k}" for k, v in variant["launches"].items() if v <= 0]
     log(5, f"launches {json.dumps(launches)}; a withdraw-shape proof "
            f"(phase 4) {json.dumps(info['launches_per_proof'])}; the audit "
            f"path (phase 11) {json.dumps(audit['launches'])}; the pool "
            f"(phase 12) {json.dumps(pool_launches)}; the withdrawals over "
-           f"HTTP (phase 13) {json.dumps(wd_launches)}")
+           f"HTTP (phase 13) {json.dumps(wd_launches)}; the var-PK proofs "
+           f"(phase 15) {json.dumps(variant['launches'])}")
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
@@ -3991,7 +4058,7 @@ def main(argv):
             mesh=dict(ntt=mesh_ntt, msm=mesh_msm, legs=legs, dp_step=dp),
             verify=ver, audit=audit, pod=pod, pool=dict(
                 curves=curves, journey=journey, at_size=sized, wire=wire,
-                launches=pool_launches), withdraw=withdraw),
+                launches=pool_launches), withdraw=withdraw, variant=variant),
             f, indent=1, default=str)
     print(json.dumps(line))
     print(card)

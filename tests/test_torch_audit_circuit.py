@@ -3,12 +3,16 @@
 ``tpu_zkpool``'s, and a small committed circuit from the port's builder
 proved and verified by the port on the CPU.
 
-- ``build_audit_circuit(a, b, "const_pk_e_witness")`` over
-  ``rlwe_ref.keygen(42)``'s key equals JAX's row for row (A, B and C rows,
-  ``num_vars``, ``num_public``, ``committed``), with and without
-  ``logderiv`` (24,070 and 71,361 rows);
+- ``build_audit_circuit(a, b, variant)`` over ``rlwe_ref.keygen(42)``'s
+  key equals JAX's row for row (A, B and C rows, ``num_vars``,
+  ``num_public``, ``committed``) for ``const_pk_e_witness`` and
+  ``const_pk_e_computed``, with and without ``logderiv`` (24,070, 71,361,
+  22,982 and 70,273 rows);
 - the non-logderiv witness of owner 0's encryption (``encrypt(seed=999)``)
-  equals JAX's and satisfies the R1CS;
+  equals JAX's and satisfies the R1CS, for both const-PK variants (e as a
+  witness, e computed in the circuit);
+- with ``RUN_SLOW=1``, the two var-PK circuits (1,185,473 and 1,184,385
+  rows) hash alike in both packages (``cache.circuit_hash``);
 - a committed circuit of ~300 rows (``range_value`` on two committed wires
   and one ``poseidon2_permutation``) is set up, solved by
   ``witness_committed``, proved by the port's ``prove`` (c = 8, 32 lanes,
@@ -17,6 +21,7 @@ proved and verified by the port on the CPU.
 """
 
 import functools
+import os
 
 import pytest
 import torch
@@ -45,17 +50,19 @@ def _key():
 
 
 @functools.lru_cache(maxsize=None)
-def _circuits(logderiv):
+def _circuits(logderiv, variant="const_pk_e_witness"):
     kg = _key()
-    return (ac.build_audit_circuit(kg["a"], kg["b"], "const_pk_e_witness",
-                                   logderiv),
-            jac.build_audit_circuit(kg["a"], kg["b"], "const_pk_e_witness",
-                                    logderiv))
+    return (ac.build_audit_circuit(kg["a"], kg["b"], variant, logderiv),
+            jac.build_audit_circuit(kg["a"], kg["b"], variant, logderiv))
 
 
-@pytest.mark.parametrize("logderiv,rows", [(True, 24070), (False, 71361)])
-def test_audit_r1cs_equals_jax(logderiv, rows):
-    port, jax_c = _circuits(logderiv)
+@pytest.mark.parametrize("logderiv,rows,variant", [
+    pytest.param(True, 24070, "const_pk_e_witness", id="True-24070"),
+    pytest.param(False, 71361, "const_pk_e_witness", id="False-71361"),
+    pytest.param(True, 22982, "const_pk_e_computed", id="True-22982"),
+    pytest.param(False, 70273, "const_pk_e_computed", id="False-70273")])
+def test_audit_r1cs_equals_jax(logderiv, rows, variant):
+    port, jax_c = _circuits(logderiv, variant)
     a, b = port.builder.r1cs(), jax_c.builder.r1cs()
     assert len(a.a_rows) == rows
     assert (a.num_vars, a.num_public) == (b.num_vars, b.num_public)
@@ -65,12 +72,23 @@ def test_audit_r1cs_equals_jax(logderiv, rows):
     assert (port.v_wa, port.v_ct, port.v_challenge) == (
         jax_c.v_wa, jax_c.v_ct, jax_c.v_challenge)
     if logderiv:
-        assert len(port.committed) == 6785 and a.num_vars == 30854
+        assert len(port.committed) == 6785
+        assert a.num_vars == rows + 6784
 
 
 def test_owner_point_and_witness_equal_jax():
     assert curve_ref.scalar_mul(SECRET_KEY) == (OWNER_X, OWNER_Y)
-    port, jax_c = _circuits(False)
+    _witness_equals_jax("const_pk_e_witness")
+
+
+def test_e_computed_witness_equals_jax():
+    """e computed in the circuit (e = lhs - <row, r>): its witness carries
+    the computed noise and its bit decompositions."""
+    _witness_equals_jax("const_pk_e_computed")
+
+
+def _witness_equals_jax(variant):
+    port, jax_c = _circuits(False, variant)
     kg = _key()
     enc = rlwe_ref.encrypt(kg["a"], kg["b"], OWNER_X, OWNER_Y, seed=999)
     wa = poseidon_hash_ref([OWNER_X, OWNER_Y])
@@ -80,6 +98,23 @@ def test_owner_point_and_witness_equal_jax():
     w = port.builder.witness(port.assignment(*args))
     assert w == jax_c.builder.witness(jax_c.assignment(*args))
     assert port.builder.r1cs().is_satisfied(w)
+
+
+@pytest.mark.skipif(os.environ.get("RUN_SLOW") != "1",
+                    reason="builds two 1.2M-row circuits in each package, "
+                           "~2 min (RUN_SLOW=1)")
+@pytest.mark.parametrize("variant,rows", [("var_pk_e_witness", 1185473),
+                                          ("var_pk_e_computed", 1184385)])
+def test_var_pk_circuit_hash_equals_jax(variant, rows):
+    from tpu_zkpool.groth16.cache import circuit_hash as jhash
+
+    from tpu_zkpool_torch.groth16.cache import circuit_hash
+    kg = _key()
+    port = ac.build_audit_circuit(kg["a"], kg["b"], variant)
+    jax_c = jac.build_audit_circuit(kg["a"], kg["b"], variant)
+    a, b = port.builder.r1cs(), jax_c.builder.r1cs()
+    assert len(a.a_rows) == rows
+    assert circuit_hash(a) == jhash(b)
 
 
 def _small_committed():

@@ -86,6 +86,56 @@ def test_compute_h_device_matches_jax():
             dtype=object)))] == want
 
 
+def _squares(m, x=3):
+    """x_{i+1} = x_i^2 over m rows: vars [1, x_0, ..., x_m], x_0 public."""
+    r1cs = R1CS(num_vars=m + 2, num_public=2,
+                a_rows=[{1 + i: 1} for i in range(m)],
+                b_rows=[{1 + i: 1} for i in range(m)],
+                c_rows=[{2 + i: 1} for i in range(m)])
+    w = [1, x]
+    for _ in range(m):
+        w.append(w[-1] * w[-1] % R)
+    return r1cs, w
+
+
+def test_compute_h_device_split_dispatch(monkeypatch):
+    """``compute_h_device`` at a domain at the split threshold (lowered to
+    the test's n = 16) takes ``_h_pipeline_split`` and gives the monolithic
+    path's H and ``refimpl``'s."""
+    r1cs, w = _squares(11)
+    n = 16
+    mono = tp.compute_h_device(r1cs, w, n, device="cpu")
+    mono_limbs = tp.compute_h_device(r1cs, w, n, as_limbs=True,
+                                     device="cpu")
+    calls = []
+    split = tp._h_pipeline_split
+
+    def spy(*a, **k):
+        calls.append(1)
+        return split(*a, **k)
+
+    monkeypatch.setattr(tp, "_h_pipeline_split", spy)
+    monkeypatch.setattr(tp, "_H_SPLIT_MIN_N", n)
+    got = tp.compute_h_device(r1cs, w, n, device="cpu")
+    got_limbs = tp.compute_h_device(r1cs, w, n, as_limbs=True, device="cpu")
+    assert len(calls) == 2
+    assert got == mono == compute_h(r1cs, w, n)
+    assert torch.equal(got_limbs, mono_limbs)
+
+
+def test_ntt_tables_match_jax_at_larger_sizes():
+    """The tables' running products and strided stages against JAX's pow
+    per entry, at n = 1, 2 and 1,024."""
+    for n in (1, 2, 1024):
+        jt, tt = jd._tables(n), td._tables(n)
+        assert len(jt[0]) == len(tt[0]) and len(jt[1]) == len(tt[1])
+        for a, b in zip(jt[0] + jt[1], tt[0] + tt[1]):
+            assert (np.asarray(a).astype(np.int64) == b).all()
+        for i in (2, 3, 4):
+            assert (np.asarray(jt[i]).astype(np.int64) == tt[i]).all()
+        assert (jd.bitrev_perm(n) == td.bitrev_perm(n)).all()
+
+
 @pytest.mark.parametrize("demont", [False, True])
 def test_h_pipeline_split_matches_monolithic(demont):
     n = 32

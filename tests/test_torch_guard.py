@@ -21,7 +21,8 @@ SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
            os.path.join("examples", "torch_audit_e2e.py"),
            os.path.join("scripts", "withdraw_phase13.py"),
            os.path.join("scripts", "pod_phase14.py"),
-           os.path.join("scripts", "pod_nccl_probe.py")]
+           os.path.join("scripts", "pod_nccl_probe.py"),
+           os.path.join("scripts", "torch_benchmark_variants.py")]
 
 
 def _port_sources():

@@ -18,6 +18,7 @@ import torch
 
 from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.fields.fctx import FR
+from tpu_zkpool_torch.refimpl.groth16_ref import powers
 
 COSET_G = 5
 
@@ -30,38 +31,37 @@ def _root(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _tables(n: int):
     """Host tables: (forward twiddles per DIF stage, inverse twiddles per
-    DIT stage, n^-1, coset powers g^i, coset inverse powers), Montgomery."""
+    DIT stage, n^-1, coset powers g^i, coset inverse powers), Montgomery.
+    A stage of half-width h takes the powers of omega^(n / 2h) < h; every
+    stage's are every (n / 2h)-th power of omega below n / 2, so the powers
+    are taken once and strided."""
     omega = _root(n)
     omega_inv = pow(omega, -1, R)
+    half = max(n // 2, 1)
+    pw = FR.to_mont(powers(omega, half))
+    pw_inv = FR.to_mont(powers(omega_inv, half))
     fwd, inv = [], []
     h = n // 2
     while h >= 1:
-        step = n // (2 * h)
-        fwd.append(FR.to_mont([pow(omega, step * j, R) for j in range(h)]))
+        fwd.append(pw[:: n // (2 * h)])
         h //= 2
     h = 1
     while h <= n // 2:
-        step = n // (2 * h)
-        inv.append(FR.to_mont([pow(omega_inv, step * j, R)
-                               for j in range(h)]))
+        inv.append(pw_inv[:: n // (2 * h)])
         h *= 2
     ninv_m = FR.to_mont([pow(n, -1, R)])[0]
-    g_inv = pow(COSET_G, -1, R)
-    coset, coset_inv, gi, gii = [], [], 1, 1
-    for _ in range(n):
-        coset.append(gi)
-        coset_inv.append(gii)
-        gi = gi * COSET_G % R
-        gii = gii * g_inv % R
+    coset = powers(COSET_G, n)
+    coset_inv = powers(pow(COSET_G, -1, R), n)
     return fwd, inv, ninv_m, FR.to_mont(coset), FR.to_mont(coset_inv)
 
 
 @functools.lru_cache(maxsize=None)
 def bitrev_perm(n: int) -> np.ndarray:
     bits = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
     out = np.zeros(n, dtype=np.int64)
-    for i in range(n):
-        out[i] = int(bin(i)[2:].zfill(bits)[::-1], 2)
+    for b in range(bits):
+        out |= ((idx >> b) & 1) << (bits - 1 - b)
     return out
 
 

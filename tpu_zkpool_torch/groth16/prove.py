@@ -24,8 +24,7 @@ import torch
 from tpu_zkpool_torch import resolve_device
 from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.fields.fctx import FP, FR
-from tpu_zkpool_torch.fields.limbs import (NLIMB, int_to_limbs,
-                                           pack_limbs16, unpack_limbs16)
+from tpu_zkpool_torch.fields.limbs import NLIMB, int_to_limbs, unpack_limbs16
 from tpu_zkpool_torch.groth16 import domain
 from tpu_zkpool_torch.groth16 import solver_native as sn
 from tpu_zkpool_torch.msm import grid
@@ -66,32 +65,51 @@ def _pad_up(n: int, lanes: int = TILE_N) -> int:
     return npad
 
 
+_R2_FP = (1 << 512) % pr.P      # R^2 mod p with R = 2^256
+_MONT_ROWS = 1 << 18            # rows a Montgomery conversion on the device
+
+
+def _fp_mont_dev(vals: list, device) -> torch.Tensor:
+    """Plain Fp ints (< p) -> Montgomery limbs int64[n, 16] on device. Each
+    value goes up as its packed words (``int.to_bytes``); the device takes
+    mont_mul(x, R^2) = x R, ``_MONT_ROWS`` rows at a time, the same limbs as
+    ``FP.to_mont``."""
+    packed = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals),
+                           dtype="<u4").reshape(-1, NLIMB // 2)
+    r2 = torch.as_tensor(int_to_limbs(_R2_FP), device=device)
+    return torch.cat([FP.mont_mul(_unpack_dev(packed[s:s + _MONT_ROWS],
+                                              device), r2)
+                      for s in range(0, len(packed), _MONT_ROWS)])
+
+
+def _identity_mask(pts: list, npad: int, device) -> torch.Tensor:
+    """int64[npad]: 1 where a point is given, 0 for None and the padding."""
+    mask = np.zeros(npad, dtype=np.int64)
+    mask[: len(pts)] = [p is not None for p in pts]
+    return torch.as_tensor(mask, device=device)
+
+
 def _points_device(pts: list, device, npad: int):
     """Affine G1 int points (None allowed) -> Jacobian (X, Y, Z) limbs
     int64[npad, 16] on device, identity-padded (Z = 0)."""
-    n = len(pts)
-    xs = [p[0] if p else 0 for p in pts] + [0] * (npad - n)
-    ys = [p[1] if p else 0 for p in pts] + [0] * (npad - n)
-    X = _unpack_dev(pack_limbs16(FP.to_mont(xs)), device)
-    Y = _unpack_dev(pack_limbs16(FP.to_mont(ys)), device)
-    zmask = torch.as_tensor([1 if p else 0 for p in pts] + [0] * (npad - n),
-                            device=device)
+    pad = [0] * (npad - len(pts))
+    X = _fp_mont_dev([p[0] if p else 0 for p in pts] + pad, device)
+    Y = _fp_mont_dev([p[1] if p else 0 for p in pts] + pad, device)
+    zmask = _identity_mask(pts, npad, device)
     Z = FP.ones_mont((npad,), device) * zmask[:, None]
     return X, Y, Z
 
 
 def _points_device_g2(pts: list, device, npad: int):
     """Affine G2 points ((x0, x1), (y0, y1)) -> (X, Y, Z) int64[npad, 2, 16]."""
-    n = len(pts)
+    pad = [0] * (2 * (npad - len(pts)))
 
-    def comp(sel):
-        vals = [sel(p) if p else (0, 0) for p in pts] + [(0, 0)] * (npad - n)
-        return _unpack_dev(pack_limbs16(FP.to_mont(vals)), device)
+    def comp(i):
+        vals = [v for p in pts for v in (p[i] if p else (0, 0))] + pad
+        return _fp_mont_dev(vals, device).reshape(npad, 2, NLIMB)
 
-    X = comp(lambda p: p[0])
-    Y = comp(lambda p: p[1])
-    zmask = torch.as_tensor([1 if p else 0 for p in pts] + [0] * (npad - n),
-                            device=device)
+    X, Y = comp(0), comp(1)
+    zmask = _identity_mask(pts, npad, device)
     one = FP.ones_mont((npad,), device) * zmask[:, None]
     Z = torch.stack([one, torch.zeros_like(one)], 1)   # Z = 1 + 0u (or 0)
     return X, Y, Z

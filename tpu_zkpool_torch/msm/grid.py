@@ -570,7 +570,10 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     xy = torch.where(valid[:, None, None, None], rows[:, :2],
                      _safe_point(ncomp, dev))
     xyf = xy.reshape(N, -1)
-    # co-sort a packed (index | neg << 31) payload with the bucket keys
+    # co-sort a packed (index | neg << 31) payload with the bucket keys.
+    # K1 reads the row index from its low 31 bits: safe while a slice
+    # holds at most 2^SUB_LOG2 rows (window_sums cuts larger sets into
+    # such slices; the kernels' other offsets are size_t)
     payload = (torch.arange(N, device=dev)[:, None]
                | (neg.long() << 31))                   # (N, W)
     skeys, perm = torch.sort(bucket, dim=0, stable=True)

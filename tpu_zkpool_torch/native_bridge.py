@@ -4,8 +4,9 @@ The port's own copy of ``tpu_zkpool/native_bridge.py``. It compiles the shared
 host source with g++ into the port's build directory
 (``tpu_zkpool_torch/build/``, content-hashed name) at first use, reads the
 source and never edits it or writes beside it, and raises if g++ fails.
-Groth16 setup uses its fixed-base batches; the tests and ``chip_smoke.py``
-use its Pippenger MSMs as the oracle of the grid MSM.
+Groth16 setup and ``benchvec`` use its fixed-base batches (split over the
+host's cores); the tests and ``chip_smoke.py`` use its Pippenger MSMs as the
+oracle of the grid MSM.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -55,13 +57,14 @@ def get_lib():
     return lib
 
 
+_MASK256 = (1 << 256) - 1
+
+
 def _scalars_to_u64(ks) -> np.ndarray:
-    out = np.zeros((len(ks), 4), dtype=np.uint64)
-    for i, k in enumerate(ks):
-        k = int(k)
-        for j in range(4):
-            out[i, j] = (k >> (64 * j)) & 0xFFFFFFFFFFFFFFFF
-    return out
+    """Scalars -> uint64[n, 4] little-endian words, the low 256 bits of
+    each (two's complement for a negative value)."""
+    buf = b"".join((int(k) & _MASK256).to_bytes(32, "little") for k in ks)
+    return np.frombuffer(buf, dtype="<u8").reshape(-1, 4).copy()
 
 
 def _aff_to_u64(pts) -> np.ndarray:
@@ -76,45 +79,56 @@ def _aff_to_u64(pts) -> np.ndarray:
     return out
 
 
+def _u64_ints(arr, k: int) -> list:
+    """uint64[n, 4 k] rows -> per row, its k 256-bit little-endian ints."""
+    buf = np.ascontiguousarray(arr, dtype="<u8").tobytes()
+    frm = int.from_bytes
+    return [tuple(frm(buf[o + 32 * j: o + 32 * j + 32], "little")
+                  for j in range(k)) for o in range(0, len(buf), 32 * k)]
+
+
 def _u64_to_aff(arr) -> list:
-    pts = []
-    for row in arr:
-        x = sum(int(row[j]) << (64 * j) for j in range(4))
-        y = sum(int(row[4 + j]) << (64 * j) for j in range(4))
-        pts.append(None if x == 0 and y == 0 else (x, y))
-    return pts
+    return [None if x == 0 and y == 0 else (x, y)
+            for x, y in _u64_ints(arr, 2)]
 
 
 def _u64_to_g2(arr) -> list:
-    pts = []
-    for row in arr:
-        c = [sum(int(row[4 * k + j]) << (64 * j) for j in range(4)) for k in range(4)]
-        if all(v == 0 for v in c):
-            pts.append(None)
-        else:
-            pts.append(((c[0], c[1]), (c[2], c[3])))
-    return pts
+    return [None if not any(c) else ((c[0], c[1]), (c[2], c[3]))
+            for c in _u64_ints(arr, 4)]
+
+
+def _fixed_base(name: str, ks, words: int) -> np.ndarray:
+    """[k_i] of the generator through ``name`` (a native fixed-base batch),
+    the batch split over ``os.cpu_count()`` threads: ctypes releases the
+    GIL during each call, and every call reads the generator's table only.
+    A first call of no scalars builds that table before the threads share
+    it. Returns the native output rows uint64[n, words]."""
+    fn = getattr(get_lib(), name)
+    sc = _scalars_to_u64(ks)
+    n = len(sc)
+    out = np.zeros((n, words), dtype=np.uint64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    fn(sc.ctypes.data_as(u64p), 0, out.ctypes.data_as(u64p))
+    parts = max(1, min(os.cpu_count() or 1, n))
+    cuts = [n * i // parts for i in range(parts + 1)]
+
+    def run(lo, hi):
+        fn(sc[lo:hi].ctypes.data_as(u64p), hi - lo,
+           out[lo:hi].ctypes.data_as(u64p))
+
+    with ThreadPoolExecutor(parts) as ex:
+        list(ex.map(run, cuts[:-1], cuts[1:]))
+    return out
 
 
 def g1_gen_mul_batch(ks) -> list:
-    """[k_i]G1 for many scalars (fixed-base windowed, native)."""
-    lib = get_lib()
-    sc = _scalars_to_u64(ks)
-    out = np.zeros((len(ks), 8), dtype=np.uint64)
-    lib.g1_fixed_base_mul_batch(
-        sc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), len(ks),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
-    return _u64_to_aff(out)
+    """[k_i]G1 for many scalars (fixed-base windowed, native, threaded)."""
+    return _u64_to_aff(_fixed_base("g1_fixed_base_mul_batch", ks, 8))
 
 
 def g2_gen_mul_batch(ks) -> list:
-    lib = get_lib()
-    sc = _scalars_to_u64(ks)
-    out = np.zeros((len(ks), 16), dtype=np.uint64)
-    lib.g2_fixed_base_mul_batch(
-        sc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), len(ks),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
-    return _u64_to_g2(out)
+    """[k_i]G2 for many scalars (fixed-base windowed, native, threaded)."""
+    return _u64_to_g2(_fixed_base("g2_fixed_base_mul_batch", ks, 16))
 
 
 def g1_mul_batch(ks, points) -> list:

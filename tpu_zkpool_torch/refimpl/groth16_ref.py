@@ -56,6 +56,32 @@ def fr_ifft(evals: list) -> list:
     return [v * inv_n % R for v in fr_fft(evals, invert=True)]
 
 
+def powers(base: int, count: int, first: int = 1) -> list:
+    """[first * base^i mod R for i < count], by a running product."""
+    out = [0] * count
+    acc = first % R
+    for i in range(count):
+        out[i] = acc
+        acc = acc * base % R
+    return out
+
+
+def _batch_inv(vals: list) -> list:
+    """Inverses mod R of non-zero values: one modular inverse and three
+    products a value (Montgomery's trick)."""
+    pre = [0] * len(vals)
+    acc = 1
+    for i, v in enumerate(vals):
+        pre[i] = acc
+        acc = acc * v % R
+    inv = pow(acc, -1, R)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = pre[i] * inv % R
+        inv = inv * vals[i] % R
+    return out
+
+
 # ------------------------------------------------------------------ R1CS
 
 @dataclass
@@ -130,15 +156,17 @@ def setup(r1cs: R1CS, seed: int = 1337, committed=()) -> tuple:
         n <<= 1
     omega = _fr_root(n)
 
-    # Lagrange values L_c(tau) for all constraints c.
+    # Lagrange values L_c(tau) = t(tau) w^c / (n (tau - w^c)) for the m
+    # constraints c (rows past m are zero); the inverses by one batch
+    # inversion.
     t_tau = (pow(tau, n, R) - 1) % R
     assert t_tau != 0, "tau hit the domain (resample seed)"
     inv_n = pow(n, -1, R)
-    lag = []
-    wc = 1
-    for c in range(n):
-        lag.append(t_tau * wc % R * pow((tau - wc) % R, -1, R) % R * inv_n % R)
-        wc = wc * omega % R
+    ws = powers(omega, m)
+    scale = t_tau * inv_n % R
+    lag = [scale * wc % R * iv % R
+           for wc, iv in zip(ws, _batch_inv([(tau - wc) % R for wc in ws]))]
+    del ws
 
     nv = r1cs.num_vars
     u = [0] * nv
@@ -174,7 +202,7 @@ def setup(r1cs: R1CS, seed: int = 1337, committed=()) -> tuple:
     ]
     sigma = rng.randrange(1, R)
     g2r = rng.randrange(1, R)
-    h_scalars = [pow(tau, i, R) * t_tau % R * inv_delta % R for i in range(n - 1)]
+    h_scalars = powers(tau, n - 1, t_tau * inv_delta % R)
     abc_scalars = [
         (beta * u[i] + alpha * v[i] + w[i]) * inv_gamma % R
         for i in range(r1cs.num_public)
