@@ -188,7 +188,18 @@ Phases, one line each:
              point and phase 9's one-process (host 2, chip 4) point,
              times the cross-process gather alone, and the 2^16-leaf
              root over the eight slots of both processes, equal to phase
-             6's; init_process_group s, ms and K1-K7 launches a rank. A
+             6's; init_process_group s, ms and K1-K7 launches a rank. Then
+             the sharded NTT across the two processes at phase 9's shape
+             (n = 1,024, 4,096 polynomials a side) on a span_mesh of D = 2
+             (one slot a process) and D = 8 (four a process), under both
+             exchanges (ppermute: the shards through host memory over
+             Gloo; rdma: K9 reading the partner's shard through a CUDA IPC
+             mapping), eagerly: each product cold and warm equal to the
+             single-device product, the forward and its inverse, K9's
+             launches a product (3 log2 D a process), one crossing stage
+             with its exchange's share, and under rdma that stage held
+             to K9's twin on the partner's shard copied through host
+             memory; the warm product beside phase 9's at the same D. A
              worker that fails, outlives its timeout or prints no
              sentinel fails the phase;
   15 variant the var-PK audit circuit var_pk_e_witness (1,185,473 rows,
@@ -267,7 +278,7 @@ from tpu_zkpool_torch.merkle import TREE_DEPTH, MerkleTree, build_levels
 from tpu_zkpool_torch.msm import affine_tree, grid, kernels
 from tpu_zkpool_torch.msm import tree_kernels as tkern
 from tpu_zkpool_torch.parallel import (Mesh, initialize, ntt_rdma,
-                                       ntt_sharded, pod_mesh)
+                                       ntt_sharded, pod_mesh, span_mesh)
 from tpu_zkpool_torch.parallel.merkle_sharded import root_sharded
 from tpu_zkpool_torch.parallel.msm_sharded import (msm_grid_sharded,
                                                    msm_grid_sharded_2d)
@@ -3291,6 +3302,9 @@ def phase_dp_step(device, log2n=16, D=8):
 POD_CHIPS = 4                  # virtual slots a process on the one card
 POD_TIMEOUT_S = 300            # each worker's own bound
 POD_GATHER_REPS = 20
+POD_NTT_DS = (2, 8)            # the sharded NTT's meshes across processes
+POD_NTT_REPS = 3
+POD_STAGE_REPS = 5
 
 
 def _free_port():
@@ -3305,7 +3319,7 @@ def _point_json(p):
     return None if p is None else [str(v) for v in p]
 
 
-def phase_pod(device, out_dir, g1, points9, merkle):
+def phase_pod(device, out_dir, g1, points9, merkle, ntt9):
     """Phase 14: two worker processes of this script (``--pod-worker``) on
     the one card, joined by ``multihost.initialize`` over Gloo (NCCL takes
     one card a rank), each with a (host 2, chip 4) ``pod_mesh`` of four
@@ -3313,8 +3327,11 @@ def phase_pod(device, out_dir, g1, points9, merkle):
     scalars and phase 6's 2^16 leaves, written here as .npy files (deleted
     after); each worker holds its MSM to phase 3's native-oracle point and
     phase 9's single-process (host 2, chip 4) point, and its root to phase
-    6's. A worker that fails, outlives its timeout or prints no sentinel
-    raises here."""
+    6's; then runs the sharded NTT across the processes (``pod_ntt``),
+    whose warm product ms is set here beside phase 9's single-process
+    product at the same D and exchange (``ntt9``: graph replay and eager).
+    A worker that fails, outlives its timeout or prints no sentinel raises
+    here."""
     d = os.path.abspath(os.path.join(out_dir, "pod"))
     os.makedirs(d, exist_ok=True)
     torch.cuda.empty_cache()           # the card's memory for the workers
@@ -3357,8 +3374,124 @@ def phase_pod(device, out_dir, g1, points9, merkle):
                                  f"{p.returncode}):\n{out[-4000:]}")
         line = [ln for ln in out.splitlines() if ln.startswith("POD ")]
         ranks.append(json.loads(line[-1][len("POD "):]))
+    for r in ranks:
+        for key, run in r["ntt"].items():
+            one = ntt9["runs"][key]
+            run.update(ratio_to_phase9=run["warm_ms"] / one["ms"],
+                       ratio_to_phase9_eager=run["warm_ms"] / one["eager_ms"])
     return dict(ranks=ranks, wall_s=wall_s,
                 ok=all(r["ok"] for r in ranks))
+
+
+def pod_stage(device, mesh, D, B, S, ex, reps=POD_STAGE_REPS):
+    """One exchange stage whose pairs cross the processes (hd = D / 2) at
+    phase 9's shard shape, in one worker: with ``ex == "rdma"`` K9 reads
+    each partner's shard through its CUDA IPC mapping, forward and inverse,
+    each local slot held to ``stage_plain`` on the partner's shard copied
+    by hand (``Mesh.ppermute``, through host memory) with 0, 1 and q - 1
+    planted (``stage_inputs``); then, by the host clock, blocks of
+    ``reps`` stages in a row (as a transform runs them: each stage's
+    handshake releases the stage before, one ``settle`` a block) and of
+    the exchange alone (``ppermute``'s copies, or the partner reads'
+    synchronize, handshake and mapping), in turns, three of each: the
+    median block's ms a stage, ms an exchange and its share of the
+    stage."""
+    hd = D // 2
+    ys, tws, u, partners = stage_inputs(device, D, B, S, hd, 140 + D)
+    ys = [y if s.local else None for y, s in zip(ys, mesh.slots)]
+    tws = [t if s.local else None for t, s in zip(tws, mesh.slots)]
+    res = dict(hd=hd, shard=(B, S))
+    if ex == "rdma":
+        copies = mesh.ppermute(ys, partners)
+        err = 0
+        for inv in (False, True):
+            got = ntt_rdma.exchange_butterfly(mesh, ys, tws, u, partners,
+                                              ex, inv)
+            ntt_rdma.settle(mesh)
+            for s in mesh.slots:
+                if s.local:
+                    want = ntt_rdma.butterfly_plain(
+                        ys[s.index], copies[s.index], tws[s.index],
+                        u[s.index], inv)
+                    err = max(err, _max_err(got[s.index], want))
+        res["ipc_read_max_abs_err"] = err
+
+    def stages():
+        for _ in range(reps):
+            ntt_rdma.exchange_butterfly(mesh, ys, tws, u, partners, ex)
+        ntt_rdma.settle(mesh)
+
+    def exchanges():
+        for _ in range(reps):
+            if ex == "rdma":
+                ntt_rdma.partner_reads(mesh, ys, partners)
+            else:
+                mesh.ppermute(ys, partners)
+        ntt_rdma.settle(mesh)
+
+    stages()                                   # warm
+    times = {"stage_ms": [], "exchange_ms": []}
+    for _ in range(3):
+        for key, fn in (("stage_ms", stages), ("exchange_ms", exchanges)):
+            times[key].append(_host_ms(fn)[0] / reps)
+    for key, ts in times.items():
+        res[key], res[key[:-3] + "_blocks_ms"] = float(np.median(ts)), ts
+    res["exchange_share"] = res["exchange_ms"] / res["stage_ms"]
+    return res
+
+
+def pod_ntt(device, n=rlwe_ref.N, B=4096, reps=POD_NTT_REPS):
+    """Phase 14's sharded NTT across the two processes, in one worker:
+    phase 9's inputs (the audit ring n = 1,024, B polynomials a side, the
+    same seeds) on ``span_mesh`` meshes of D = 2 (one slot a process,
+    every cross stage crosses) and D = 8 (four a process, the first cross
+    stage crosses), both exchanges, each an eager run (a CUDA graph holds
+    one process's work). The product cold and ``reps`` times warm (host
+    clock), each equal to the single-device ``rlwe.ntt.negacyclic_mul``;
+    K9's launches over the cold product (3 log2 D: one a stage in a
+    process); the forward equal to ``rlwe.ntt.forward`` and its inverse to
+    the input; one crossing stage (``pod_stage``); and the product's last
+    step alone, its result returned whole to every process
+    (``Mesh.unshard``: the gather through host memory and the broadcast,
+    median of ``reps``). Returns ({"D=.. ex": run}, ok)."""
+    a, b = random_q((B, n), device, 110), random_q((B, n), device, 111)
+    f_ref, prod_ref = rntt.forward(a), rntt.negacyclic_mul(a, b)
+    runs, ok = {}, True
+    for D in POD_NTT_DS:
+        mesh = span_mesh(device=device, chips=D // 2)
+        for ex in ntt_sharded.EXCHANGES:
+            mul = lambda: ntt_sharded.negacyclic_mul_sharded(a, b, mesh,
+                                                             exchange=ex)
+            ntt_rdma.reset_launches()
+            cold, p = _host_ms(mul)
+            launches = ntt_rdma.LAUNCHES["exchange_butterfly"]
+            mul_ok = torch.equal(p, prod_ref)
+            warm = []
+            for _ in range(reps):
+                ms, p = _host_ms(mul)
+                warm.append(ms)
+                mul_ok &= torch.equal(p, prod_ref)
+            f = ntt_sharded.forward_sharded(a, mesh, exchange=ex)
+            run = dict(
+                mul_ok=mul_ok, forward_ok=torch.equal(f, f_ref),
+                inverse_ok=torch.equal(ntt_sharded.inverse_sharded(
+                    f, mesh, exchange=ex), a),
+                launches_per_product=launches,
+                launches_ok=launches == 3 * (D.bit_length() - 1),
+                cold_ms=cold, warm_ms=min(warm), warm_all_ms=warm,
+                stage=pod_stage(device, mesh, D, B, n // D, ex))
+            if ex == "rdma":             # the same step under either
+                pieces = mesh.shard(p, ntt_sharded._spec(p, "sp"))
+                run["unshard_ms"] = float(np.median([_host_ms(
+                    lambda: mesh.unshard(pieces, "sp", device))[0]
+                    for _ in range(reps)]))
+            run["ipc_read_ok"] = run["stage"].get("ipc_read_max_abs_err",
+                                                  0) == 0
+            ok &= all(run[k] for k in ("mul_ok", "forward_ok", "inverse_ok",
+                                       "launches_ok", "ipc_read_ok"))
+            runs[f"D={D} {ex}"] = run
+        del mesh
+    return runs, bool(ok)
 
 
 def pod_worker(rank, port, d, device="cuda:0"):
@@ -3366,9 +3499,10 @@ def pod_worker(rank, port, d, device="cuda:0"):
     runtime, build the pod mesh, run the 2^18 G1 MSM (host 2, chip 4) cold
     and warm, time the cross-process gather of one partial a process (the
     host axis of ``hierarchical_fold``: W = 20 window sums of (3, 1, 16)
-    int64, staged through host memory for Gloo), and the 2^16-leaf root
-    over the eight slots of both processes; print one "POD" JSON line, and
-    the sentinel only if every check held."""
+    int64, staged through host memory for Gloo), the 2^16-leaf root
+    over the eight slots of both processes, and the sharded NTT across the
+    processes (``pod_ntt``); print one "POD" JSON line, and the sentinel
+    only if every check held."""
     device = torch.device(device)
     t0 = time.perf_counter()
     initialize(f"127.0.0.1:{port}", num_processes=2, process_id=rank,
@@ -3406,6 +3540,7 @@ def pod_worker(rank, port, d, device="cuda:0"):
         leaves, mesh, axis=("host", "chip")))
     launches = dict(kernels.LAUNCHES, poseidon=hkern.LAUNCHES["poseidon"])
     roots = [str(int(FR.from_mont(t.cpu()))) for t in (root, root2)]
+    ntt_runs, ntt_ok = pod_ntt(device)
     checks = dict(
         msm_oracle=points == [want["oracle"]] * 2,
         msm_single=points[0] == want["single"],
@@ -3413,7 +3548,8 @@ def pod_worker(rank, port, d, device="cuda:0"):
         root=roots == [want["root"]] * 2,
         launches=all(launches[k] > 0 for k in (
             "prefix_rows", "wsum", "addn", "scale_add", "poseidon"))
-        and (launches["horner"] > 0) == (rank == 0))
+        and (launches["horner"] > 0) == (rank == 0),
+        ntt=ntt_ok)
     ok = all(checks.values())
     print("POD " + json.dumps(dict(
         rank=rank, slots=[s.index for s in mesh.slots if s.local],
@@ -3421,11 +3557,33 @@ def pod_worker(rank, port, d, device="cuda:0"):
         gather_ms=dict(min=min(gather_ms), median=float(np.median(
             gather_ms)), bytes=part.numel() * 8),
         root_cold_ms=root_cold, root_warm_ms=root_warm, launches=launches,
-        checks=checks, ok=ok)), flush=True)
+        ntt=ntt_runs, checks=checks, ok=ok), default=str), flush=True)
     torch.distributed.destroy_process_group()
     if ok:
         print(f"POD{rank}_OK", flush=True)
     return 0 if ok else 1
+
+
+def log_pod_ntt(r):
+    """Phase 14's line a (rank, mesh, exchange) of the sharded NTT."""
+    for key, run in r["ntt"].items():
+        st = run["stage"]
+        log(14, f"rank {r['rank']} NTT {key} across processes: product "
+                f"cold {run['cold_ms']:.2f} ms, warm {run['warm_ms']:.2f} "
+                f"ms {json.dumps(run['warm_all_ms'])} (x"
+                f"{run['ratio_to_phase9']:.2f} phase 9's replay, x"
+                f"{run['ratio_to_phase9_eager']:.2f} its eager run); K9 "
+                f"{run['launches_per_product']} launches a product; a "
+                f"crossing stage (hd = {st['hd']}) {st['stage_ms']:.3f} ms, "
+                f"its exchange {st['exchange_ms']:.3f} ms (share "
+                f"{st['exchange_share']:.3f})" + (
+                    f", IPC read against the twin max |err| "
+                    f"{st['ipc_read_max_abs_err']}; the result returned "
+                    f"whole to both processes alone {run['unshard_ms']:.2f}"
+                    f" ms" if "ipc_read_max_abs_err" in st else "")
+            + "; ok " + json.dumps({k: run[k] for k in (
+                "mul_ok", "forward_ok", "inverse_ok", "launches_ok",
+                "ipc_read_ok")}))
 
 
 # ----------------------------------- phase 15: a domain-2^21 proof
@@ -3968,7 +4126,7 @@ def main(argv):
     # ---- 14: the pod path: two processes on the one card, a (host 2,
     # chip 4) pod mesh whose host axis is the process boundary
     t0 = time.perf_counter()
-    pod = phase_pod(device, out_dir, g1, mesh_points, merkle)
+    pod = phase_pod(device, out_dir, g1, mesh_points, merkle, mesh_ntt)
     pod["phase_s"] = time.perf_counter() - t0
     single = mesh_msm["host=2 chip=4"]
     for r in pod["ranks"]:
@@ -3981,6 +4139,7 @@ def main(argv):
                 f"{r['root_cold_ms']:.1f}, warm {r['root_warm_ms']:.1f} ms; "
                 f"launches {json.dumps(r['launches'])}; checks "
                 f"{json.dumps(r['checks'])}")
+        log_pod_ntt(r)
     log(14, f"pod: two workers in {pod['wall_s']:.1f} s, phase "
             f"{pod['phase_s']:.1f} s, ok {pod['ok']}")
     if not pod["ok"]:

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s phase 14 alone on one NVIDIA GPU: the kernels the
-pod path runs built (K1-K6, K7; the native host library for the oracle),
-phase 3's 2^18 G1 inputs against the native oracle (``phase_msm``), phase
-9's sharded MSMs in one process (``phase_msm_sharded``), phase 6's 2^16
-root by ``build_levels``, then two processes on the one card
-(``phase_pod``).
+pod path runs built (K1-K6, K7, K9; the native host library for the
+oracle), phase 3's 2^18 G1 inputs against the native oracle
+(``phase_msm``), phase 9's sharded MSMs and sharded NTT in one process
+(``phase_msm_sharded``, ``phase_ntt``), phase 6's 2^16 root by
+``build_levels``, then two processes on the one card (``phase_pod``: the
+pod MSM, the gather, the root, and the sharded NTT across the processes
+under both exchanges).
 
     python3 scripts/pod_phase14.py [--out DIR]     # from a checkout's root
 
@@ -33,6 +35,7 @@ from tpu_zkpool_torch.fields.fctx import FR  # noqa: E402
 from tpu_zkpool_torch.hash import kernels as hkern  # noqa: E402
 from tpu_zkpool_torch.merkle import build_levels  # noqa: E402
 from tpu_zkpool_torch.msm import kernels  # noqa: E402
+from tpu_zkpool_torch.parallel import ntt_rdma  # noqa: E402
 
 
 def main(argv):
@@ -45,9 +48,9 @@ def main(argv):
     device = torch.device("cuda", 0)
     print(cs.nvidia_smi("name,power.limit"), flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         futs = [ex.submit(cuda_build.build, cu)
-                for cu in (kernels.SOURCE, hkern.SOURCE)]
+                for cu in (kernels.SOURCE, hkern.SOURCE, ntt_rdma.SOURCE)]
         futs.append(ex.submit(native_bridge.get_lib))
         for f in futs:
             f.result()
@@ -56,14 +59,18 @@ def main(argv):
     print("msm " + json.dumps(msm), flush=True)
     mesh_msm, points = cs.phase_msm_sharded(device, g1)
     print("mesh msm " + json.dumps(mesh_msm), flush=True)
+    ntt9 = cs.phase_ntt(device)
+    print("mesh ntt " + json.dumps(ntt9), flush=True)
     _, root = build_levels(cs.random_mont((1 << 16,), device, seed=16), 16)
     merkle = dict(root=str(int(FR.from_mont(root.cpu()))))
     t0 = time.perf_counter()
-    pod = cs.phase_pod(device, out_dir, g1, points, merkle)
+    pod = cs.phase_pod(device, out_dir, g1, points, merkle, ntt9)
     pod["phase_s"] = time.perf_counter() - t0
-    print("pod " + json.dumps(pod), flush=True)
+    for r in pod["ranks"]:
+        cs.log_pod_ntt(r)
+    print("pod " + json.dumps(pod, default=str), flush=True)
     ok = (msm[1]["ok"] and all(v["ok"] for v in mesh_msm.values())
-          and pod["ok"])
+          and ntt9["ok"] and pod["ok"])
     return 0 if ok else 1
 
 

@@ -22,6 +22,7 @@ SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
            os.path.join("scripts", "withdraw_phase13.py"),
            os.path.join("scripts", "pod_phase14.py"),
            os.path.join("scripts", "pod_nccl_probe.py"),
+           os.path.join("scripts", "pod_ipc_probe.py"),
            os.path.join("scripts", "torch_benchmark_variants.py")]
 
 
@@ -264,8 +265,14 @@ def test_pod_mesh_asks_for_its_own_card(monkeypatch):
 
 def test_cross_process_axis_refuses_ppermute_graphed_and_k9():
     """On a (host, chip) mesh whose host axis is the process boundary,
-    ``ppermute``, ``graphed``, the sharded NTT and K9's partner read raise a
-    ValueError naming the axis; within a process ``ppermute`` still runs."""
+    ``graphed`` raises a ValueError naming the axis (a CUDA graph holds one
+    process's work); K9's partner read across processes on CPU slots
+    raises a ValueError (it maps the partner's shard by CUDA IPC, and the
+    CPU has no shared device memory), and so does the sharded NTT under
+    ``exchange="rdma"``; ``ppermute`` across processes refuses to run
+    without the ``torch.distributed`` runtime it exchanges through
+    (``tests/test_torch_multihost.py`` runs it with one); within a process
+    ``ppermute`` still runs."""
     import numpy as np
     from tpu_zkpool_torch.parallel import Mesh, ntt_rdma, forward_sharded
     grid = np.full((2, 2), "cpu", dtype=object)
@@ -276,20 +283,43 @@ def test_cross_process_axis_refuses_ppermute_graphed_and_k9():
     vals = [torch.full((2,), float(i)) for i in range(2)] + [None, None]
     across = [mesh.partner(s, "host", 1).index for s in mesh.slots]
     within = [mesh.partner(s, "chip", 1).index for s in mesh.slots]
-    with pytest.raises(ValueError, match="'host'.*crosses processes"):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         mesh.ppermute(vals, across)
     out = mesh.ppermute(vals, within)
     assert [float(t[0]) for t in out[:2]] == [1.0, 0.0] and out[2:] == [
         None, None]
     with pytest.raises(ValueError, match="graphed over axis.*'host'"):
         mesh.graphed("k", lambda t: t, torch.zeros(2))
-    with pytest.raises(ValueError, match="sharded NTT over axis 'host'"):
+    with pytest.raises(ValueError, match="CUDA IPC.*exchange='ppermute'"):
         forward_sharded(torch.zeros((1, 8), dtype=torch.int32), mesh,
-                        axis="host")
-    with pytest.raises(ValueError, match="K9's partner read over axis"):
+                        axis="host", exchange="rdma")
+    with pytest.raises(ValueError, match="CUDA IPC"):
         ntt_rdma.exchange_butterfly(mesh, vals, vals, [True] * 4, across)
     assert mesh.shard(torch.arange(4.), (("host", "chip"),))[2:] == [
         None, None]
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_routes_pair_sends_with_receives(monkeypatch, rank):
+    """``Mesh.routes`` on a 1-D axis of 8 slots over two processes (four
+    each), partners d ^ 4 and then d ^ 1: at hd = 4 every slot sends to
+    and takes from the other process, each list in the taking slot's
+    order, so what one process sends is what the other expects; at hd = 1
+    nothing crosses."""
+    import numpy as np
+    from tpu_zkpool_torch.parallel import Mesh
+    _fake_runtime(monkeypatch, rank, 0)
+    owner = np.repeat([0, 1], 4)
+    mesh = Mesh(np.full(8, "cpu", dtype=object), ("sp",), processes=owner)
+    far = [mesh.partner(s, "sp", 4).index for s in mesh.slots]
+    mine = [i for i in range(8) if owner[i] == rank]
+    assert mesh.routes(far) == {1 - rank: (mine, mine)}
+    assert mesh.routes([mesh.partner(s, "sp", 1).index
+                        for s in mesh.slots]) == {}
+    # a permutation that is not an involution: slot t takes slot t + 1
+    shift = [(i + 1) % 8 for i in range(8)]
+    want = ([4], [7]) if rank else ([0], [3])
+    assert mesh.routes(shift) == {1 - rank: want}
 
 
 def test_exchange_butterfly_wrapper_rejects_bad_inputs():

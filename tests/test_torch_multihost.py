@@ -5,9 +5,14 @@ The form of ``tests/test_multihost.py``: a real two-process
 port), a (2 hosts x 2 chips) ``pod_mesh(device="cpu", chips=2)`` whose host
 axis is the process boundary, and in it ``hierarchical_fold`` (its level-2
 gather crosses the processes), both sharded MSMs and the sharded Merkle
-root. The workers import only the port and print their results; the parent
-holds them to the native Pippenger oracle and the JAX tree's host root,
-at ``tests/test_torch_parallel.py``'s small sizes (the workers run the
+root; then the sharded negacyclic NTT on ``span_mesh`` meshes whose one
+axis crosses the processes, D = 2 (one slot a process: every cross stage
+crosses) and D = 4 (two a process: one crossing stage, one local), under
+``exchange="ppermute"`` (``Mesh.ppermute`` over Gloo). The workers import
+only the port and print or save their results; the parent holds them to
+the native Pippenger oracle, the JAX tree's host root and JAX's
+single-device ``rlwe.ntt`` (exactly), at ``tests/test_torch_parallel.py``'s
+and ``tests/test_torch_ntt_sharded.py``'s small sizes (the workers run the
 kernels' plain twins). Each worker is bounded by its own timeout.
 """
 
@@ -19,12 +24,15 @@ import socket
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tpu_zkpool import native_bridge as jnb
 from tpu_zkpool.merkle import MerkleTree as JaxTree
+from tpu_zkpool.rlwe import ntt as jn
 
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import ints_to_limbs
@@ -35,6 +43,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, NBITS, LANES = 5, 20, 32     # as tests/test_torch_parallel.py
 N_POINTS = 2 * LANES * 4        # two lane tiles on each of the 4 slots
 N_LEAVES, DEPTH = 8, 5
+NTT_N, NTT_B, NTT_DS = 1024, 5, (2, 4)   # ring, an odd batch, shard counts
+Q = 167772161
 
 _WORKER = r"""
 import datetime, json, os, sys
@@ -81,9 +91,35 @@ msm2d = msm_grid_sharded_2d(rows, limbs, mesh, **kw)
 msm1d = msm_grid_sharded(rows, limbs, mesh, axis=("host", "chip"), **kw)
 root = root_sharded(load("leaves"), mesh, axis=("host", "chip"),
                     depth=%(depth)d)
+
+# the sharded NTT over one axis that crosses the processes
+from tpu_zkpool_torch.parallel import (forward_sharded, inverse_sharded,
+                                       negacyclic_mul_sharded, span_mesh)
+a, b = load("ntt_a"), load("ntt_b")
+refusals = {}
+for D in load("ntt_ds").tolist():
+    m = span_mesh(device="cpu", chips=D // 2)
+    assert m.crossing("sp") and [s.local for s in m.slots] == (
+        [pid == 0] * (D // 2) + [pid == 1] * (D // 2))
+    f = forward_sharded(a, m, exchange="ppermute")
+    outs = dict(forward=f, inverse=inverse_sharded(f, m,
+                                                   exchange="ppermute"),
+                mul=negacyclic_mul_sharded(a, b, m, exchange="ppermute"))
+    for name, t in outs.items():
+        np.save(os.path.join(d, f"ntt{pid}_D{D}_{name}.npy"), t.numpy())
+    for what, fn in (
+            ("rdma", lambda: negacyclic_mul_sharded(a, b, m,
+                                                    exchange="rdma")),
+            ("graphed", lambda: m.graphed("k", lambda t: t, a))):
+        try:
+            fn()
+            refusals[f"{what} D={D}"] = None
+        except ValueError as e:
+            refusals[f"{what} D={D}"] = str(e)
+
 print("RESULT " + json.dumps(dict(
     fold=fold, msm2d=affine(msm2d), msm1d=affine(msm1d),
-    root=str(int(FR.from_mont(root))))), flush=True)
+    root=str(int(FR.from_mont(root))), refusals=refusals)), flush=True)
 torch.distributed.destroy_process_group()
 print(f"WORKER{pid}_OK", flush=True)
 """
@@ -125,6 +161,13 @@ def pod(tmp_path_factory):
     jt = JaxTree(depth=DEPTH)
     for v in leaves:
         jt.insert(v)
+    ntt_rng = np.random.default_rng(83)
+    a, b = (ntt_rng.integers(0, Q, (NTT_B, NTT_N), dtype=np.uint32)
+            for _ in range(2))
+    a[0, :3] = [0, 1, Q - 1]
+    np.save(d / "ntt_a.npy", a.astype(np.int32))
+    np.save(d / "ntt_b.npy", b.astype(np.int32))
+    np.save(d / "ntt_ds.npy", np.asarray(NTT_DS))
     script = d / "worker.py"
     script.write_text(_WORKER % dict(repo=_REPO, c=C, lanes=LANES,
                                      nbits=NBITS, depth=DEPTH))
@@ -150,8 +193,17 @@ def pod(tmp_path_factory):
         assert p.returncode == 0, f"worker {pid} failed:\n{out[-3000:]}"
         assert f"WORKER{pid}_OK" in out
         line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-        results.append(json.loads(line[-1][len("RESULT "):]))
-    return results, dict(msm=[str(v) for v in want], root=str(jt.get_root()))
+        res = json.loads(line[-1][len("RESULT "):])
+        res["ntt"] = {(D, name): np.load(d / f"ntt{pid}_D{D}_{name}.npy")
+                      for D in NTT_DS
+                      for name in ("forward", "inverse", "mul")}
+        results.append(res)
+    ntt = dict(inverse=a,
+               forward=np.asarray(jax.jit(jn.forward)(jnp.asarray(a))),
+               mul=np.asarray(jax.jit(jn.negacyclic_mul)(jnp.asarray(a),
+                                                        jnp.asarray(b))))
+    return results, dict(msm=[str(v) for v in want], root=str(jt.get_root()),
+                         ntt=ntt)
 
 
 def test_pod_hierarchical_fold(pod):
@@ -171,6 +223,32 @@ def test_pod_msm_vs_native(pod, form):
 def test_pod_root_sharded_matches_jax_tree(pod):
     results, want = pod
     assert [r["root"] for r in results] == [want["root"]] * 2
+
+
+@pytest.mark.parametrize("form", ["forward", "inverse", "mul"])
+@pytest.mark.parametrize("D", NTT_DS)
+def test_pod_ntt_sharded_matches_jax(pod, D, form):
+    """The sharded NTT with its ``sp`` axis across the two processes,
+    ``exchange="ppermute"``: in both processes the forward equals JAX's
+    ``rlwe.ntt.forward``, the inverse of it gives back the input, and the
+    product equals JAX's ``rlwe.ntt.negacyclic_mul``, word for word."""
+    results, want = pod
+    for r in results:
+        got = r["ntt"][D, form].astype(np.uint32)
+        assert got.shape == (NTT_B, NTT_N)
+        assert (got == want["ntt"][form]).all()
+
+
+def test_pod_ntt_refuses_rdma_and_graphed_on_cpu(pod):
+    """Across CPU processes K9's partner read raises a ValueError (it maps
+    the partner's shard by CUDA IPC; the CPU has no shared device memory),
+    and ``Mesh.graphed`` still raises on the crossing mesh, in both."""
+    results, _ = pod
+    for r in results:
+        for D in NTT_DS:
+            assert "CUDA IPC" in (r["refusals"][f"rdma D={D}"] or "")
+            assert "graphed over axis ('sp',): the axis crosses" in (
+                r["refusals"][f"graphed D={D}"] or "")
 
 
 def test_initialize_without_runtime_returns_false(monkeypatch):

@@ -30,7 +30,10 @@
 // interleave the slots (block b serves slot b % slots), so a pair's two
 // slots read the same rows close together in time and the second read
 // tends to hit L2. Slots of a distinct card's partner read it over peer
-// access (the wrapper enables it); that path needs two cards.
+// access (the wrapper enables it); that path needs two cards. A partner
+// shard that another process owns is read through a CUDA IPC mapping of
+// its block (ntt_ipc_* below), which the kernel sees as one more pointer:
+// the counterpart of the TPU kernel's remote copy to another chip.
 //
 // Bound: bytes. Each element reads y and o and writes out (12 B; 8 B of
 // device memory when o is the partner's own y and the second read hits
@@ -65,6 +68,7 @@ inline ZkDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 #endif
 
 #include <cstdint>
+#include <cstring>
 
 namespace zk {
 
@@ -186,6 +190,92 @@ int ntt_enable_peer(int peer) {
     return 0;
   }
   return (int)e;
+}
+
+// CUDA IPC, so that K9 reads a partner shard that another process owns.
+// A caching allocator's tensor is a suballocation: the handle covers the
+// whole allocation (its block), so the export also returns the tensor's
+// byte offset in it, found by the driver's cuMemGetAddressRange (reached
+// through the runtime, so the library links no libcuda). A failed call's
+// error is cleared, so the next launch's cudaGetLastError does not report
+// it; the wrapper raises with its name.
+
+int ntt_ipc_handle_size() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+typedef int (*AddressRangeFn)(unsigned long long*, size_t*,
+                              unsigned long long);
+
+static cudaError_t address_range(AddressRangeFn* fn) {
+  static AddressRangeFn found = nullptr;
+  if (!found) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12000
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuMemGetAddressRange", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuMemGetAddressRange", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorNotSupported;
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuMemGetAddressRange_v2", &p,
+                                            cudaEnableDefault);
+    if (e != cudaSuccess) return e;
+    if (!p) return cudaErrorNotSupported;
+#endif
+    found = (AddressRangeFn)p;
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+static int failed(cudaError_t e) {
+  cudaGetLastError();
+  return (int)e;
+}
+
+// The handle of the allocation that holds `ptr` (64 bytes into `handle`)
+// and ptr's byte offset from the allocation's base.
+int ntt_ipc_export(const void* ptr, void* handle, unsigned long long* offset) {
+  AddressRangeFn range;
+  cudaError_t e = address_range(&range);
+  if (e != cudaSuccess) return failed(e);
+  unsigned long long base = 0;
+  size_t size = 0;
+  if (range(&base, &size, (unsigned long long)(uintptr_t)ptr) != 0)
+    return failed(cudaErrorInvalidDevicePointer);
+  cudaIpcMemHandle_t h;
+  e = cudaIpcGetMemHandle(&h, (void*)(uintptr_t)base);
+  if (e != cudaSuccess) return failed(e);
+  memcpy(handle, &h, sizeof h);
+  *offset = (unsigned long long)(uintptr_t)ptr - base;
+  return 0;
+}
+
+// Map another process's allocation into the current device's context
+// (over peer access where it lies on another card).
+int ntt_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  cudaError_t e = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  return e == cudaSuccess ? 0 : failed(e);
+}
+
+int ntt_ipc_close(void* ptr) {
+  cudaError_t e = cudaIpcCloseMemHandle(ptr);
+  return e == cudaSuccess ? 0 : failed(e);
+}
+
+// CUDA's name and description of an error code the entry points return.
+const char* ntt_error_name(int code) {
+  return cudaGetErrorName((cudaError_t)code);
+}
+
+const char* ntt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

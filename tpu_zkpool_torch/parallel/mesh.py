@@ -23,9 +23,13 @@ for its devices under ``jit``.
   other members through ``torch.distributed.all_gather`` on a process
   subgroup (one a set of processes, made at the mesh's first use of it);
   ``join`` and ``unshard`` return the result in every process, broadcast
-  from the root slot's process. ``ppermute``, ``graphed`` and K9's
-  partner read have no cross-process form: on an axis that crosses
-  processes they raise.
+  from the root slot's process. ``ppermute`` sends the values whose
+  partner lives in another process through ``torch.distributed`` point to
+  point, one stack a peer process (``routes``, ``swap``). K9's partner
+  read across processes maps the partner's shard by CUDA IPC
+  (``ntt_rdma``). ``graphed`` has no cross-process form: a CUDA graph
+  holds one process's work, so on an axis that crosses processes it
+  raises.
 
 Ordering follows the caching allocator's rules. A copy onto a slot runs on
 that slot's copy stream after an event of the stream that wrote its source,
@@ -39,11 +43,12 @@ are no streams and all of it runs in order.
 Copies between distinct cards (peer copies) take the same code path; they
 run only where the machine has more than one card.
 
-A cross-process gather over Gloo, the backend for CPU tensors and for
-processes that share one card, moves host memory: a CUDA partial is copied
-to the host, exchanged and copied back to the card on purpose, in
-``_exchange``. That is staging, not a fallback; the work on either side
-stays on the card. Over NCCL the partials stay on the card.
+A cross-process gather or ppermute over Gloo, the backend for CPU tensors
+and for processes that share one card, moves host memory: a CUDA value is
+copied to the host, exchanged and copied back to the card on purpose, in
+``_exchange`` and ``ppermute``. That is staging, not a fallback; the work
+on either side stays on the card. Over NCCL the values stay on the card
+(that form needs distinct cards and has not run).
 """
 
 from __future__ import annotations
@@ -215,15 +220,43 @@ class Mesh:
                              f"processes, and {what} has no cross-process "
                              f"form (it needs one process's slots)")
 
-    def require_pairs_local(self, partners: list, what: str):
-        """Raise ``ValueError`` if a local slot's partner (a slot index)
-        belongs to another process, naming the axes they differ along."""
-        for s in self.slots:
-            p = self.slots[partners[s.index]]
-            if s.local and p.process != s.process:
-                axes = [a for k, a in enumerate(self.axis_names)
-                        if s.coords[k] != p.coords[k]]
-                self.require_local(tuple(axes), what)
+    def routes(self, partners: list) -> dict:
+        """The cross-process part of a pairwise exchange in which slot t
+        takes the value of slot ``partners[t]``: per peer process, in
+        rank order, (the local slots whose values it takes, the local
+        slots that take a value from it), each list in the order of the
+        taking slot. Every process derives the same lists from the same
+        ``partners``, so what one sends the other expects in that order."""
+        out = {}
+        for t in self.slots:
+            p = self.slots[partners[t.index]]
+            if p.process == t.process:
+                continue
+            if p.local:
+                out.setdefault(t.process, ([], []))[0].append(p.index)
+            elif t.local:
+                out.setdefault(p.process, ([], []))[1].append(t.index)
+        return dict(sorted(out.items()))
+
+    def swap(self, peers: dict):
+        """Point-to-point with each peer process: ``peers`` maps a rank to
+        (tensor to send or None, tensor to receive into or None). Every
+        send and receive is posted (``dist.isend`` / ``irecv``, the peers
+        in rank order in every process) before any is waited on, so two
+        processes that swap with each other cannot deadlock. A pair needs
+        no process group of its own: point to point runs on the world's."""
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("a mesh whose slots span processes exchanges "
+                               "through torch.distributed: start it first "
+                               "(multihost.initialize)")
+        works = []
+        for q, (send, recv) in sorted(peers.items()):
+            if send is not None:
+                works.append(dist.isend(send.contiguous(), q))
+            if recv is not None:
+                works.append(dist.irecv(recv, q))
+        for w in works:
+            w.wait()
 
     def ready(self) -> list:
         """Per slot, an event after the work queued on its compute stream
@@ -267,6 +300,12 @@ class Mesh:
             out.append(dst)
         return out
 
+    def sync(self):
+        """Wait on the host for every local slot's compute stream."""
+        for s in self.slots:
+            if s.stream is not None:
+                s.stream.synchronize()
+
     def _sync_to(self, device: torch.device):
         """Order the caller's current stream on ``device`` after every
         local slot's compute stream (on the CPU: wait for them); returns
@@ -276,9 +315,7 @@ class Mesh:
             for s in self.slots:
                 wait(cs, record(s.stream))
             return cs
-        for s in self.slots:
-            if s.stream is not None:
-                s.stream.synchronize()
+        self.sync()
         return None
 
     def join(self, t, device) -> torch.Tensor:
@@ -452,13 +489,49 @@ class Mesh:
         return out
 
     def ppermute(self, values: list, partners: list) -> list:
-        """Per slot s, a copy onto s of ``values[partners[s]]`` (partners
-        as slot indices): a whole-shard pairwise exchange within one
-        process (a partner in another process raises)."""
-        self.require_pairs_local(partners, "ppermute")
+        """Per local slot s, a copy onto s of ``values[partners[s]]``
+        (partners as slot indices; None at another process's slot): a
+        whole-shard pairwise exchange, as ``lax.ppermute``. ``values``
+        holds a tensor at each local slot, alike over the slots. A partner
+        in the same process is copied as it stands; the values bound for
+        another process go as one stack a peer process (``routes``), on
+        the first sending slot, through ``swap``. Over Gloo a CUDA stack
+        is staged through host memory (copied to the host, exchanged, each
+        row copied onto its slot); over NCCL it stays on the card."""
         ready = self.ready()
-        return [self._collect(s, [(ready[p], values[p])])[0] if s.local
-                else None for s, p in zip(self.slots, partners)]
+        out = [self._collect(s, [(ready[p], values[p])])[0]
+               if s.local and self.slots[p].local else None
+               for s, p in zip(self.slots, partners)]
+        routes = self.routes(partners)
+        if not routes:
+            return out
+        like = next(v for v in values if v is not None)
+        host = not like.is_cuda or dist.get_backend() == "gloo"
+        peers = {}
+        for q, (src, dst) in routes.items():
+            send = recv = None
+            if src:
+                s0 = self.slots[src[0]]
+                send = self._collect(s0, [(ready[i], values[i])
+                                          for i in src])
+                if send.is_cuda and host:
+                    with s0.on():
+                        send = send.cpu()   # staging: Gloo moves host memory
+                elif send.is_cuda:          # NCCL's stream cannot see s0's
+                    s0.stream.synchronize()
+            if dst:
+                recv = torch.empty((len(dst),) + tuple(like.shape),
+                                   dtype=like.dtype, device="cpu" if host
+                                   else self.slots[dst[0]].device)
+            peers[q] = send, recv
+        self.swap(peers)
+        for q, (_, dst) in routes.items():
+            recv = peers[q][1]
+            ev = None if host else record(torch.cuda.current_stream(
+                recv.device))               # NCCL's wait lands there
+            for k, i in enumerate(dst):
+                out[i] = self._collect(self.slots[i], [(ev, recv[k])])[0]
+        return out
 
     def fold(self, stacks: list, fold_fn) -> list:
         """On each slot holding a stack (from ``all_gather``), fold its rows

@@ -8,6 +8,8 @@
 - ``pod_mesh()``: a (process_count, chips per process) mesh whose host axis
   is the process boundary (``Mesh(..., processes=)``), so the chip axis
   stays within a process and only the host axis crosses.
+- ``span_mesh()``: the same slots as one axis over every process (each
+  process owns a run of consecutive slots), as the sharded NTT takes it.
 - ``hierarchical_fold()``: fold over the chip axis first, then one partial
   a host over the host axis.
 
@@ -104,6 +106,21 @@ def pod_mesh(axis_host: str = "host", axis_chip: str = "chip", device=None,
     and ``chips`` give each process ``chips`` (default 1) virtual slots on
     the named device: the CPU in the tests, or one card shared on purpose.
     Every process must pass the same ``chips``."""
+    return _process_mesh(device, chips, (axis_host, axis_chip))
+
+
+def span_mesh(axis: str = "sp", device=None, chips: int | None = None) -> Mesh:
+    """``pod_mesh``'s slots as one axis over every process, in process
+    order (slot i in process i // chips): the axis crosses the processes
+    wherever a stage pairs slots of two of them. ``device`` and ``chips``
+    as for ``pod_mesh``."""
+    return _process_mesh(device, chips, (axis,))
+
+
+def _process_mesh(device, chips, axis_names) -> Mesh:
+    """``pod_mesh``'s (processes, chips) grid, this process's row named
+    and the others' None, under two axis names or flattened under one;
+    raises where the processes' chip counts differ."""
     P, rank = process_count(), process_index()
     if device is None and P == 1 and chips is None:
         resolve_device()
@@ -117,7 +134,9 @@ def pod_mesh(axis_host: str = "host", axis_chip: str = "chip", device=None,
     grid = np.empty((P, len(row)), dtype=object)
     grid[rank] = row
     owner = np.repeat(np.arange(P)[:, None], len(row), 1)
-    mesh = Mesh(grid, (axis_host, axis_chip), processes=owner)
+    if len(axis_names) == 1:
+        grid, owner = grid.reshape(-1), owner.reshape(-1)
+    mesh = Mesh(grid, axis_names, processes=owner)
     if P > 1:
         counts = [None] * P
         dist.all_gather_object(counts, len(row))

@@ -17,11 +17,17 @@ and K9 combines with the copies; ``"rdma"`` has K9 read each partner's
 shard itself. Either way a stage is one K9 launch a device
 (``ntt_rdma.exchange_butterfly``); the plain twin runs only on CPU slots.
 
-On a CUDA mesh each entry point replays one CUDA graph a (mesh, axis,
-exchange, input shape, dtype, device), captured at its first call
-(``Mesh.graphed``): the port's counterpart of the JAX package's jitted
-``_fwd_fn``, ``_inv_fn`` and ``_mul_fn``. A CPU mesh runs the same code
-eagerly.
+On a CUDA mesh in one process each entry point replays one CUDA graph a
+(mesh, axis, exchange, input shape, dtype, device), captured at its first
+call (``Mesh.graphed``): the port's counterpart of the JAX package's
+jitted ``_fwd_fn``, ``_inv_fn`` and ``_mul_fn``. A CPU mesh runs the same
+code eagerly. So does a mesh whose slots span processes (as on JAX's
+multi-host mesh, ``axis`` may cross them): a CUDA graph holds one
+process's work, so there the eager run is the designed path. Each process
+then computes its own slots only, its cross stages exchange with the
+other processes (``Mesh.ppermute`` over ``torch.distributed``, or K9
+reading the partner's shard by CUDA IPC; ``ntt_rdma``), and the result
+comes back whole in every process, as JAX's ``out_specs`` gathers it.
 """
 
 from __future__ import annotations
@@ -58,12 +64,11 @@ def _device_slices(n: int, D: int, device: torch.device):
 
 class _Shards:
     """One transform's per-slot state: each slot's coordinate d along the
-    axis and its device tables, loaded (with K9's library on a CUDA mesh)
-    on the caller's stream before the mesh copies any shard or captures a
-    graph."""
+    axis and, at this process's slots, its device tables, loaded (with
+    K9's library on a CUDA mesh) on the caller's stream before the mesh
+    copies any shard or captures a graph."""
 
     def __init__(self, mesh, axis, n, exchange):
-        mesh.require_local(axis, "the sharded NTT")
         D = mesh.shape[axis]
         S = n // D
         if D & (D - 1) or S * D != n or S < 2:
@@ -74,17 +79,22 @@ class _Shards:
                              f"{exchange!r}")
         self.mesh, self.axis, self.exchange = mesh, axis, exchange
         self.n, self.D, self.S = n, D, S
+        self.n_stages = n.bit_length() - 1
         self.n_cross = (D - 1).bit_length()        # stages with h >= S
         self.d = [mesh.coord(s, axis) for s in mesh.slots]
-        self.tabs = [_device_slices(n, D, s.device) for s in mesh.slots]
-        if any(s.device.type == "cuda" for s in mesh.slots):
+        self.tabs = [_device_slices(n, D, s.device) if s.local else None
+                     for s in mesh.slots]
+        if any(s.local and s.device.type == "cuda" for s in mesh.slots):
             ntt_rdma.load()
 
     def each(self, fn, *per_slot):
-        """[fn(slot index, *values)] over the slots, each on its slot's
-        compute stream."""
+        """[fn(slot index, *values)] over this process's slots, each on
+        its slot's compute stream (None at another process's slot)."""
         out = []
         for s, *vals in zip(self.mesh.slots, *per_slot):
+            if not s.local:
+                out.append(None)
+                continue
             with s.on():
                 out.append(fn(s.index, *vals))
         return out
@@ -95,42 +105,47 @@ class _Shards:
         base = (self.d[i] % hd) * self.S
         return table[base:base + self.S]
 
-    def cross(self, ys, hd, table, inverse=False):
-        """One exchange stage with partner d ^ hd through K9, each slot on
-        its slice of the stage's twiddle ``table``."""
-        mesh = self.mesh
+    def cross(self, ys, hd, st, inverse=False):
+        """Exchange stage ``st`` (of the forward or the inverse tables)
+        with partner d ^ hd through K9, each slot on its slice of the
+        stage's twiddles; partners may live in other processes."""
+        mesh, k = self.mesh, 3 if inverse else 2
         partners = [mesh.partner(s, self.axis, hd).index for s in mesh.slots]
-        flat = [y.reshape(-1, self.S) for y in ys]
+        flat = [None if y is None else y.reshape(-1, self.S) for y in ys]
+        tws = [None if t is None else self.tw(i, t[k][st], hd)
+               for i, t in enumerate(self.tabs)]
         outs = ntt_rdma.exchange_butterfly(
-            mesh, flat, [self.tw(i, t, hd) for i, t in enumerate(table)],
-            [(d // hd) % 2 == 0 for d in self.d], partners, self.exchange,
-            inverse)
-        return [o.reshape(y.shape) for o, y in zip(outs, ys)]
+            mesh, flat, tws, [(d // hd) % 2 == 0 for d in self.d], partners,
+            self.exchange, inverse)
+        return [None if o is None else o.reshape(y.shape)
+                for o, y in zip(outs, ys)]
 
     def forward(self, xs):
         ys = self.each(lambda i, x: rlweq.mont_mul(
             x, self.tabs[i][0][self.d[i]]), xs)
         for st in range(self.n_cross):             # h = n/2 .. S
-            hd = (self.n >> (st + 1)) // self.S
-            ys = self.cross(ys, hd, [t[2][st] for t in self.tabs])
-        for st in range(self.n_cross, len(self.tabs[0][2])):   # h < S
+            ys = self.cross(ys, (self.n >> (st + 1)) // self.S, st)
+        for st in range(self.n_cross, self.n_stages):          # h < S
             ys = self.each(lambda i, y: ntt.dif_stage(y, self.tabs[i][2][st]),
                            ys)
         return ys
 
     def inverse(self, ys):
-        n_stages = len(self.tabs[0][3])
-        n_local = n_stages - self.n_cross
+        n_local = self.n_stages - self.n_cross
         xs = ys
         for st in range(n_local):                  # h = 1 .. S/2
             xs = self.each(lambda i, x: ntt.dit_stage(x, self.tabs[i][3][st]),
                            xs)
-        for st in range(n_local, n_stages):        # h = S .. n/2
-            hd = (1 << st) // self.S
-            xs = self.cross(xs, hd, [t[3][st] for t in self.tabs],
-                            inverse=True)
+        for st in range(n_local, self.n_stages):   # h = S .. n/2
+            xs = self.cross(xs, (1 << st) // self.S, st, inverse=True)
         return self.each(lambda i, x: rlweq.mont_mul(
             x, self.tabs[i][1][self.d[i]]), xs)
+
+    def unshard(self, ys, device):
+        """The whole result on ``device`` in every process, after the last
+        cross-process partner reads have settled (``ntt_rdma.settle``)."""
+        ntt_rdma.settle(self.mesh)
+        return self.mesh.unshard(ys, self.axis, device)
 
 
 def _spec(x, axis):
@@ -138,20 +153,28 @@ def _spec(x, axis):
 
 
 def _forward(sh, x):
-    return sh.mesh.unshard(sh.forward(sh.mesh.shard(x, _spec(x, sh.axis))),
-                           sh.axis, x.device)
+    return sh.unshard(sh.forward(sh.mesh.shard(x, _spec(x, sh.axis))),
+                      x.device)
 
 
 def _inverse(sh, y):
-    return sh.mesh.unshard(sh.inverse(sh.mesh.shard(y, _spec(y, sh.axis))),
-                           sh.axis, y.device)
+    return sh.unshard(sh.inverse(sh.mesh.shard(y, _spec(y, sh.axis))),
+                      y.device)
 
 
 def _mul(sh, a, b):
     fa = sh.forward(sh.mesh.shard(a, _spec(a, sh.axis)))
     fb = sh.forward(sh.mesh.shard(b, _spec(b, sh.axis)))
     prod = sh.each(lambda i, x, y: ntt.pointwise(x, y), fa, fb)
-    return sh.mesh.unshard(sh.inverse(prod), sh.axis, a.device)
+    return sh.unshard(sh.inverse(prod), a.device)
+
+
+def _run(sh, key, fn, *xs):
+    """``fn(*xs)``: replayed from ``Mesh.graphed`` in one process, eager on
+    a mesh whose slots span processes (the module docstring)."""
+    if len(sh.mesh.processes) > 1:
+        return fn(*xs)
+    return sh.mesh.graphed(key + (sh.axis, sh.exchange), fn, *xs)
 
 
 def forward_sharded(x, mesh, axis: str = "sp", exchange: str = "ppermute"):
@@ -159,15 +182,13 @@ def forward_sharded(x, mesh, axis: str = "sp", exchange: str = "ppermute"):
     sharded over ``mesh[axis]``: the bit-reversed spectrum, equal to
     ``rlwe.ntt.forward(x)``, returned on x's device."""
     sh = _Shards(mesh, axis, x.shape[-1], exchange)
-    return mesh.graphed(("forward", axis, exchange),
-                        lambda t: _forward(sh, t), x)
+    return _run(sh, ("forward",), lambda t: _forward(sh, t), x)
 
 
 def inverse_sharded(y, mesh, axis: str = "sp", exchange: str = "ppermute"):
     """Inverse of :func:`forward_sharded`."""
     sh = _Shards(mesh, axis, y.shape[-1], exchange)
-    return mesh.graphed(("inverse", axis, exchange),
-                        lambda t: _inverse(sh, t), y)
+    return _run(sh, ("inverse",), lambda t: _inverse(sh, t), y)
 
 
 def negacyclic_mul_sharded(a, b, mesh, axis: str = "sp",
@@ -176,5 +197,4 @@ def negacyclic_mul_sharded(a, b, mesh, axis: str = "sp",
     coefficient axis sharded end to end (2 log2(D) exchange stages forward,
     log2(D) inverse), returned on a's device."""
     sh = _Shards(mesh, axis, a.shape[-1], exchange)
-    return mesh.graphed(("mul", axis, exchange),
-                        lambda s, t: _mul(sh, s, t), a, b)
+    return _run(sh, ("mul",), lambda s, t: _mul(sh, s, t), a, b)
