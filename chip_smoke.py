@@ -9,9 +9,12 @@ Phases, one line each:
   0 card     nvidia-smi name and power limit, torch and CUDA versions;
   1 build    nvcc builds the grid-MSM kernels, the Poseidon kernel, the
              affine-tree kernel, the NTT exchange kernel, the pairing
-             kernels, the Poseidon2 kernel and the product
-             microbenchmark, g++ the two native host libraries, all nine
-             started together;
+             kernels, the Poseidon2 kernel, the H(X) kernels and the
+             product microbenchmark, g++ the two native host libraries,
+             all ten started together; meanwhile phase 15's circuit is
+             built and set up on the host (it needs no kernel) and, once
+             P2 is built, phase 13's naive pairing runs in a worker
+             process of this script (--naive-pairing-worker);
   2 kernels  the product microbenchmark first (one thread, a dependent
              chain of 4,096 Fp and Fp2 products: out of line, inlined C,
              inlined PTX carry chains, three chains interleaved, PTX out
@@ -37,13 +40,21 @@ Phases, one line each:
              and r - 1 planted; K8 complete and incomplete at M = 1 once a
              planted kind, 40, 1,023, 1,025, 4,096 and the prover's level
              0, with doublings, cancelling pairs, each infinity flag and
-             zero denominators planted), then K1-K7 at the withdraw proof's and
+             zero denominators planted; a twin that works row by row runs
+             once over the cases that share its other inputs), then K1-K7
+             at the withdraw proof's and
              the Merkle tree's shapes (K1 one launch over 20 windows, K2 and
              K3 at both of their prover shapes, K4 plain at 81,920 rows and
              at a real leg's excl, E and B calls, also in a CUDA graph with
              the card's clocks, power and temperature sampled beside it),
              timed beside the twin, the bound and (K2, K5, K6, K7) the
-             chain floor; K7 alone at every width;
+             chain floor; K7 alone at every width; then P4 against
+             stage_plain at every h of n = 2 .. 2^14, both directions, P =
+             1 and 3, each fused step on and off, 0, 1 and r - 1 planted,
+             and one stage at n = 2^21 (h = 2^20, 1), P5 against FieldCtx
+             in each mode, then both timed beside the plain versions and
+             the bound (every stage at 2^14, P = 3; the prover's fused
+             stages; stages at 2^21; the quotient at 2^14 and 2^21);
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
              the MSM benchmark's inputs at 2^17 (benchvec: bases and
@@ -52,9 +63,11 @@ Phases, one line each:
   4 prove    a seeded synthetic R1CS of the withdraw proof's shape (8,899
              rows, domain 2^14): setup, one cold and three warm proofs, each
              verified and a tampered input rejected, prove_batch (B = 4)
-             against prove(seed + i), per-phase times; the H(X) NTT stages
-             under torch.cuda.set_sync_debug_mode("error") (no host sync),
-             and h_ntt and upload over four more proofs;
+             against prove(seed + i), per-phase times; the H(X) pipeline
+             through P4 and P5 equal to its plain twin on the card, under
+             torch.cuda.set_sync_debug_mode("error") (no host sync), its
+             device kernels by torch.profiler (P4 and P5 only), and
+             h_ntt, h_rows and upload over four more proofs;
   6 merkle   the depth-16 tree at full capacity: build_levels over 2^16
              seeded leaves on the card (16 K7 launches), every level against
              the plain twin and 64 sampled nodes per level against the host
@@ -109,9 +122,10 @@ Phases, one line each:
              limb for limb, the permutation at B = 1, 2, 33, 256, 4,096 and
              the ct_commitment sponge at each B and n = 0, 1, 2, 3, 4, 157,
              with 0, 1 and r - 1 planted, and bb's permutation(0, 1, 2,
-             3); the plain sponge timed on the card at B = 256 (its
-             FieldCtx calls, a permutation's device launches) beside P3,
-             and P3 alone at B = 1, 256, 4,096 beside its bound and chain
+             3); the plain sponge at B = 4,096, n = 157 timed on the card
+             in that check (its FieldCtx calls, a permutation's device
+             launches) beside P3 on the same inputs, and P3 alone at B =
+             1, 256, 4,096 beside its bound and chain
              floor (192 product levels a permutation at phase 2's form g
              time); keygen from rlwe_ref.keygen(42)'s randomness, Shamir
              shares and every pair's reconstruction on the card; 256
@@ -119,9 +133,10 @@ Phases, one line each:
              to rlwe_ref.encrypt, all to k q + rem = full in int64 numpy),
              decrypted, and committed through P3 against
              ct_commitment_ref; the committed 24,070-row audit circuit
-             built, set up, solved, proved on the card (one cold and one
-             warm proof, per-phase times; AUDIT_PROOFS, cut for time) and verified through P1 and P2,
-             ct + 1 and a tampered proof of knowledge rejected; the
+             built, set up, solved, proved on the card (AUDIT_PROOFS
+             proofs, cut for time to one; per-phase times) and verified
+             through P1 and P2, ct + 1 and a tampered proof of knowledge
+             rejected; the
              auditor's decrypt from shares 1 and 2, its K7 hash equal to
              the proof's wa_commitment;
  12 pool     the pool as its users touch it. (a) The client curves (A8,
@@ -129,20 +144,21 @@ Phases, one line each:
              the embedded curve and G1 at B = 256 with identity, doubling
              and cancelling lanes planted, scalar_mul at B = 256 (128 bits
              embedded, 64 bits G1), the c = 8 keygen table at B = 1, 256
-             and 4,096 (k = 0, 1, order - 1, 2^128 - 1 and the committed
+             and 1,024 (k = 0, 1, order - 1, 2^128 - 1 and the committed
              identity vector planted), all held to curve_ref and
              pairing_ref, with warm ms and CUDA launches a call (the
-             profiler; one keygen's extrapolated launches beside a whole
-             profile, and one window's kernels by name at B = 1 and 256).
-             (b) The demo app (webui.DemoApp) on the card behind its HTTP
-             server on 127.0.0.1: 32 deposits, 8 withdrawals to distinct
+             profiler; the launch line of a keygen beside a whole profile
+             of 4 windows, and one window's kernels by name at B = 1 and
+             256). (b) The demo app (webui.DemoApp) on the card behind
+             its HTTP server on 127.0.0.1: 16 deposits, 8 withdrawals to
+             distinct
              recipients, a double spend (400, the typed nullifier error),
              8 decrypts, the tables (cut for time, as the pre-filled
              store); stored commitments against
              poseidon_hash_ref, every sibling path against its root, the
              root against build_levels on the card, a restart on the same
              store; s a request. Then a new app on a store pre-filled with
-             1,024 deposits: its restart, 2 deposits, a withdrawal and a
+             1,024 deposits: its restart, a deposit, its withdrawal and a
              decrypt, the same oracles; K7 launched 16 times a deposit
              during each app's requests, exactly. (c) Phase 4's withdraw-shape proofs and
              phase 11's audit proofs through emit_proof, proof_hex bundles,
@@ -175,7 +191,8 @@ Phases, one line each:
              app's lock keeps two withdrawals of one note apart
              (tests/test_torch_webui.py sends them at once). (d) The naive
              pairing, pairing_product_is_one at B = 4 on planted true and
-             false pairs, against pairing_ref;
+             false pairs, against pairing_ref (run during phase 1 in a
+             worker process, logged here);
  14 pod      the pod path across processes: two worker processes of this
              script (--pod-worker RANK PORT DIR) on the one card, joined
              by multihost.initialize over Gloo (NCCL takes one card a
@@ -204,22 +221,25 @@ Phases, one line each:
              sentinel fails the phase;
   15 variant the var-PK audit circuit var_pk_e_witness (1,185,473 rows,
              1,187,520 wires, domain 2^21) at full width through
-             scripts/torch_benchmark_variants.py's run_variant: built,
-             solved and checked, set up by setup (not cached), its query
+             scripts/torch_benchmark_variants.py's run_variant: built
+             and set up by setup (not cached) during phase 1, solved and
+             checked, its query
              points on the card (c = 13, 1,024 lanes, complete), one cold
              and one warm proof (the split H(X) pipeline, 10- and 16-slice
              MSMs folded through K4), both accepted by verify_batch and
              rejected with a changed public input; each step's seconds,
              each proof's phases, the peak device memory, the host RSS,
-             K1-K6, P1 and P2 launches over the phase;
-  5 launches every kernel's launch count on its main path, K1-K6 during
-             phase 4 (and per proof), K7 during phase 6, K8 during phase 8's
-             proofs, K9 during phase 9's rdma products, P1 and P2 during
-             phase 10's verify batches, K1-K7, P1, P2 and P3 from phase
-             11's encryptions to its end, K7 during phase 12's HTTP
-             requests, P1 and P2 during its wire checks, K1-K7, P1 and
-             P2 during phase 13's HTTP requests, and K1-K6, P1 and P2
-             during phase 15 (must be > 0); it runs last.
+             K1-K6, P1, P2, P4 and P5 launches over the phase; then the
+             2^21 split H(X) pipeline once against its plain twin;
+  5 launches every kernel's launch count on its main path, K1-K6, P4
+             and P5 during phase 4 (and per proof), K7 during phase 6, K8
+             during phase 8's proofs, K9 during phase 9's rdma products,
+             P1 and P2 during phase 10's verify batches, K1-K7, P1, P2
+             and P3 from phase 11's encryptions to its end, K7 during
+             phase 12's HTTP requests, P1 and P2 during its wire checks,
+             K1-K7, P1 and P2 during phase 13's HTTP requests, and
+             K1-K6, P1, P2, P4 and P5 during phase 15 (must be > 0); it
+             runs last.
 ``--profile`` traces one warm proof of each path, one warm 2^16 build and
 one warm 2^18 tree MSM (K8's device ms against the rest).
 Then the "kernels" JSON line, the card line, and the last line
@@ -261,8 +281,9 @@ from tpu_zkpool_torch.curve import pairing_program
 from tpu_zkpool_torch.fields import rlweq
 from tpu_zkpool_torch.fields.bn254 import FP_MOD, FR_MOD
 from tpu_zkpool_torch.fields.fctx import FP, FR
-from tpu_zkpool_torch.fields.limbs import ints_to_limbs
+from tpu_zkpool_torch.fields.limbs import int_to_limbs, ints_to_limbs
 from tpu_zkpool_torch.groth16 import acir, domain, gnark_fmt
+from tpu_zkpool_torch.groth16 import ntt_kernels as nkern
 from tpu_zkpool_torch.groth16 import prove as tp
 from tpu_zkpool_torch.groth16 import r1cs as acir_r1cs
 from tpu_zkpool_torch.groth16 import solver as acir_solver
@@ -340,6 +361,12 @@ REPLACES = {
     # the audit path's Poseidon2 sponge, an XLA scan in the JAX package
     "poseidon2": "tpu_zkpool/hash/poseidon2.py:181 ct_commitment "
                  "(XLA, not a pallas_call)",
+    # the prover's H(X), one XLA program in the JAX package: its NTT stages
+    # (P4) and its element-wise steps (P5)
+    "fr_stage": "tpu_zkpool/groth16/domain.py:73 forward / :91 inverse "
+                "(XLA)",
+    "fr_pointwise": "tpu_zkpool/groth16/prove_tpu.py:238 _h_pipeline "
+                    "(XLA, not a pallas_call)",
 }
 SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
 SOURCES["poseidon"] = "tpu_zkpool_torch/csrc/poseidon.cu"
@@ -348,9 +375,16 @@ SOURCES["exchange_butterfly"] = "tpu_zkpool_torch/csrc/ntt_rdma.cu"
 SOURCES["miller_lines"] = SOURCES["final_exp"] = \
     "tpu_zkpool_torch/csrc/pairing.cu"
 SOURCES["poseidon2"] = "tpu_zkpool_torch/csrc/poseidon2.cu"
+SOURCES["fr_stage"] = SOURCES["fr_pointwise"] = \
+    "tpu_zkpool_torch/csrc/fr_ntt.cu"
+
+
+_WALL = {}             # phase: s from the first line to its latest line
 
 
 def log(phase, msg):
+    _WALL.setdefault("start", time.perf_counter())
+    _WALL[phase] = round(time.perf_counter() - _WALL["start"], 1)
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -631,8 +665,18 @@ def kernel_cases(inp):
     wsums = [(f"L={L}", (lambda st=st: kernels.wsum(st)),
               (lambda st=st: grid.wsum_plain(st)))
              for L, st in inp["steps"].items()]
+    by_c = {}                  # K6's twin runs the variants of one c at once
+
+    def horner_want(v):
+        c = inp["horner"][v][1]
+        if c not in by_c:
+            vs = [u for u, (_, cu) in inp["horner"].items() if cu == c]
+            S = torch.stack([inp["horner"][u][0] for u in vs])
+            by_c[c] = dict(zip(vs, grid.horner_plain(S, c)))
+        return by_c[c][v]
+
     horners = [(f"{v} c={c}", (lambda S=S, c=c: kernels.horner(S, c)),
-                (lambda S=S, c=c: grid.horner_plain(S, c)))
+                (lambda v=v: horner_want(v)))
                for v, (S, c) in inp["horner"].items()]
     return [
         ("prefix_rows", "complete",
@@ -743,27 +787,40 @@ def check_kernels(device, lanes=1024, k=4, Ls=WSUM_LS, W=4, wlanes=64,
         for name, variant, kern, plain in kernel_cases(inp):
             held((name, ncomp, variant), [kern()], [plain()])
     sms = _sms(device)
+    # poseidon_special(t, b) is the first b rows of poseidon_special(t, big),
+    # so the plain version runs once a width on the largest batch
+    big = max((B,) + tuple(poseidon_bs))
+    wide = {t: poseidon_special(t, big, device) for t in POSEIDON_TS}
+    wide = {t: (x, poseidon.hash_n_plain(x)) for t, x in wide.items()}
     for t in hkern.WIDTHS:
-        x = poseidon_special(t, B, device)
-        want = poseidon.hash_n_plain(x)
+        x, want = wide.get(t) or (poseidon_special(t, B, device), None)
+        x = x[:B].contiguous()
+        want = poseidon.hash_n_plain(x) if want is None else want[:B]
         for lay in _layouts(t):
             held(("poseidon", t, f"B={B} {_layout_name(lay)}"),
                  [hkern._launch(x, t, lay, 32)], [want])
     for t in POSEIDON_TS:
         for b in poseidon_bs:
-            x = poseidon_special(t, b, device)
+            x = wide[t][0][:b].contiguous()
             lay = _layout_name(hkern.layout(b, t, sms)[0])
             held(("poseidon", t, f"B={b} {lay}"), [hkern.hash_tiles(x, t)],
-                 [poseidon.hash_n_plain(x)])
-    cases = [(1, o) for o in TREE_KINDS] + [
-        (tree_widths()[0] if m == "level0" else m, 0)
-        for m in tree_ms + (pairs,)]
-    for M, offset in cases:
-        Lr, Rr, fl = tree_pairs(M, device, offset=offset)
+                 [wide[t][1][:b]])
+    mode = {True: " complete", False: " incomplete"}
+    # the twin adds each pair on its own, so the planted kinds' M = 1
+    # launches are held to one plain call over all of them a mode
+    ones = {o: tree_pairs(1, device, offset=o) for o in TREE_KINDS}
+    stacked = [torch.cat(ts) for ts in zip(*ones.values())]
+    for complete in (True, False):
+        out, inf = affine_tree.tree_level_plain(*stacked, complete)
+        for i, (o, pair) in enumerate(ones.items()):
+            held(("tree_level", 1, f"M=1 {TREE_KINDS[o]}{mode[complete]}"),
+                 tkern.tree_level(*pair, complete),
+                 (out[i:i + 1], inf[i:i + 1]))
+    for M in [tree_widths()[0] if m == "level0" else m
+              for m in tree_ms + (pairs,)]:
+        Lr, Rr, fl = tree_pairs(M, device)
         for complete in (True, False):
-            held(("tree_level", 1, f"M={M}"
-                  + (f" {TREE_KINDS[offset]}" if M == 1 else "")
-                  + (" complete" if complete else " incomplete")),
+            held(("tree_level", 1, f"M={M}{mode[complete]}"),
                  tkern.tree_level(Lr, Rr, fl, complete),
                  affine_tree.tree_level_plain(Lr, Rr, fl, complete))
     return errs
@@ -1770,13 +1827,15 @@ def check_pairing(device, B=256, Bs=PAIR_BS, seed=300):
         held(("final_exp", f"P1 3 legs B={b}"),
              pkern.final_exp(got3[:b].contiguous()), fe3[:b])
     got2 = pkern.miller_lines(g2, l2)
-    held(("final_exp", f"P1 2 legs B={b2}"), pkern.final_exp(got2),
-         pairing.final_exponentiation_plain(got2))
     rnd = random_mont((b2, 12), device, seed + 200)
     rnd[0] = tower.f12_one((), device)
     rnd[1] = 0
+    # the plain version is element by element: one call for both batches
+    fe2 = pairing.final_exponentiation_plain(torch.cat([got2, rnd]))
+    held(("final_exp", f"P1 2 legs B={b2}"), pkern.final_exp(got2),
+         fe2[:b2])
     held(("final_exp", f"random, 1 and 0, B={b2}"), pkern.final_exp(rnd),
-         pairing.final_exponentiation_plain(rnd))
+         fe2[b2:])
     return errs, plain_ms, (g3, l3)
 
 
@@ -1930,9 +1989,10 @@ AUDIT_ROWS = 24070             # const_pk_e_witness, logderiv
 P3_BS = (1, 2, 33, 256, 4096)  # P3's batches held to the plain version
 P3_NS = (0, 1, 2, 3, 4, AUDIT_FIELDS)   # sponge lengths held
 P3_TIMED_BS = (1, 256, 4096)
-# the committed audit proofs: one cold, one warm (each ~17-30 s of host
-# Python; cut for the run's time limit)
-AUDIT_PROOFS = 2
+P3_ROW = max(P3_BS)            # the kernels line's P3 row: the largest batch
+# the committed audit proofs (each ~17-30 s of host Python; cut for the
+# run's time limit from 4 to 2, then to 1: a cold proof alone)
+AUDIT_PROOFS = 1
 # One permutation: 88 S-boxes (4 a full round, 1 a partial round) of two
 # squares and a product, and 4 diagonal products a partial round: 176
 # squares and 312 products, 488 in all. Its least chain is 3 dependent
@@ -1979,13 +2039,15 @@ def p3_floor(n, products, sponge=True):
     return levels, levels * products[(1, P3_FORM)]["us"] / 1e3
 
 
-def check_poseidon2(device, Bs=P3_BS, ns=P3_NS, seed=400):
+def check_poseidon2(device, Bs=P3_BS, ns=P3_NS, seed=400, keep=None):
     """P3 against its plain version limb for limb: the permutation at each
     B and the sponge at each (B, n), on random values with 0, 1 and r - 1
     planted alone and mixed in the first rows (each batch a prefix of the
     largest, so the plain version runs once a form and n); Barretenberg's
     permutation(0, 1, 2, 3). Returns ({(form, B, n): max |err|}, plain ms of
-    the largest batch's permutation)."""
+    the largest batch's permutation). ``keep``, if a dict, receives the
+    largest n's sponge for ``time_poseidon2``: its inputs, the plain
+    version's output, its ms by the host clock and its FieldCtx calls."""
     errs, big = {}, max(Bs)
     x = poseidon_special(poseidon2.T + 1, big, device, seed)
     perm_ms, want = _host_ms(lambda: poseidon2.permutation_plain(x))
@@ -1995,7 +2057,13 @@ def check_poseidon2(device, Bs=P3_BS, ns=P3_NS, seed=400):
     for n in ns:
         x = poseidon_special(n + 1, big, device, seed + n).reshape(
             big, n, 16)
-        want = poseidon2.ct_commitment_plain(x)
+        if n == max(ns):
+            (ms, want), calls = count_fieldctx(lambda: _host_ms(
+                lambda: poseidon2.ct_commitment_plain(x)))
+            if keep is not None:
+                keep.update(x=x, want=want, plain_ms=ms, calls=calls)
+        else:
+            want = poseidon2.ct_commitment_plain(x)
         for B in Bs:
             errs[("poseidon2", "sponge", (B, n))] = _max_err(
                 p2k.sponge(x[:B].contiguous()), want[:B])
@@ -2046,18 +2114,18 @@ def device_launches(fn):
     return out, sum(names.values())
 
 
-def time_poseidon2(device, clock_hz, products, B=256, Bs=P3_TIMED_BS,
-                   n=AUDIT_FIELDS, reps=5):
-    """The need for P3, then P3 alone. The plain sponge over n fields at B
-    on the card (host clock, synchronized), its FieldCtx calls and the
-    device launches of one plain permutation (the profiler); P3's sponge
-    at each of Bs and its permutation at B by CUDA events, beside the bound
-    and the chain floor."""
-    x = random_mont((max(Bs), n), device, seed=410)
-    (plain_ms, want), calls = count_fieldctx(lambda: _host_ms(
-        lambda: poseidon2.ct_commitment_plain(x[:B])))
+def time_poseidon2(device, clock_hz, products, sponge, Bs=P3_TIMED_BS,
+                   reps=5):
+    """The need for P3, then P3 alone, on ``check_poseidon2``'s largest
+    sponge (B states of n fields): the plain sponge's ms on the card (host
+    clock, synchronized, from the check's one call) and its
+    FieldCtx calls, the device launches of one plain permutation (the
+    profiler); P3's sponge at each of Bs and its permutation at 256 states
+    by CUDA events, beside the bound and the chain floor."""
+    x = sponge["x"]
+    B, n = x.shape[:2]
     _, perm_launches = device_launches(
-        lambda: poseidon2.permutation_plain(x[:B, :4]))
+        lambda: poseidon2.permutation_plain(x[:256, :4]))
     rows = {}
     for b in Bs:
         xb = x[:b].contiguous()
@@ -2068,15 +2136,15 @@ def time_poseidon2(device, clock_hz, products, B=256, Bs=P3_TIMED_BS,
                        bound_by=by, floor_ms=floor, chain_levels=levels,
                        products=b * p2_perms(n) * P2_PRODUCTS)
         if b == B:
-            rows[b].update(plain_ms=plain_ms,
-                           max_abs_err=_max_err(got, want),
-                           plain_fieldctx_calls=calls,
+            rows[b].update(plain_ms=sponge["plain_ms"],
+                           max_abs_err=_max_err(got, sponge["want"]),
+                           plain_fieldctx_calls=sponge["calls"],
                            plain_permutation_launches=perm_launches)
-    xs = x[:B, :4].contiguous()
+    xs = x[:256, :4].contiguous()
     ms, _ = _cuda_ms(lambda: p2k.permute(xs), reps)
-    bound, by = p3_bound(B, 0, clock_hz, sponge=False)
+    bound, by = p3_bound(256, 0, clock_hz, sponge=False)
     levels, floor = p3_floor(0, products, sponge=False)
-    rows["permutation"] = dict(shape=f"B={B}, one permutation", ms=ms,
+    rows["permutation"] = dict(shape="B=256, one permutation", ms=ms,
                                bound_ms=bound, bound_by=by, floor_ms=floor,
                                chain_levels=levels)
     return dict(rows[B], by_batch=rows)
@@ -2116,8 +2184,8 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
     held to the oracle, to k q + rem = full in int64 numpy, decrypted, and
     committed through P3 against ``ct_commitment_ref``; the committed
     24,070-row audit circuit built, set up, solved, proved (one cold and
-    AUDIT_PROOFS - 1 warm proofs) and verified through P1 and P2, ct + 1 and a
-    tampered proof of knowledge rejected; the auditor's decrypt from
+    AUDIT_PROOFS - 1 warm proofs) and verified through P1 and P2, ct + 1 and
+    a tampered proof of knowledge rejected; the auditor's decrypt from
     shares 1 and 2 and the K7 hash of the recovered point. The launches of
     K1-K7, P1, P2 and P3 are counted from the encryption to the end.
     ``keep``, if a dict, receives the VK and the audit proofs with
@@ -2250,7 +2318,7 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
         proofs.append(tp.prove(dpk, r1cs, w, seed=70 + i, timings=sp))
         prove_s.append(time.perf_counter() - t0)
         phases.append(sp)
-    A, B2, C, cm, pok = proofs[1]
+    A, B2, C, cm, pok = proofs[-1]
     tampered = (A, B2, C, cm, pr.g1_add(pok, (1, 2)))
     pubs = [[wa, ct]] * AUDIT_PROOFS + [[wa, ct + 1], [wa, ct]]
     t0 = time.perf_counter()
@@ -2285,11 +2353,13 @@ def phase_audit(device, B=256, seed=501, oracles=(0, 1, 2, 255),
 # ------------------------------------------- the pool: A8 and phase 12
 
 POOL_B = 256                   # phase 12's curve batches
-KEYGEN_BS = (1, 256, 4096)     # identities keyed through the c = 8 table
-# (cut for the run's time limit, as AUDIT_PROOFS)
-POOL_DEPOSITS, POOL_WITHDRAWS, POOL_DECRYPTS = 32, 8, 8
+KEYGEN_BS = (1, 256, 1024)     # identities keyed through the c = 8 table
+KEYGEN_CHECK_WINDOWS = 4       # a keygen profiled whole against the line
+# (cut for the run's time limit, as AUDIT_PROOFS: the keygen batches from
+# 1, 256, 4,096 and the journey from 32 / 8 / 8, the sized deposits from 2)
+POOL_DEPOSITS, POOL_WITHDRAWS, POOL_DECRYPTS = 16, 8, 8
 # the app at size: a store pre-filled with deposits, then a few more
-POOL_PREFILL, SIZED_DEPOSITS, SIZED_WITHDRAWS = 1024, 2, 1
+POOL_PREFILL, SIZED_DEPOSITS, SIZED_WITHDRAWS = 1024, 1, 1
 
 
 def _affine_add(name):
@@ -2345,25 +2415,35 @@ def _warm_call(fn, reps):
     return ms, launches, out
 
 
-def _loop_call(step_fn, n):
-    """``step_fn(k)`` runs a loop of k steps of one shape whose op sequence
-    does not depend on the data (FieldCtx ops only). (warm ms of the n-step
-    call by the host clock, its CUDA launches, its output). The launches
-    are extrapolated, base + n x step from torch.profiler over 1 and 2
-    steps, since profiling a loop of 10^5 launches takes seconds to
-    minutes; ``pool_curves`` holds one keygen's to a whole profile."""
-    step_fn(1)                        # first-use constants, unprofiled
+def _launch_line(step_fn):
+    """(base, a step): the CUDA launches of ``step_fn(k)``, a loop of k
+    steps of one shape whose op sequence does not depend on the data
+    (FieldCtx ops only), are base + k x step; from torch.profiler over 1
+    and 2 steps."""
     one = device_launches(lambda: step_fn(1))[1]
     two = device_launches(lambda: step_fn(2))[1]
+    return 2 * one - two, two - one
+
+
+def _loop_call(step_fn, n):
+    """(warm ms of ``step_fn(n)`` by the host clock, its CUDA launches, its
+    output). The launches are extrapolated by ``_launch_line``, since
+    profiling a loop of 10^5 launches takes seconds to minutes;
+    ``pool_curves`` holds one keygen's line to a whole profile of a few
+    steps."""
+    step_fn(1)                        # first-use constants, unprofiled
+    base, step = _launch_line(step_fn)
     ms, out = _host_ms(lambda: step_fn(n))
-    return ms, (2 * one - two) + n * (two - one), out
+    return ms, base + n * step, out
 
 
 def pool_curves(device, B=POOL_B, seed=601):
     """A8 on the card (phase 12 a): ``CurveOps.add`` and ``double`` on
     planted lanes, ``scalar_mul`` (128 bits on the embedded curve, 64 on
-    G1) and the c = 8 keygen table at B = 1, 256, 4,096, each held to the
-    host oracles in affine form; warm ms and launches a call."""
+    G1) and the c = 8 keygen table at each B of ``KEYGEN_BS``, each held
+    to the host oracles in affine form; warm ms and launches a call; at B = 256
+    the launch line against one profile of a ``KEYGEN_CHECK_WINDOWS``-window
+    keygen."""
     info, checks = {}, {}
     for name, nbits in (("embedded", 128), ("g1", 64)):
         C, P, Q, want_add, want_dbl = planted_curve_lanes(name, B, device,
@@ -2405,10 +2485,15 @@ def pool_curves(device, B=POOL_B, seed=601):
         row = info[f"keygen_B{b}"] = dict(B=b, c=8, windows=tbl.n_windows,
                                           ms=ms, launches=launches)
         if b == B:       # the extrapolation against one whole profile
+            k = KEYGEN_CHECK_WINDOWS
+            base, per = _launch_line(lambda n: tbl.mul(digits[:, :n]))
             t0 = time.perf_counter()
-            row["launches_whole"] = device_launches(
-                lambda: tbl.mul(digits))[1]
-            row["whole_profile_s"] = time.perf_counter() - t0
+            row.update(check_windows=k, launches_line=base + k * per,
+                       launches_whole=device_launches(
+                           lambda: tbl.mul(digits[:, :k]))[1],
+                       whole_profile_s=time.perf_counter() - t0)
+            checks["keygen_launch_line"] = (row["launches_line"]
+                                            == row["launches_whole"])
         step[b] = kernel_launches(lambda: tbl.mul(digits[:, :1]))[1]
     # one window's kernels by name where B = 1 and B = 256 differ
     info["keygen_window_kernels_B1_B256"] = {
@@ -2514,8 +2599,9 @@ def _device_root(leaves, device):
 def pool_journey(device, out_dir, seed=602):
     """The pool over HTTP (phase 12 b): a ``DemoApp`` on the card with its
     store in ``out_dir``, served by ``make_server`` on 127.0.0.1; the page,
-    the status, 64 deposits, 16 withdrawals to distinct recipients, a
-    double spend (400, the typed nullifier error), 16 decrypts, the
+    the status, POOL_DEPOSITS deposits, POOL_WITHDRAWS withdrawals to
+    distinct recipients, a double spend (400, the typed nullifier error),
+    POOL_DECRYPTS decrypts, the
     tables; K7's launches over those requests (one 16-level build a
     deposit); every stored commitment against ``poseidon_hash_ref``, every
     stored and withdrawn sibling path against the root it proves, the
@@ -2995,8 +3081,43 @@ def naive_pairing(device, B=PPIO_B, seed=1302):
                 checks=checks, ok=all(checks.values()))
 
 
-def phase_withdraw(device, out_dir):
-    """Phase 13: the withdraw proof from an ACIR program, (a) to (d)."""
+NAIVE_TIMEOUT_S = 600          # the naive-pairing worker's own bound
+
+
+def naive_pairing_worker(device="cuda:0"):
+    """``--naive-pairing-worker``: ``naive_pairing`` in this process, its
+    record printed on a ``NAIVE`` line."""
+    rec = naive_pairing(torch.device(device))
+    print("NAIVE " + json.dumps(rec), flush=True)
+    return 0 if rec["ok"] else 1
+
+
+def naive_pairing_in_worker(out_dir, built):
+    """Phase 13 (d) in a worker process of this script, started once
+    ``built`` (P2's library) is done: its Miller loop is launch-bound on
+    one host core and the card is otherwise idle while phase 1's
+    compilers and phase 15's setup run, so it runs beside them. The
+    worker's output goes to ``naive_pairing.log``; one that prints no
+    record or outlives NAIVE_TIMEOUT_S raises."""
+    built.result()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--naive-pairing-worker"], capture_output=True,
+                         text=True, timeout=NAIVE_TIMEOUT_S)
+    out = res.stdout + res.stderr
+    with open(os.path.join(out_dir, "naive_pairing.log"), "w") as f:
+        f.write(out)
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("NAIVE ")]
+    if not line:
+        raise AssertionError(f"the naive-pairing worker failed (exit "
+                             f"{res.returncode}):\n{out[-4000:]}")
+    return dict(json.loads(line[-1][len("NAIVE "):]),
+                worker_s=time.perf_counter() - t0)
+
+
+def phase_withdraw(device, out_dir, ppio=None):
+    """Phase 13: the withdraw proof from an ACIR program, (a) to (d);
+    ``ppio``, (d)'s record where a worker ran it already."""
     t0 = time.perf_counter()
     prog, artifact = withdraw_program(out_dir)
     log(13, "program " + json.dumps(prog))
@@ -3011,7 +3132,7 @@ def phase_withdraw(device, out_dir):
     log(13, "e2e " + json.dumps(e2e, default=str))
     app = withdraw_app(device, out_dir, artifact)
     log(13, "app " + json.dumps(app))
-    ppio = naive_pairing(device)
+    ppio = naive_pairing(device) if ppio is None else ppio
     log(13, "naive pairing " + json.dumps(ppio))
     return dict(program=prog, e2e=e2e, app=app, naive_pairing=ppio,
                 phase_s=time.perf_counter() - t0,
@@ -3586,6 +3707,252 @@ def log_pod_ntt(r):
                 "ipc_read_ok")}))
 
 
+# ------------------------------- the prover's H(X): P4 and P5 (phase 2)
+
+FR_ROW = 14                    # the kernels line's rows: the withdraw
+                               # proof's domain 2^14, its 3 polynomials
+FR_LOGS = range(1, FR_ROW + 1)  # P4 held to its twin at n = 2 .. 2^14
+FR_BIG = 21                    # and one stage at the var-PK domain 2^21
+# P4's fused steps held on and off: (pre, bitrev, post, post_scalar, in
+# place); each alone, all at once, and in place (bitrev is never)
+FR_STAGE_MODES = {"plain": (0, 0, 0, 0, 0), "pre": (1, 0, 0, 0, 0),
+                  "bitrev": (0, 1, 0, 0, 0), "post": (0, 0, 1, 0, 0),
+                  "scalar": (0, 0, 0, 1, 0), "all": (1, 1, 1, 1, 0),
+                  "in place": (1, 0, 1, 1, 1)}
+
+
+def fr_planted(shape, device, seed, share=4):
+    """``random_mont`` values with about 1 in ``share`` replaced by 0, 1 or
+    r - 1 (canonical limbs)."""
+    x = random_mont(shape, device, seed)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    edge = torch.as_tensor(ints_to_limbs([0, 1, FR_MOD - 1]), device=device)
+    pick = torch.randint(0, 3 * share, tuple(shape), generator=g,
+                         device=device)
+    return torch.where((pick < 3)[..., None], edge[pick.clamp(max=2)], x)
+
+
+def _stage_kw(mode, tabs, scalar):
+    pre, br, post, sc, _ = FR_STAGE_MODES[mode]
+    return dict(pre=tabs[0] if pre else None, bitrev=bool(br),
+                post=tabs[1] if post else None,
+                post_scalar=scalar if sc else None)
+
+
+def _stage(y, pw, h, dif, mode, tabs, scalar):
+    """P4 in ``mode`` on a copy of y (its input kept for the twin)."""
+    inplace = FR_STAGE_MODES[mode][4]
+    out = y.clone() if inplace else None
+    return nkern.stage(out if inplace else y, pw, h, dif, out=out,
+                       **_stage_kw(mode, tabs, scalar))
+
+
+def check_fr_ntt(device, logs=FR_LOGS, Ps=(1, 3), big=FR_BIG, seed=700):
+    """P4 against ``domain.stage_plain`` limb for limb at every h of n = 2
+    ... 2^14, both directions, P = 1 and 3, in every mode of
+    FR_STAGE_MODES, with 0, 1 and r - 1 planted in the values, the
+    twiddles and the tables; one stage at n = 2^21 (h = 2^20 and 1, both
+    directions); P5 against FieldCtx's products in each mode (R^2, 1, the
+    quotient; in place; a ragged count). Returns {(name, n, case): max
+    |err|} and P4's launches (one a case)."""
+    errs = {}
+    nkern.reset_launches()
+    for log_n in logs:
+        n = 1 << log_n
+        y = fr_planted((max(Ps), n), device, seed + log_n)
+        pw = fr_planted((n // 2,), device, seed + 50 + log_n)
+        tabs = fr_planted((2, n), device, seed + 100 + log_n)
+        scalar = fr_planted((), device, seed + 150 + log_n, share=1)
+        for log_h in range(log_n):
+            h = 1 << log_h
+            tw = pw[:: n // (2 * h)]
+            for dif in (True, False):
+                for mode in FR_STAGE_MODES:
+                    # each polynomial's stage is its own: P = 1 is held
+                    # to the first row of the largest P's plain stage
+                    want = domain.stage_plain(
+                        y, tw, dif, **_stage_kw(mode, tabs, scalar))
+                    for P in Ps:
+                        got = _stage(y[:P], pw, h, dif, mode, tabs, scalar)
+                        errs[("fr_stage", n, (h, dif, P, mode))] = \
+                            _max_err(got, want[:P])
+    n = 1 << big
+    y = fr_planted((1, n), device, seed + 200)
+    pw = fr_planted((n // 2,), device, seed + 201)
+    for h in (n // 2, 1):
+        for dif in (True, False):
+            want = domain.stage_plain(y, pw[:: n // (2 * h)], dif)
+            errs[("fr_stage", n, (h, dif, 1, "plain"))] = _max_err(
+                nkern.stage(y, pw, h, dif), want)
+            del want
+    stage_launches = nkern.LAUNCHES["fr_stage"]
+    r2 = torch.as_tensor(ints_to_limbs(FR.r2_mod_p), device=device)
+    one = torch.as_tensor(ints_to_limbs(1), device=device)
+    for N in (3 << FR_ROW, 1000):
+        a, b, c = fr_planted((3, N), device, seed + 300 + N)
+        s = fr_planted((), device, seed + 302, share=1)
+        cases = {"R^2": (a, r2, None, None, FR.mont_mul(a, r2)),
+                 "1": (a, one, None, None, FR.mont_mul(a, one)),
+                 "quotient": (a, s, b, c, FR.mont_mul(
+                     FR.sub(FR.mont_mul(a, b), c), s))}
+        for mode, (x, t, bb, cc, want) in cases.items():
+            errs[("fr_pointwise", N, mode)] = _max_err(
+                nkern.pointwise(x, t, bb, cc), want)
+            x2 = x.clone()
+            errs[("fr_pointwise", N, mode + ", in place")] = _max_err(
+                nkern.pointwise(x2, t, bb, cc, out=x2), want)
+    return errs, stage_launches
+
+
+def fr_stage_bound(P, n, h, clock_hz, products=1, tables=0):
+    """(bound ms, bound_by) of one P4 stage: P n values read and written
+    once (int64 limbs, 128 B a value), the h distinct twiddles and
+    ``tables`` per-element tables read once, against ``products``
+    Montgomery products a butterfly."""
+    nbytes = (2 * P * n + h + tables * n) * 128
+    madds = P * (n // 2) * products * MADDS_PER_FP_MUL
+    ops_s = madds / (INT32_LANES * clock_hz)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def fr_pointwise_bound(N, clock_hz, quotient):
+    """(bound ms, bound_by) of one P5 launch over N values: a (and b, c)
+    read once, the output written once, one product (two with the
+    quotient) a value."""
+    nbytes = ((4 if quotient else 2) * N + 1) * 128
+    madds = N * (2 if quotient else 1) * MADDS_PER_FP_MUL
+    ops_s = madds / (INT32_LANES * clock_hz)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def _fr_row(ms, got, want, shape, bound, plain_ms=None):
+    row = dict(shape=shape, ms=ms, max_abs_err=_max_err(got, want),
+               bound_ms=bound[0], bound_by=bound[1])
+    if plain_ms is not None:
+        row["plain_ms"] = plain_ms
+    return row
+
+
+def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
+                seed=750):
+    """P4 and P5 by CUDA events (mean of ``reps`` launches after a warm
+    one; at 2^14 also in a CUDA graph, ``graph_ms``: the device's time
+    without the host's launch gaps) beside their plain versions on the
+    card (host clock, synchronized) and their bounds. P4: every stage of
+    n = 2^14, P = 3 in both directions (the row: their mean), the three
+    fused stages the
+    prover runs (the coset powers on the first forward stage, the
+    bit-reversed read on the first inverse one, g^-i and n^-1 on the last
+    inverse one), and stages h = 2^20, 2^10, 1 at n = 2^21, P = 1. P5:
+    the quotient over n = 2^14 (the row), the Montgomery step of the 3 n
+    evaluations, and the quotient at 2^21."""
+    n = 1 << log_n
+    y = random_mont((P, n), device, seed)
+    t = domain.tables(n, device)
+    pw, pw_inv = t["pw"], t["pw_inv"]
+    out = torch.empty_like(y)
+    by_h, plain = {}, []
+    for dif, table in ((True, pw), (False, pw_inv)):
+        for log_h in range(log_n):
+            h = 1 << log_h
+            def run():
+                return nkern.stage(y, table, h, dif, out=out)
+            ms, got = _cuda_ms(run, reps)
+            pms, want = _host_ms(lambda: domain.stage_plain(
+                y, table[:: n // (2 * h)], dif), 3)
+            plain.append(pms)
+            row = by_h[f"{'dif' if dif else 'dit'} h=2^{log_h}"] = _fr_row(
+                ms, got, want, f"n=2^{log_n}, P={P}, h=2^{log_h}",
+                fr_stage_bound(P, n, h, clock_hz), pms)
+            row["graph_ms"] = _graph_ms(run, reps)[0]
+    rows = list(by_h.values())
+    stage = dict(
+        shape=f"one stage, n=2^{log_n}, P={P} (mean over its {log_n} h, "
+              f"both directions)",
+        ms=sum(r["ms"] for r in rows) / len(rows),
+        plain_ms=sum(plain) / len(plain),
+        bound_ms=sum(r["bound_ms"] for r in rows) / len(rows),
+        bound_by="bytes", max_abs_err=max(r["max_abs_err"] for r in rows),
+        graph_ms=sum(r["graph_ms"] for r in rows) / len(rows),
+        by_h=by_h, modes={})
+    fused = {"coset pre, first DIF": (pw, n // 2, True, dict(pre=t["coset"]),
+                                      2, 1),
+             "bitrev, first DIT": (pw_inv, 1, False, dict(bitrev=True), 0, 0),
+             "post g^-i and n^-1, last DIT": (
+                 pw_inv, n // 2, False, dict(post=t["coset_inv"],
+                                             post_scalar=t["ninv"]), 4, 1)}
+    for name, (table, h, dif, kw, extra, tabs) in fused.items():
+        ms, got = _cuda_ms(lambda: nkern.stage(y, table, h, dif, out=out,
+                                               **kw), reps)
+        pms, want = _host_ms(lambda: domain.stage_plain(
+            y, table[:: n // (2 * h)], dif, **kw), 3)
+        stage["modes"][name] = _fr_row(
+            ms, got, want, f"n=2^{log_n}, P={P}, h={h}, {name}",
+            fr_stage_bound(P, n, h, clock_hz, 1 + extra, tabs), pms)
+    nb = 1 << big
+    yb = random_mont((1, nb), device, seed + 1)
+    pwb = random_mont((nb // 2,), device, seed + 2)
+    outb = torch.empty_like(yb)
+    for h in (nb // 2, 1 << (big // 2), 1):
+        ms, got = _cuda_ms(lambda: nkern.stage(yb, pwb, h, True, out=outb),
+                           max(reps // 5, 3))
+        pms, want = _host_ms(lambda: domain.stage_plain(
+            yb, pwb[:: nb // (2 * h)], True))
+        stage["modes"][f"2^{big} h={h}"] = _fr_row(
+            ms, got, want, f"n=2^{big}, P=1, h={h}, DIF",
+            fr_stage_bound(1, nb, h, clock_hz), pms)
+        del want
+    tinv = random_mont((), device, seed + 3)
+    pms, want = _host_ms(lambda: domain.pointwise_plain(y[0], tinv, y[1],
+                                                        y[2]), 3)
+    def quotient():
+        return nkern.pointwise(y[0], tinv, y[1], y[2])
+    ms, got = _cuda_ms(quotient, reps)
+    pointwise = _fr_row(ms, got, want, f"quotient, n=2^{log_n}",
+                        fr_pointwise_bound(n, clock_hz, True), pms)
+    pointwise["graph_ms"] = _graph_ms(quotient, reps)[0]
+    pointwise["modes"] = {}
+    r2 = torch.as_tensor(ints_to_limbs(FR.r2_mod_p), device=device)
+    pms, want = _host_ms(lambda: domain.pointwise_plain(y, r2), 3)
+    ms, got = _cuda_ms(lambda: nkern.pointwise(y, r2), reps)
+    pointwise["modes"]["R^2"] = _fr_row(
+        ms, got, want, f"times R^2, 3 x 2^{log_n}",
+        fr_pointwise_bound(P * n, clock_hz, False), pms)
+    ab = random_mont((3, nb), device, seed + 4)
+    pms, want = _host_ms(lambda: domain.pointwise_plain(ab[0], tinv, ab[1],
+                                                        ab[2]))
+    ms, got = _cuda_ms(lambda: nkern.pointwise(ab[0], tinv, ab[1], ab[2]),
+                       max(reps // 5, 3))
+    pointwise["modes"][f"quotient 2^{big}"] = _fr_row(
+        ms, got, want, f"quotient, n=2^{big}",
+        fr_pointwise_bound(nb, clock_hz, True), pms)
+    return {("fr_stage", FR_ROW): stage, ("fr_pointwise", FR_ROW): pointwise}
+
+
+def h_pipeline_plain(evs, tinv, t, demont):
+    """The H(X) pipeline on the plain forms (the kernels' twins), one
+    polynomial at a time: the bit-reversed gather and ``inverse_plain``,
+    the coset powers and ``forward_plain``, the quotient
+    (``pointwise_plain``), ``inverse_plain`` and the coset inverse powers,
+    and the demont step."""
+    def on_coset(ev):
+        coeffs = domain.inverse_plain(ev[..., t["br"], :], t["inv"],
+                                      t["ninv"])
+        return domain.forward_plain(FR.mont_mul(coeffs, t["coset"]),
+                                    t["fwd"])
+    a, b, c = (on_coset(evs[i]) for i in range(3))
+    h_ev = domain.pointwise_plain(a, tinv, b, c)
+    del a, b, c
+    h = FR.mont_mul(domain.inverse_plain(h_ev, t["inv"], t["ninv"]),
+                    t["coset_inv"])
+    return FR.mont_mul(h, t["one"]) if demont else h
+
+
 # ----------------------------------- phase 15: a domain-2^21 proof
 
 VARIANT = "var_pk_e_witness"
@@ -3594,27 +3961,59 @@ VARIANT_WIRES = 1187520
 VARIANT_DOMAIN = 1 << 21
 
 
-def phase_variant(device, out_dir):
-    """Phase 15: the var-PK audit circuit at full width through
-    ``scripts/torch_benchmark_variants.py``'s ``run_variant`` (the
-    auditor key from ``write_rlwe_dir`` under ``out_dir``, ``setup``
-    called directly: a ~1 GB pickle buys nothing within one run). The
-    launches of K1-K6, P1 and P2 are counted over the whole phase."""
+def variant_prep(out_dir):
+    """Phase 15's host work that needs no kernel, done while phase 1's
+    compilers run: the auditor key from ``write_rlwe_dir`` under
+    ``out_dir``, the var-PK circuit and its R1CS (``build_s``) and
+    ``setup`` called directly (``setup_s``; a ~1 GB pickle buys nothing
+    within one run)."""
     vb = _load_script(os.path.join("scripts", "torch_benchmark_variants.py"))
-    kernels.reset_launches()           # the main path starts here
-    pkern.reset_launches()
     t0 = time.perf_counter()
     a_pk, b_pk = vb.auditor_key(os.path.join(out_dir, "variants"))
-    rec = vb.run_variant(VARIANT, a_pk, b_pk, device=device, setup_fn=setup,
-                         log=lambda m: log(15, m.strip()))
-    rec["launches"] = dict(kernels.LAUNCHES, **pkern.LAUNCHES)
+    circ = vb.build_variant(VARIANT, a_pk, b_pk)
+    t1 = time.perf_counter()
+    keys = setup(circ.builder.r1cs())
+    return dict(vb=vb, a_pk=a_pk, b_pk=b_pk, circuit=circ, keys=keys,
+                build_s=t1 - t0, setup_s=time.perf_counter() - t1)
+
+
+def phase_variant(device, prep):
+    """Phase 15: the var-PK audit circuit at full width through
+    ``scripts/torch_benchmark_variants.py``'s ``run_variant`` on
+    ``variant_prep``'s circuit and keys (their seconds kept as
+    ``build_s`` and ``setup_s``). The launches of K1-K6, P1, P2, P4 and
+    P5 are counted over the whole phase. Then, once, ``h_pipeline_check``
+    of the split H(X) pipeline at 2^21 (P4 and P5) against its plain twin
+    on the card, limb for limb."""
+    circ = prep["circuit"]
+
+    def keys(r1cs):                    # the R1CS ``prep`` set up
+        assert r1cs.a_rows is circ.builder.a_rows
+        return prep["keys"]
+
+    kernels.reset_launches()           # the main path starts here
+    pkern.reset_launches()
+    nkern.reset_launches()
+    t0 = time.perf_counter()
+    rec = prep["vb"].run_variant(
+        VARIANT, prep["a_pk"], prep["b_pk"], device=device, setup_fn=keys,
+        circuit=circ, log=lambda m: log(15, m.strip()))
+    rec["launches"] = dict(kernels.LAUNCHES, **pkern.LAUNCHES,
+                           **nkern.LAUNCHES)
     rec["phase_s"] = time.perf_counter() - t0   # the main path ends here
+    rec.update(build_s=prep["build_s"], setup_s=prep["setup_s"])
+    t1 = time.perf_counter()
+    rec["h_pipeline"] = h_pipeline_check(device, VARIANT_DOMAIN, seed=1500,
+                                         profile=False)
+    rec["h_pipeline"]["check_s"] = time.perf_counter() - t1
     rec["checks"] = dict(
         shape=(rec["constraints"], rec["wires"], rec["n_domain"]) == (
             VARIANT_ROWS, VARIANT_WIRES, VARIANT_DOMAIN),
         legs=rec["leg_points"] == dict(a=10 << 17, k=10 << 17, h=16 << 17,
                                        b2=10 << 17),
-        verify=rec["verify"] == [True, True, False, False])
+        verify=rec["verify"] == [True, True, False, False],
+        h_pipeline=rec["h_pipeline"]["equal"]
+        and rec["h_pipeline"]["sync_free"])
     rec["ok"] = all(rec["checks"].values())
     return rec
 
@@ -3711,35 +4110,72 @@ def profile_prove(run):
                      for us, k, n in rows[:12]])
 
 
-def h_ntt_check(dpk, r1cs, w, runs=4, seed=60):
-    """The H(X) NTT stages of ``dpk``'s domain (``prove._h_pipeline``:
-    the inverse NTT, the coset forward NTT, the quotient and the coset
-    inverse NTT, all FieldCtx ops on the card) on seeded evaluations under
-    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any host
-    sync, after one warm call outside it (the tables' and constants' first
-    upload); the two outputs must be equal. Then ``runs`` proofs with the
-    device synchronized around each phase: the seconds of ``h_ntt`` and
-    ``upload`` in each."""
-    dev, n = dpk.device, dpk.pk.n_domain
-    ev = random_mont((3, n), dev, seed)
-    tinv = random_mont((), dev, seed + 1)
-    tables = domain.tables(n, dev)
-    want = tp._h_pipeline(ev, tinv, tables, False)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
+@contextlib.contextmanager
+def _uncounted(counts):
+    """Launches inside are checks against a plain version: the counts
+    return to what they were."""
+    saved = dict(counts)
     try:
-        got = tp._h_pipeline(ev, tinv, tables, False)
-        err = None
-    except RuntimeError as e:
-        got, err = None, str(e).splitlines()[0][:200]
+        yield
     finally:
-        torch.cuda.set_sync_debug_mode(0)
-    info = dict(sync_free=err is None, sync_error=err,
-                equal=got is not None and torch.equal(got, want))
+        counts.update(saved)
+
+
+def h_pipeline_check(device, n, seed=60, profile=True):
+    """The prover's H(X) pipeline at domain n (``prove._h_pipeline``, or
+    ``_h_pipeline_split`` from 2^20, in the prover's demont form: P4 a
+    stage of the inverse NTT, the coset forward NTT and the coset inverse
+    NTT, P5 the quotient and the demont step) on seeded evaluations, held
+    limb for limb to its plain twin on the card (``h_pipeline_plain``) and
+    run under ``torch.cuda.set_sync_debug_mode("error")``, which raises at
+    any host sync, after one warm call outside it; the host ms of the
+    kernel pipeline (synchronized, mean of 3) and of the twin; with
+    ``profile``, ``torch.profiler`` over one more call gives the device
+    kernels by name and count (P4 and P5 only: no torch arithmetic or
+    matmul). These launches are not counted."""
+    ev = random_mont((3, n), device, seed)
+    tinv = random_mont((), device, seed + 1)
+    tables = domain.tables(n, device)
+    pipeline = (tp._h_pipeline_split if n >= tp._H_SPLIT_MIN_N
+                else tp._h_pipeline)
+    with _uncounted(nkern.LAUNCHES):
+        plain_ms, want = _host_ms(lambda: h_pipeline_plain(ev, tinv, tables,
+                                                           True))
+        _host_ms(lambda: pipeline(ev, tinv, tables, True))
+        ms, _ = _host_ms(lambda: pipeline(ev, tinv, tables, True), 3)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pipeline(ev, tinv, tables, True)
+            err = None
+        except RuntimeError as e:
+            got, err = None, str(e).splitlines()[0][:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        info = dict(n=n, sync_free=err is None, sync_error=err,
+                    equal=got is not None and torch.equal(got, want),
+                    ms=ms, plain_ms=plain_ms)
+        del want, got
+        if profile:
+            _, names = kernel_launches(lambda: pipeline(ev, tinv, tables,
+                                                        True))
+            launched = {k: v for k, v in names.items()
+                        if not k.startswith(("Memcpy", "Memset"))}
+            info.update(profile={k[:60]: v for k, v in names.items()},
+                        only_p4_p5=bool(launched) and all(
+                            "k_fr_" in k for k in launched))
+    return info
+
+
+def h_ntt_check(dpk, r1cs, w, runs=4, seed=60):
+    """``h_pipeline_check`` at ``dpk``'s domain, then ``runs`` proofs with
+    the device synchronized around each phase: the seconds of ``h_ntt``,
+    ``h_rows`` (inside ``h_ntt``) and ``upload``."""
+    info = h_pipeline_check(dpk.device, dpk.pk.n_domain, seed)
     for i in range(runs):
         ph = {}
         tp.prove(dpk, r1cs, w, seed=seed + 2 + i, timings=ph)
-        for k in ("h_ntt", "upload"):
+        for k in ("h_ntt", "h_rows", "upload"):
             info.setdefault(k + "_s", []).append(ph[k])
     return info
 
@@ -3761,6 +4197,7 @@ def phase_prove(device, profile=False):
     pub = w[1:r1cs.num_public]
 
     kernels.reset_launches()          # the main path starts here
+    nkern.reset_launches()
     t0 = time.perf_counter()
     proof = tp.prove(dpk, r1cs, w, seed=7)
     info["cold_s"] = time.perf_counter() - t0
@@ -3773,7 +4210,8 @@ def phase_prove(device, profile=False):
         warm.append(time.perf_counter() - t0)
         ok &= verify(vk, p, pub)
         kept.append((p, pub))
-    per_proof = {k: v // 4 for k, v in kernels.LAUNCHES.items()}
+    per_proof = {k: v // 4 for k, v in dict(kernels.LAUNCHES,
+                                            **nkern.LAUNCHES).items()}
     phases = {}          # one more proof, synchronized around each phase
     tp.prove(dpk, r1cs, w, seed=11, timings=phases)
     info["h_ntt"] = h_ntt_check(dpk, r1cs, w)
@@ -3786,7 +4224,8 @@ def phase_prove(device, profile=False):
                for i, wi in enumerate(ws)]
     batch_ok = batch == singles and verify(vk, batch[3],
                                            ws[3][1:r1cs.num_public])
-    launches = dict(kernels.LAUNCHES)    # the main path ends here
+    launches = dict(kernels.LAUNCHES,    # the main path ends here
+                    **nkern.LAUNCHES)
     info.update(verified=bool(ok), batch_ok=bool(batch_ok),
                 warm_s=warm, proofs_per_s=len(warm) / sum(warm),
                 phases_s=phases, launches=launches,
@@ -3800,11 +4239,11 @@ def ptxas_summary(text, kernels=("k_prefix<", "k_addn<", "k_scale_add<",
                                  "k_horner<", "k_poseidon<",
                                  "k_poseidon_lanes<", "k_tree_level<",
                                  "k_miller_lines", "k_final_exp",
-                                 "k_poseidon2<")):
+                                 "k_poseidon2<", "k_fr_stage",
+                                 "k_fr_pointwise")):
     """{kernel instantiation: registers, spill stores, stack bytes, ptxas
     ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
-    name starts with one of ``kernels`` (K2, K4-K8, P1, P2 and P3 by
-    default)."""
+    name starts with one of ``kernels`` (K2, K4-K8, P1-P5 by default)."""
     import re
     out, name = {}, None
     for line in text.splitlines():
@@ -3842,6 +4281,8 @@ def main(argv):
     if "--pod-worker" in argv:         # one process of phase 14
         i = argv.index("--pod-worker")
         return pod_worker(int(argv[i + 1]), argv[i + 2], argv[i + 3])
+    if "--naive-pairing-worker" in argv:   # phase 13 (d), during phase 1
+        return naive_pairing_worker()
     os.makedirs(out_dir, exist_ok=True)
     device = torch.device("cuda", 0)
 
@@ -3859,16 +4300,24 @@ def main(argv):
     flags = ["-Xptxas", "-v"]
     cus = dict(msm=kernels.SOURCE, poseidon=hkern.SOURCE,
                tree=tkern.SOURCE, ntt=ntt_rdma.SOURCE, mul="mul_bench.cu",
-               pairing=pkern.SOURCE, poseidon2=p2k.SOURCE)
+               pairing=pkern.SOURCE, poseidon2=p2k.SOURCE,
+               fr_ntt=nkern.SOURCE)
     def timed(cu):
         t = time.perf_counter()
         return cuda_build.build(cu, flags) + (time.perf_counter() - t,)
 
-    with ThreadPoolExecutor(len(cus) + 2) as ex:
+    with ThreadPoolExecutor(len(cus) + 3) as ex:
         futs = {k: ex.submit(timed, cu) for k, cu in cus.items()}
         futs["host"] = ex.submit(native_bridge.get_lib)
         futs["witness"] = ex.submit(solver_native.get_lib)
+        naive = ex.submit(naive_pairing_in_worker, out_dir,
+                          futs["pairing"])
+        futs["host"].result()          # setup's fixed-base products
+        t1 = time.perf_counter()
+        prep = variant_prep(out_dir)   # phase 15's host work, meanwhile
+        prep_s = time.perf_counter() - t1
         built = {k: f.result() for k, f in futs.items()}
+        ppio = naive.result()          # done before any phase times
     ptxas = "".join(built[k][1] or "" for k in cus)
     if ptxas:
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
@@ -3881,6 +4330,10 @@ def main(argv):
                                 f"({built[k][2]:.1f} s)" for k in cus)
            + f" in {time.perf_counter() - t0:.1f} s"
            + ("" if ptxas else " (cached)"))
+    log(1, f"meanwhile phase 15's circuit ({prep['build_s']:.1f} s) and "
+           f"setup ({prep['setup_s']:.1f} s) on the host, {prep_s:.1f} s; "
+           f"phase 13's naive pairing in a worker process, "
+           f"{ppio['worker_s']:.1f} s")
 
     # ---- 2: the product microbenchmark, then kernels vs plain twins,
     # small then at the slices' shapes
@@ -3936,6 +4389,36 @@ def main(argv):
     if bad:
         raise AssertionError(
             f"kernels differ from plain twins at the slices' shapes: {bad}")
+    t0 = time.perf_counter()
+    ferrs, stage_launches = check_fr_ntt(device)
+    errs.update(ferrs)
+    bad = {k: v for k, v in ferrs.items() if v}
+    log(2, f"fr_stage, fr_pointwise: {len(ferrs)} cases equal to their "
+           f"plain versions: {not bad}, P4 {stage_launches} launches "
+           f"({time.perf_counter() - t0:.1f} s)")
+    n_stage = sum(1 for k in ferrs if k[0] == "fr_stage")
+    if bad or stage_launches != n_stage:
+        raise AssertionError(f"P4 or P5 differs from its plain version, or "
+                             f"P4 launched other than once a case: {bad}, "
+                             f"{stage_launches} launches")
+    ftimes = time_fr_ntt(device, clock_hz)
+    times.update(ftimes)
+    for (name, _), t in ftimes.items():
+        for u in _timed(t):
+            graph = (f", in a CUDA graph {u['graph_ms']:.5f} ms"
+                     if "graph_ms" in u else "")
+            log(2, f"{name} {u['shape']}: max |err| {u['max_abs_err']}, "
+                   f"{u['ms']:.4f} ms{graph}, plain {u['plain_ms']:.2f} ms, "
+                   f"bound {u['bound_ms']:.5f} ms ({u['bound_by']})")
+    log(2, "fr_stage ms (events; CUDA graph) by direction and h at n = 2^14,"
+           " P = 3: " + json.dumps(
+               {k: [round(u["ms"], 5), round(u["graph_ms"], 5)] for k, u in
+                ftimes[("fr_stage", FR_ROW)]["by_h"].items()}))
+    if any(_times_err(t) for t in ftimes.values()) or any(
+            u["max_abs_err"] for u in ftimes[("fr_stage", FR_ROW)][
+                "by_h"].values()):
+        raise AssertionError("P4 or P5 differs from its plain version at "
+                             "the prover's shapes")
 
     # ---- 3: MSMs against the native oracle
     msm, g1 = phase_msm(device)
@@ -3948,9 +4431,11 @@ def main(argv):
     log(4, "prove " + json.dumps(info))
     if not (info["verified"] and info["batch_ok"]):
         raise AssertionError("proof check failed")
-    if not (info["h_ntt"]["sync_free"] and info["h_ntt"]["equal"]):
-        raise AssertionError(f"the H(X) NTT stages synced the host or "
-                             f"changed: {info['h_ntt']}")
+    if not (info["h_ntt"]["sync_free"] and info["h_ntt"]["equal"]
+            and info["h_ntt"]["only_p4_p5"]):
+        raise AssertionError(f"the H(X) pipeline synced the host, differs "
+                             f"from its plain twin or ran other kernels "
+                             f"than P4 and P5: {info['h_ntt']}")
 
     # ---- 6: the depth-16 Merkle tree through K7
     merkle = phase_merkle(device, clock_hz, products, inverses,
@@ -4063,7 +4548,8 @@ def main(argv):
 
     # ---- 11: the audit path: P3, RLWE, Shamir, the committed audit proof
     t0 = time.perf_counter()
-    p3errs, p3_perm_ms = check_poseidon2(device)
+    p3_sponge = {}
+    p3errs, p3_perm_ms = check_poseidon2(device, keep=p3_sponge)
     errs.update(p3errs)
     bad = {k: v for k, v in p3errs.items() if v}
     log(11, f"{len(p3errs)} poseidon2 modes equal to the plain version: "
@@ -4071,8 +4557,8 @@ def main(argv):
             f"permutation at B = {max(P3_BS)}: {p3_perm_ms:.0f} ms)")
     if bad:
         raise AssertionError(f"P3 differs from its plain version: {bad}")
-    t = times[("poseidon2", 256)] = time_poseidon2(device, clock_hz,
-                                                   products)
+    t = times[("poseidon2", P3_ROW)] = time_poseidon2(
+        device, clock_hz, products, p3_sponge)
     log(11, f"the need for P3: the plain ct_commitment {t['shape']} "
             f"{t['plain_ms']:.0f} ms on the card ({t['plain_fieldctx_calls']}"
             f" FieldCtx calls a sponge, {t['plain_permutation_launches']} "
@@ -4115,7 +4601,7 @@ def main(argv):
 
     # ---- 13: the withdraw proof from an ACIR program: solved natively,
     # proved through K1-K6, verified through P1 and P2, over HTTP
-    withdraw = phase_withdraw(device, out_dir)
+    withdraw = phase_withdraw(device, out_dir, ppio)
     log(13, f"phase {withdraw['phase_s']:.1f} s, ok {withdraw['ok']}")
     if not withdraw["ok"]:
         raise AssertionError(
@@ -4146,7 +4632,8 @@ def main(argv):
         raise AssertionError(f"the pod path failed: {pod['ranks']}")
 
     # ---- 15: the var-PK audit circuit at full width, domain 2^21
-    variant = phase_variant(device, out_dir)
+    variant = phase_variant(device, prep)
+    del prep
     steps = ("build_s", "witness_s", "check_s", "setup_s",
              "device_pk_upload_s", "tables_s", "prove_device_cold_s",
              "prove_device_warm_s", "verify_s")
@@ -4164,6 +4651,8 @@ def main(argv):
             f"the phase {json.dumps(variant['launches'])}; verify "
             f"{variant['verify']}; phase {variant['phase_s']:.1f} s, checks "
             f"{json.dumps(variant['checks'])}")
+    log(15, "the 2^21 H(X) pipeline against its plain twin " + json.dumps(
+        variant["h_pipeline"]))
     if not variant["ok"]:
         raise AssertionError(f"the var-PK proof failed: {variant['checks']}")
 
@@ -4191,6 +4680,9 @@ def main(argv):
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
 
+    log(5, "s from the start to each phase's last line " + json.dumps(
+        {k: v for k, v in _WALL.items() if k != "start"}))
+
     max_err = {}              # over every check, Fp and Fp2, every t
     for (name, _, _), e in errs.items():
         max_err[name] = max(max_err.get(name, 0), e)
@@ -4199,9 +4691,11 @@ def main(argv):
     max_err["poseidon"] = max(max_err["poseidon"], merkle["max_abs_err"])
     # the row of each kernel: G1 for K1-K6, hash2 (the Merkle tree's width)
     # for K7, the prover's level 0 for K8, a whole stage at D = 8 for K9,
-    # the verify's batch of 256 for P1 and P2
+    # the verify's batch of 256 for P1 and P2, the withdraw proof's domain
+    # 2^14 for P4 and P5
     row_key = {"poseidon": 3, "exchange_butterfly": 8, "miller_lines": 256,
-               "final_exp": 256, "poseidon2": 256}
+               "final_exp": 256, "poseidon2": P3_ROW, "fr_stage": FR_ROW,
+               "fr_pointwise": FR_ROW}
     rows = {name: times[(name, row_key.get(name, 1))] for name in REPLACES}
     line = {"kernels": [dict(
         name=name, route="cuda", source=SOURCES[name],

@@ -18,11 +18,11 @@ forms) and checked, its keys set up (``groth16.cache.cached_setup``), its
 query points put on the device (``DeviceProvingKey``; circuits under 2^17
 rows pad every leg to 2^17, as the JAX harness does), then proved once
 cold and once warm with another seed through the grid MSM (kernels K1-K6)
-and the H(X) NTT, and both proofs verified by ``verify_batch`` (kernels P1,
-P2), which must reject them with one public input changed. A record keeps
-each step's seconds, the warm proof's phases, the peak device memory across
-the proofs, the host's peak RSS, and K1-K6's launches a proof and P1/P2's
-in the verify.
+and H(X) (kernels P4, P5), and both proofs verified by ``verify_batch``
+(kernels P1, P2), which must reject them with one public input changed. A
+record keeps each step's seconds, the warm proof's phases, the peak device
+memory across the proofs, the host's peak RSS, and K1-K6's, P4's and P5's
+launches a proof and P1/P2's in the verify.
 
 ``--msm 20,22`` runs the MSM benchmark's inputs (``benchvec``: bases and
 scalars from ``random.Random(7)``) at those sizes through ``msm_grid_g1``
@@ -58,6 +58,7 @@ import torch  # noqa: E402
 from tpu_zkpool_torch import benchvec, resolve_device  # noqa: E402
 from tpu_zkpool_torch.curve import pairing_kernels as pkern  # noqa: E402
 from tpu_zkpool_torch.groth16 import domain  # noqa: E402
+from tpu_zkpool_torch.groth16 import ntt_kernels as nkern  # noqa: E402
 from tpu_zkpool_torch.groth16 import prove as tp  # noqa: E402
 from tpu_zkpool_torch.groth16.cache import cached_setup  # noqa: E402
 from tpu_zkpool_torch.groth16.verify import verify_batch  # noqa: E402
@@ -110,6 +111,12 @@ class _Clock:
         _sync(self.dev)
         self.rec[name] = time.perf_counter() - t0
         return out
+
+
+def _prover_launches() -> dict:
+    """The prover's kernel launches so far: K1-K6 (the MSMs), P4 and P5
+    (H(X))."""
+    return dict(kernels.LAUNCHES, **nkern.LAUNCHES)
 
 
 def _moved(before: dict, after: dict) -> dict:
@@ -183,13 +190,13 @@ def prove_circuit(builder, assignment, publics, *, committed=None,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     cold, warm = {}, {}
-    k0 = dict(kernels.LAUNCHES)
+    k0 = _prover_launches()
     p_cold = clock("prove_device_cold_s", lambda: tp.prove(
         dpk, r1cs, w, timings=cold))
-    k1 = dict(kernels.LAUNCHES)
+    k1 = _prover_launches()
     p_warm = clock("prove_device_warm_s", lambda: tp.prove(
         dpk, r1cs, w, seed=11, timings=warm))
-    rec["launches_per_proof"] = _moved(k1, kernels.LAUNCHES)
+    rec["launches_per_proof"] = _moved(k1, _prover_launches())
     rec["launches_cold_proof"] = _moved(k0, k1)
     rec.update(prove_phases_cold=cold, prove_phases_warm=warm)
     if dev.type == "cuda":
@@ -209,18 +216,27 @@ def prove_circuit(builder, assignment, publics, *, committed=None,
     return rec
 
 
+def build_variant(variant: str, a_pk, b_pk):
+    """The audit circuit of ``variant`` (``name`` or ``name+logderiv``)
+    under the key (a_pk, b_pk), its R1CS made."""
+    circ = build_audit_circuit(a_pk, b_pk, variant=variant.split("+")[0],
+                               logderiv=variant.endswith("+logderiv"))
+    circ.builder.r1cs()
+    return circ
+
+
 def run_variant(variant: str, a_pk, b_pk, *, device=None, c=13,
-                lanes=TILE_N, setup_fn=cached_setup, log=print):
+                lanes=TILE_N, setup_fn=cached_setup, circuit=None,
+                log=print):
     """Build, solve, set up, prove and verify one audit-circuit variant
     (``name`` or ``name+logderiv``) for ``tests/vectors.py``'s owner under
     the key (a_pk, b_pk); the record of ``prove_circuit`` with the build's
-    seconds."""
+    seconds. ``circuit``, if given, is the variant's ``build_variant``
+    made beforehand (``build_s`` then times nothing)."""
     logderiv = variant.endswith("+logderiv")
-    base = variant.split("+")[0]
     rec = {}
     t0 = time.perf_counter()
-    circ = build_audit_circuit(a_pk, b_pk, variant=base, logderiv=logderiv)
-    circ.builder.r1cs()
+    circ = circuit or build_variant(variant, a_pk, b_pk)
     rec["build_s"] = time.perf_counter() - t0
     enc = rlwe_ref.encrypt(a_pk, b_pk, vectors.OWNER_X, vectors.OWNER_Y,
                            seed=999)

@@ -23,7 +23,9 @@ SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
            os.path.join("scripts", "pod_phase14.py"),
            os.path.join("scripts", "pod_nccl_probe.py"),
            os.path.join("scripts", "pod_ipc_probe.py"),
-           os.path.join("scripts", "torch_benchmark_variants.py")]
+           os.path.join("scripts", "torch_benchmark_variants.py"),
+           os.path.join("scripts", "fr_ntt_phase2.py"),
+           os.path.join("scripts", "chip_smoke_profile.py")]
 
 
 def _port_sources():
@@ -64,6 +66,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             os.path.join("groth16", "gadgets.py"),
             os.path.join("hash", "poseidon2.py"),
             os.path.join("hash", "poseidon2_kernels.py"),
+            os.path.join("groth16", "domain.py"),
+            os.path.join("groth16", "ntt_kernels.py"),
             os.path.join("refimpl", "curve_ref.py"),
             os.path.join("rlwe", "encrypt.py"),
             os.path.join("rlwe", "quotient.py"),
@@ -453,6 +457,44 @@ def test_poseidon2_wrappers_reject_bad_inputs():
         p2k.permute(meta[:, :3])
     with pytest.raises(ValueError, match="int64"):
         p2k.sponge(meta.int())
+
+
+def test_fr_ntt_wrappers_reject_bad_inputs():
+    """P4's and P5's wrappers check shapes and dtypes before the device: on
+    meta tensors a good call stops at the CUDA check, a bad one at its
+    shape or dtype; the domain functions on a tensor off the CPU take the
+    kernel route and raise there rather than run the plain forms."""
+    import numpy as np
+    from tpu_zkpool_torch.groth16 import domain, ntt_kernels as nk
+    from tpu_zkpool_torch.groth16 import prove as tp
+    meta = torch.empty((3, 8, 16), dtype=torch.int64, device="meta")
+    pw = torch.empty((4, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        nk.stage(meta, pw, 2, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        nk.pointwise(meta, meta[0, 0], meta, meta)
+    for fn in ("forward", "inverse", "interpolate_natural", "coset_forward",
+               "coset_inverse"):
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(domain, fn)(meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp._unpack_mont_fr(np.zeros((3, 8, 8), np.uint32), "meta")
+    bad = [(lambda: nk.stage(meta[..., :8], pw, 2, True), r"\(\.\.\., 16\)"),
+           (lambda: nk.stage(meta[:, :6], pw, 2, True), "power of two"),
+           (lambda: nk.stage(meta, pw, 8, True), "h must"),
+           (lambda: nk.stage(meta, pw[:2], 2, True), "power table"),
+           (lambda: nk.stage(meta, pw, 2, True, pre=pw), "pre"),
+           (lambda: nk.stage(meta.int(), pw, 2, True), "int64"),
+           (lambda: nk.stage(meta, pw, 2, False, bitrev=True, out=meta),
+            "out of place"),
+           (lambda: nk.pointwise(meta, meta[0, :5]), "t must"),
+           (lambda: nk.pointwise(meta, meta[0, 0], meta), "together"),
+           (lambda: nk.pointwise(meta, meta[0, 0], meta[:2], meta[:2]),
+            "b must"),
+           (lambda: nk.pointwise(meta, meta[0, 0].int()), "int64")]
+    for call, match in bad:
+        with pytest.raises(ValueError, match=match):
+            call()
 
 
 def test_from_jax_asks_for_cuda(monkeypatch):

@@ -83,3 +83,12 @@ def test_horner_plain_matches_jax_and_oracle(ncomp, variant):
         if p is not None:
             want = _add(ncomp, want, _mul(ncomp, 1 << (C * w), p))
     assert _affine(ncomp, got) == want
+
+
+@pytest.mark.parametrize("ncomp", [1, 2])
+def test_horner_plain_batched_rows_equal_single_calls(ncomp):
+    S = torch.stack([_cases(ncomp)[v][0] for v in VARIANTS])
+    got = tg.horner_plain(S, C)
+    assert got.shape == (len(VARIANTS), 3, ncomp, 16)
+    for i, v in enumerate(VARIANTS):
+        assert torch.equal(got[i], tg.horner_plain(_cases(ncomp)[v][0], C))

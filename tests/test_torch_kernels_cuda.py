@@ -1,6 +1,6 @@
 """The CUDA kernels (grid MSM K1-K6, Poseidon K7, affine tree K8, the NTT
-exchange butterfly K9, the pairing kernels P1 and P2, Poseidon2 P3)
-against their plain torch twins, on the card.
+exchange butterfly K9, the pairing kernels P1 and P2, Poseidon2 P3, the
+H(X) kernels P4 and P5) against their plain torch twins, on the card.
 
 Marked ``cuda``: it needs an NVIDIA GPU with the CUDA toolkit (nvcc) and
 skips elsewhere. Run it there with
@@ -67,4 +67,19 @@ def test_poseidon2_kernel_equals_plain_version():
     # the permutation at 4 batches, the sponge at 4 batches x 4 lengths,
     # the bb vector
     assert len(errs) == 4 + 4 * 4 + 1
+    assert not {k: v for k, v in errs.items() if v}
+
+
+@pytest.mark.cuda
+def test_fr_ntt_kernels_equal_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    errs, stage_launches = chip_smoke.check_fr_ntt(
+        torch.device("cuda", 0), logs=range(1, 7), big=12)
+    # P4: every h of n = 2 .. 64 (21 stages) and h = 2^11, 1 at n = 2^12,
+    # both directions, x P = 1, 3 x 7 modes for the former; P5: 3 modes,
+    # each also in place, at 2 element counts
+    n_stage = 21 * 2 * 2 * 7 + 2 * 2
+    assert len(errs) == n_stage + 3 * 2 * 2 and stage_launches == n_stage
     assert not {k: v for k, v in errs.items() if v}

@@ -3,8 +3,9 @@
 
 The four G1 legs (A, B1, K, H) and the G2 leg (B2) run through the grid
 Pippenger MSM (``msm.grid``, CUDA kernels K1-K6, and K8 for the G1 legs
-with ``tree=True``); H(X) = (UV - W)/t runs
-through the Fr NTT (``groth16.domain``). The U/V/W row evaluations are host
+with ``tree=True``); H(X) = (UV - W)/t runs through the Fr NTT
+(``groth16.domain``: one P4 launch a stage) and the element-wise steps of
+P5 (``groth16.ntt_kernels``). The U/V/W row evaluations are host
 work in C++ (``solver_native.eval_rows_native`` over ``native/witness.cpp``),
 the witness and the K-leg scalars are packed by
 ``solver_native.ints_to_u64x4``, and the final combine into (A, B2, C) is
@@ -26,6 +27,7 @@ from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.fields.fctx import FP, FR
 from tpu_zkpool_torch.fields.limbs import NLIMB, int_to_limbs, unpack_limbs16
 from tpu_zkpool_torch.groth16 import domain
+from tpu_zkpool_torch.groth16 import ntt_kernels as nk
 from tpu_zkpool_torch.groth16 import solver_native as sn
 from tpu_zkpool_torch.msm import grid
 from tpu_zkpool_torch.msm.grid import TILE_N, msm_grid_g1, msm_grid_g2
@@ -48,9 +50,10 @@ _R2_FR = (1 << 512) % R          # R^2 mod r with R = 2^256
 
 def _unpack_mont_fr(packed: np.ndarray, device) -> torch.Tensor:
     """Packed plain Fr words -> Montgomery limbs on device:
-    mont_mul(x, R^2) = x R."""
+    mont_mul(x, R^2) = x R (P5 in place on a CUDA device)."""
     r2 = torch.as_tensor(int_to_limbs(_R2_FR), device=device)
-    return FR.mont_mul(_unpack_dev(packed, device), r2)
+    x = _unpack_dev(packed, device)
+    return nk.pointwise(x, r2, out=x)
 
 
 def _pad_up(n: int, lanes: int = TILE_N) -> int:
@@ -226,12 +229,13 @@ def _h_pipeline(evs, tinv, tables, demont):
 
 
 def _h_finish(a_ev, b_ev, c_ev, tinv, tables, demont):
-    h_ev = FR.mont_mul(FR.sub(FR.mont_mul(a_ev, b_ev), c_ev), tinv)
+    """(A B - C) t^-1 on the coset (P5), the coset inverse NTT, and the
+    demont step mont_mul(h R, 1) = h (P5 in place)."""
+    h_ev = nk.pointwise(a_ev, tinv, b_ev, c_ev)
     h_m = domain.coset_inverse(h_ev, tables["coset_inv"], tables["inv"],
                                tables["ninv"])
     if demont:
-        one = torch.as_tensor(int_to_limbs(1), device=h_m.device)
-        h_m = FR.mont_mul(h_m, one)
+        h_m = nk.pointwise(h_m, tables["one"], out=h_m)
     return h_m
 
 
@@ -257,21 +261,26 @@ def _witness_u64(w_full: list) -> np.ndarray:
 
 @torch.inference_mode()
 def compute_h_device(r1cs, w_full, n: int, as_limbs: bool = False,
-                     device=None, w64: np.ndarray | None = None):
+                     device=None, w64: np.ndarray | None = None,
+                     timings: dict | None = None):
     """H(X) coefficients with the NTT work on the device. The U/V/W row
     evaluations run through the native CSR matvec (``native/witness.cpp``;
     ``w64`` is the witness as uint64[n, 4], built here if not passed).
     ``as_limbs=True`` returns plain limbs int64[n, 16] on the device (the H
-    leg's MSM scalars); else ints."""
+    leg's MSM scalars); else ints. ``timings``, if a dict, receives the
+    seconds of the row evaluations and their upload as ``h_rows``."""
     dev = resolve_device(device)
     m = len(r1cs.a_rows)
     if w64 is None:
         w64 = _witness_u64(w_full)
-    evs = np.zeros((3, n, 4), dtype=np.uint64)
-    for i, rows in enumerate((r1cs.a_rows, r1cs.b_rows, r1cs.c_rows)):
-        evs[i, :m] = sn.eval_rows_native((id(r1cs), i), rows, w64)
-    # plain u64x4 rows are the packed wire format; Montgomery on the device
-    ev_m = _unpack_mont_fr(evs.view("<u4").reshape(3, n, NLIMB // 2), dev)
+    with _phase(timings, "h_rows", dev):
+        evs = np.zeros((3, n, 4), dtype=np.uint64)
+        for i, rows in enumerate((r1cs.a_rows, r1cs.b_rows, r1cs.c_rows)):
+            evs[i, :m] = sn.eval_rows_native((id(r1cs), i), rows, w64)
+        # plain u64x4 rows are the packed wire format; Montgomery on the
+        # device
+        ev_m = _unpack_mont_fr(evs.view("<u4").reshape(3, n, NLIMB // 2),
+                               dev)
     # t(g w^i) = g^n - 1, constant on the coset.
     t_coset_inv = pow(pow(domain.COSET_G, n, R) - 1, -1, R)
     tinv_m = torch.as_tensor(FR.to_mont([t_coset_inv])[0], device=dev)
@@ -305,7 +314,7 @@ def _dispatch_legs(dpk: DeviceProvingKey, r1cs, w_full: list, timings=None):
         b2_out = dpk._msm_g2(w_limbs)
     with _phase(timings, "h_ntt", dev):
         h_limbs = compute_h_device(r1cs, w_full, n, as_limbs=True,
-                                   device=dev, w64=w64)
+                                   device=dev, w64=w64, timings=timings)
         h_pad = torch.cat([h_limbs[: n - 1],
                            h_limbs.new_zeros((dpk._nh - (n - 1), NLIMB))])
     with _phase(timings, "msm_h", dev):

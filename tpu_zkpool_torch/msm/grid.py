@@ -427,16 +427,21 @@ def scale_add_plain(a, b, log2s):
 
 def horner_plain(S, c):
     """K6 twin: S (W, 3, ncomp, 16) window sums -> sum_w 2^(c w) S_w as one
-    row (3, ncomp, 16): per step, c doublings, then add the next sum."""
-    W, _, ncomp, _ = S.shape
+    row (3, ncomp, 16): per step, c doublings, then add the next sum.
+    S (V, W, 3, ncomp, 16) gives V rows (V, 3, ncomp, 16), each its own
+    sum, in one pass."""
+    one = S.dim() == 4
+    S = S[None] if one else S
+    V, W, _, ncomp, _ = S.shape
     F = _field(ncomp)
-    q = _to_lm(S[:, None])                         # (W, 3, 16, nc, 1)
-    acc = _zero_point(ncomp, 1, S.device)
+    q = _to_lm(S.transpose(0, 1))                  # (W, 3, 16, nc, V)
+    acc = _zero_point(ncomp, V, S.device)
     for t in range(W - 1, -1, -1):
         for _ in range(c):
             acc = _pdouble(F, acc)
         acc = _padd(F, acc, q[t])
-    return _from_lm(acc)[0]
+    out = _from_lm(acc)
+    return out[0] if one else out
 
 
 # --------------------------------------------------------------------------
