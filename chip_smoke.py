@@ -49,12 +49,16 @@ Phases, one line each:
              the card's clocks, power and temperature sampled beside it),
              timed beside the twin, the bound and (K2, K5, K6, K7) the
              chain floor; K7 alone at every width; then P4 against
-             stage_plain at every h of n = 2 .. 2^14, both directions, P =
-             1 and 3, each fused step on and off, 0, 1 and r - 1 planted,
-             and one stage at n = 2^21 (h = 2^20, 1), P5 against FieldCtx
-             in each mode, then both timed beside the plain versions and
-             the bound (every stage at 2^14, P = 3; the prover's fused
-             stages; stages at 2^21; the quotient at 2^14 and 2^21);
+             pass_plain at every (h_first, count) of n = 2 .. 2^10, both
+             directions, P = 1 and 3, each fused step on and off (the
+             quotient and the folded demont scalar too), 0, 1 and r - 1
+             planted, the plan's passes and single stages at 2^14, whole
+             two-pass transforms at 2^21 against forward_plain and
+             inverse_plain, P5 against FieldCtx in each mode, then both
+             timed beside the plain versions and the bound (the prover's
+             five transforms at 2^14, P = 3; the forward and the coset
+             inverse and each forward pass at 2^21; P5's quotient at 2^14
+             and 2^21 and its R^2 step);
   3 msm      a G1 MSM of 2^18 points (two sub-slices folded through K4) and a
              G2 MSM of 2^14 points against the native Pippenger oracle;
              the MSM benchmark's inputs at 2^17 (benchvec: bases and
@@ -66,8 +70,9 @@ Phases, one line each:
              against prove(seed + i), per-phase times; the H(X) pipeline
              through P4 and P5 equal to its plain twin on the card, under
              torch.cuda.set_sync_debug_mode("error") (no host sync), its
-             device kernels by torch.profiler (P4 and P5 only), and
-             h_ntt, h_rows and upload over four more proofs;
+             device kernels by torch.profiler (P4 and P5 only), P4 at
+             three transforms of pass_plan's passes a proof and P5 once,
+             and h_ntt, h_rows and upload over four more proofs;
   6 merkle   the depth-16 tree at full capacity: build_levels over 2^16
              seeded leaves on the card (16 K7 launches), every level against
              the plain twin and 64 sampled nodes per level against the host
@@ -363,9 +368,9 @@ REPLACES = {
                  "(XLA, not a pallas_call)",
     # the prover's H(X), one XLA program in the JAX package: its NTT stages
     # (P4) and its element-wise steps (P5)
-    "fr_stage": "tpu_zkpool/groth16/domain.py:73 forward / :91 inverse "
-                "(XLA)",
-    "fr_pointwise": "tpu_zkpool/groth16/prove_tpu.py:238 _h_pipeline "
+    "fr_pass": "tpu_zkpool/groth16/domain.py:73 forward / :91 inverse "
+               "(XLA)",
+    "fr_pointwise": "tpu_zkpool/groth16/prove_tpu.py:239 _h_pipeline "
                     "(XLA, not a pallas_call)",
 }
 SOURCES = dict.fromkeys(REPLACES, "tpu_zkpool_torch/csrc/msm_grid.cu")
@@ -375,7 +380,7 @@ SOURCES["exchange_butterfly"] = "tpu_zkpool_torch/csrc/ntt_rdma.cu"
 SOURCES["miller_lines"] = SOURCES["final_exp"] = \
     "tpu_zkpool_torch/csrc/pairing.cu"
 SOURCES["poseidon2"] = "tpu_zkpool_torch/csrc/poseidon2.cu"
-SOURCES["fr_stage"] = SOURCES["fr_pointwise"] = \
+SOURCES["fr_pass"] = SOURCES["fr_pointwise"] = \
     "tpu_zkpool_torch/csrc/fr_ntt.cu"
 
 
@@ -3711,14 +3716,16 @@ def log_pod_ntt(r):
 
 FR_ROW = 14                    # the kernels line's rows: the withdraw
                                # proof's domain 2^14, its 3 polynomials
-FR_LOGS = range(1, FR_ROW + 1)  # P4 held to its twin at n = 2 .. 2^14
-FR_BIG = 21                    # and one stage at the var-PK domain 2^21
-# P4's fused steps held on and off: (pre, bitrev, post, post_scalar, in
-# place); each alone, all at once, and in place (bitrev is never)
-FR_STAGE_MODES = {"plain": (0, 0, 0, 0, 0), "pre": (1, 0, 0, 0, 0),
-                  "bitrev": (0, 1, 0, 0, 0), "post": (0, 0, 1, 0, 0),
-                  "scalar": (0, 0, 0, 1, 0), "all": (1, 1, 1, 1, 0),
-                  "in place": (1, 0, 1, 1, 1)}
+FR_SMALL = 10                  # P4 at every (h_first, count) of n = 2 .. 2^10
+FR_BIG = 21                    # whole transforms at the var-PK domain 2^21
+# P4's fused steps held on and off: (pre, bitrev, post, post_scalar,
+# quotient, in place); each alone, the coset inverse's last pass with the
+# demont scalar folded in, all at once, and in place (bitrev is never)
+FR_PASS_MODES = {"plain": (0, 0, 0, 0, 0, 0), "pre": (1, 0, 0, 0, 0, 0),
+                 "bitrev": (0, 1, 0, 0, 0, 0), "post": (0, 0, 1, 0, 0, 0),
+                 "scalar": (0, 0, 0, 1, 0, 0), "quotient": (0, 0, 0, 0, 1, 0),
+                 "demont": (0, 0, 1, 1, 1, 0), "all": (1, 1, 1, 1, 1, 0),
+                 "in place": (1, 0, 1, 1, 1, 1)}
 
 
 def fr_planted(shape, device, seed, share=4):
@@ -3733,60 +3740,146 @@ def fr_planted(shape, device, seed, share=4):
     return torch.where((pick < 3)[..., None], edge[pick.clamp(max=2)], x)
 
 
-def _stage_kw(mode, tabs, scalar):
-    pre, br, post, sc, _ = FR_STAGE_MODES[mode]
-    return dict(pre=tabs[0] if pre else None, bitrev=bool(br),
-                post=tabs[1] if post else None,
-                post_scalar=scalar if sc else None)
+class _PassInputs:
+    """One size's planted inputs of ``check_fr_ntt``: values y and the
+    quotient's b, c (P, n), the power table pw (n/2) and the tables (2, n)
+    as limbs and packed words, a scalar, the quotient's t and the demont
+    scalar n^-1 (plain)."""
+
+    def __init__(self, P, n, device, seed):
+        self.y, self.qb, self.qc = (fr_planted((P, n), device, seed + i)
+                                    for i in (0, 1, 2))
+        self.pw = fr_planted((n // 2,), device, seed + 50)
+        self.tabs = fr_planted((2, n), device, seed + 100)
+        self.pw_w, self.tabs_w = (domain.pack_words(t) for t in (self.pw,
+                                                                 self.tabs))
+        self.scalar = fr_planted((), device, seed + 150, share=1)
+        self.qt = fr_planted((), device, seed + 151, share=1)
+        self.demont = torch.as_tensor(ints_to_limbs(pow(n, -1, FR_MOD)),
+                                      device=device)
+
+    def kw(self, mode, P=None):
+        """``fr_pass`` / ``pass_plain`` keywords of ``mode`` (on the first
+        P polynomials)."""
+        pre, br, post, sc, q, _ = FR_PASS_MODES[mode]
+        return dict(pre=self.tabs_w[0] if pre else None, bitrev=bool(br),
+                    post=self.tabs_w[1] if post else None,
+                    post_scalar=(self.demont if mode == "demont"
+                                 else self.scalar) if sc else None,
+                    quotient=(self.qb[:P], self.qc[:P], self.qt) if q
+                    else None)
 
 
-def _stage(y, pw, h, dif, mode, tabs, scalar):
-    """P4 in ``mode`` on a copy of y (its input kept for the twin)."""
-    inplace = FR_STAGE_MODES[mode][4]
-    out = y.clone() if inplace else None
-    return nkern.stage(out if inplace else y, pw, h, dif, out=out,
-                       **_stage_kw(mode, tabs, scalar))
+def _pass(inp, P, h_first, count, dif, mode):
+    """P4 in ``mode`` over the first P polynomials, on a copy of y when in
+    place (its input kept for the twin)."""
+    y = inp.y[:P]
+    out = y.clone() if FR_PASS_MODES[mode][5] else None
+    return nkern.fr_pass(out if out is not None else y, inp.pw_w, h_first,
+                         count, dif, out=out, **inp.kw(mode, P))
 
 
-def check_fr_ntt(device, logs=FR_LOGS, Ps=(1, 3), big=FR_BIG, seed=700):
-    """P4 against ``domain.stage_plain`` limb for limb at every h of n = 2
-    ... 2^14, both directions, P = 1 and 3, in every mode of
-    FR_STAGE_MODES, with 0, 1 and r - 1 planted in the values, the
-    twiddles and the tables; one stage at n = 2^21 (h = 2^20 and 1, both
-    directions); P5 against FieldCtx's products in each mode (R^2, 1, the
-    quotient; in place; a ragged count). Returns {(name, n, case): max
-    |err|} and P4's launches (one a case)."""
+def _pass_chains(inp, h_first, cmax, dif):
+    """``pass_plain`` of every mode of FR_PASS_MODES at counts 1 .. cmax
+    from ``h_first`` on the largest P, in one batched chain: each mode's
+    pass inputs (its gather, quotient and ``pre``, which multiplies the
+    first stage's inputs) stacked on a leading axis, one ``stage_plain`` a
+    count over all of them, ``post`` and the scalar a count on copies of
+    the modes that take them (the same steps, so the same limbs, as
+    ``pass_plain``, which the CPU tests hold to JAX and to the kernel's
+    host build). {mode: [want at count 1, ..., cmax]}."""
+    n = inp.y.shape[-2]
+    perm = torch.as_tensor(domain.bitrev_perm(n), device=inp.y.device)
+    modes = list(FR_PASS_MODES)
+    starts, posts, scals, scalars = [], [], [], []
+    for i, mode in enumerate(modes):
+        pre, br, post, sc, q, _ = FR_PASS_MODES[mode]
+        y, b, c = ((t[..., perm, :] for t in (inp.y, inp.qb, inp.qc)) if br
+                   else (inp.y, inp.qb, inp.qc))
+        if q:
+            y = domain.pointwise_plain(y, inp.qt, b, c)
+        if pre:
+            y = FR.mont_mul(y, inp.tabs[0])
+        starts.append(y)
+        posts += [i] if post else []
+        if sc:
+            scals.append(i)
+            scalars.append(inp.demont if mode == "demont" else inp.scalar)
+    x = torch.stack(starts)                 # (modes, P, n, 16)
+    scalars = torch.stack(scalars)[:, None, None]
+    wants = []
+    for c in range(cmax):
+        h = h_first >> c if dif else h_first << c
+        x = domain.stage_plain(x, inp.pw[:: n // (2 * h)], dif)
+        out = x.clone()
+        out[posts] = FR.mont_mul(out[posts], inp.tabs[1])
+        out[scals] = FR.mont_mul(out[scals], scalars)
+        wants.append(out)
+    return {mode: [w[i] for w in wants] for i, mode in enumerate(modes)}
+
+
+def check_fr_ntt(device, small=FR_SMALL, Ps=(1, 3), row=FR_ROW, big=FR_BIG,
+                 seed=700):
+    """P4 against ``pass_plain`` limb for limb at every (h_first, count) of
+    n = 2 ... 2^small (every count fits a tile), both directions, P = 1
+    and 3, in every mode of FR_PASS_MODES, with 0, 1 and r - 1 planted in
+    the values, the twiddles and the tables; at n = 2^row, P = 3, the
+    plan's passes in each direction, plain and in the prover's fused modes,
+    and count = 1 at h = n/2 and 1; at n = 2^big, P = 1, a whole two-pass
+    ``domain.forward`` and ``inverse`` against ``forward_plain`` and
+    ``inverse_plain``; P5 against FieldCtx's products in each mode (R^2,
+    1, the quotient; in place; a ragged count). Returns {(name, n, case):
+    max |err|}, P4's launches and the launches the cases make (one a pass,
+    a plan's a transform)."""
     errs = {}
     nkern.reset_launches()
-    for log_n in logs:
+    want_launches = 0
+    for log_n in range(1, small + 1):
         n = 1 << log_n
-        y = fr_planted((max(Ps), n), device, seed + log_n)
-        pw = fr_planted((n // 2,), device, seed + 50 + log_n)
-        tabs = fr_planted((2, n), device, seed + 100 + log_n)
-        scalar = fr_planted((), device, seed + 150 + log_n, share=1)
-        for log_h in range(log_n):
-            h = 1 << log_h
-            tw = pw[:: n // (2 * h)]
-            for dif in (True, False):
-                for mode in FR_STAGE_MODES:
-                    # each polynomial's stage is its own: P = 1 is held
-                    # to the first row of the largest P's plain stage
-                    want = domain.stage_plain(
-                        y, tw, dif, **_stage_kw(mode, tabs, scalar))
-                    for P in Ps:
-                        got = _stage(y[:P], pw, h, dif, mode, tabs, scalar)
-                        errs[("fr_stage", n, (h, dif, P, mode))] = \
-                            _max_err(got, want[:P])
-    n = 1 << big
-    y = fr_planted((1, n), device, seed + 200)
-    pw = fr_planted((n // 2,), device, seed + 201)
-    for h in (n // 2, 1):
+        inp = _PassInputs(max(Ps), n, device, seed + log_n)
         for dif in (True, False):
-            want = domain.stage_plain(y, pw[:: n // (2 * h)], dif)
-            errs[("fr_stage", n, (h, dif, 1, "plain"))] = _max_err(
-                nkern.stage(y, pw, h, dif), want)
+            for lo in range(log_n):
+                cmax = log_n - lo          # counts from this end
+                h_first = 1 << (log_n - 1 - lo if dif else lo)
+                chains = _pass_chains(inp, h_first, cmax, dif)
+                for mode in FR_PASS_MODES:
+                    # each polynomial's pass is its own: P = 1 is held to
+                    # the first row of the largest P's plain pass
+                    for count, want in enumerate(chains[mode], 1):
+                        for P in Ps:
+                            got = _pass(inp, P, h_first, count, dif, mode)
+                            errs[("fr_pass", n, (h_first, count, dif, P,
+                                                 mode))] = _max_err(
+                                got, want[:P])
+                            want_launches += 1
+    n, P = 1 << row, max(Ps)
+    inp = _PassInputs(P, n, device, seed + row)
+    plan = domain.pass_plan(row)
+    for dif in (True, False):
+        cases, bit = [], row if dif else 0
+        for p, count in enumerate(plan):
+            h = 1 << (bit - 1 if dif else bit)
+            modes = ["plain"] + ((["pre"] if dif else ["bitrev", "quotient"])
+                                 if p == 0 else [] if dif else ["demont"])
+            cases += [(h, count, m) for m in modes]
+            bit += -count if dif else count
+        cases += [(n // 2, 1, "plain"), (1, 1, "plain")]
+        for h, count, mode in cases:
+            want = domain.pass_plain(inp.y, inp.pw_w, h, count, dif,
+                                     **inp.kw(mode))
+            errs[("fr_pass", n, (h, count, dif, P, mode))] = _max_err(
+                _pass(inp, P, h, count, dif, mode), want)
+            want_launches += 1
             del want
-    stage_launches = nkern.LAUNCHES["fr_stage"]
+    yb = fr_planted((1, 1 << big), device, seed + 200)
+    for name, fn, plain in (("forward", domain.forward, domain.forward_plain),
+                            ("inverse", domain.inverse, domain.inverse_plain)):
+        want = plain(yb)
+        errs[("fr_pass", 1 << big, (name, 1, "transform"))] = _max_err(
+            fn(yb), want)
+        want_launches += len(domain.pass_plan(big))
+        del want
+    pass_launches = nkern.LAUNCHES["fr_pass"]
     r2 = torch.as_tensor(ints_to_limbs(FR.r2_mod_p), device=device)
     one = torch.as_tensor(ints_to_limbs(1), device=device)
     for N in (3 << FR_ROW, 1000):
@@ -3802,20 +3895,45 @@ def check_fr_ntt(device, logs=FR_LOGS, Ps=(1, 3), big=FR_BIG, seed=700):
             x2 = x.clone()
             errs[("fr_pointwise", N, mode + ", in place")] = _max_err(
                 nkern.pointwise(x2, t, bb, cc, out=x2), want)
-    return errs, stage_launches
+    return errs, pass_launches, want_launches
 
 
-def fr_stage_bound(P, n, h, clock_hz, products=1, tables=0):
-    """(bound ms, bound_by) of one P4 stage: P n values read and written
-    once (int64 limbs, 128 B a value), the h distinct twiddles and
-    ``tables`` per-element tables read once, against ``products``
-    Montgomery products a butterfly."""
-    nbytes = (2 * P * n + h + tables * n) * 128
-    madds = P * (n // 2) * products * MADDS_PER_FP_MUL
-    ops_s = madds / (INT32_LANES * clock_hz)
+def fr_pass_bound(P, log_n, h_first, count, dif, clock_hz, products=0,
+                  tables=0, quotient=False):
+    """(bound ms, bound_by) of one P4 pass: P n values read and written
+    once (int64 limbs, 128 B a value; with the quotient b and c read too),
+    the pass's distinct twiddles (2^(top stage), 32 B packed) and
+    ``tables`` per-element tables (32 B a value) read once, against count
+    n/2 butterfly products a polynomial and ``products`` fused products a
+    value (pre, post, scalar; the quotient's two)."""
+    n = 1 << log_n
+    top = h_first if dif else h_first << (count - 1)
+    nbytes = ((4 if quotient else 2) * P * n * 128 + top * 32
+              + tables * n * 32)
+    prods = P * (n // 2) * count + P * n * (products + 2 * quotient)
+    ops_s = prods * MADDS_PER_FP_MUL / (INT32_LANES * clock_hz)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
+
+
+def fr_transform_bound(P, log_n, dif, clock_hz, first=None, last=None):
+    """(bound ms, bound_by) of a transform through ``pass_plan``'s passes:
+    the sum of ``fr_pass_bound`` over them, ``first`` / ``last`` the fused
+    keywords of its first / last pass; bound_by the larger part's."""
+    plan, bit = domain.pass_plan(log_n), log_n if dif else 0
+    total, by = 0.0, {}
+    for p, count in enumerate(plan):
+        kw = {}
+        for part, on in ((first, p == 0), (last, p == len(plan) - 1)):
+            for k, v in (part or {}).items() if on else ():
+                kw[k] = kw.get(k, 0) + v
+        ms, b = fr_pass_bound(P, log_n, 1 << (bit - 1 if dif else bit),
+                              count, dif, clock_hz, **kw)
+        total += ms
+        by[b] = by.get(b, 0.0) + ms
+        bit += -count if dif else count
+    return total, max(by, key=by.get)
 
 
 def fr_pointwise_bound(N, clock_hz, quotient):
@@ -3838,76 +3956,94 @@ def _fr_row(ms, got, want, shape, bound, plain_ms=None):
     return row
 
 
+def fr_transforms(t, y, quotient=None):
+    """The prover's transforms through P4 on y (P, n, 16) with the domain's
+    tables ``t``, and their plain forms: {name: (kernel fn, plain fn,
+    first-pass and last-pass fused products and tables, direction)}. The
+    coset inverse carries the quotient (``quotient = (b, c, t)``) and the
+    demont scalar, as ``prove._h_finish`` runs it."""
+    b, c, tq = quotient
+    return {
+        "forward": (lambda: domain.forward(y, t["fwd"]),
+                    lambda: domain.forward_plain(y, t["fwd"]), {}, {}, True),
+        "inverse": (lambda: domain.inverse(y, t["inv"], t["ninv"]),
+                    lambda: domain.inverse_plain(y, t["inv"], t["ninv"]), {},
+                    dict(products=1), False),
+        "interpolate_natural": (
+            lambda: domain.interpolate_natural(y, t["br"], t["inv"],
+                                               t["ninv"]),
+            lambda: domain.inverse_plain(y[..., t["br"], :], t["inv"],
+                                         t["ninv"]), {}, dict(products=1),
+            False),
+        "coset_forward": (
+            lambda: domain.coset_forward(y, t["coset"], t["fwd"]),
+            lambda: domain.forward_plain(FR.mont_mul(y, t["coset"]),
+                                         t["fwd"]),
+            dict(products=1, tables=1), {}, True),
+        "coset_inverse, quotient, demont": (
+            lambda: domain.coset_inverse(y, t["coset_inv"], t["inv"],
+                                         t["ninv_demont"],
+                                         quotient=(b, c, tq)),
+            lambda: FR.mont_mul(domain.inverse_plain(
+                domain.pointwise_plain(y, tq, b, c), t["inv"],
+                t["ninv_demont"]), t["coset_inv"]),
+            dict(quotient=True), dict(products=2, tables=1), False)}
+
+
 def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
                 seed=750):
-    """P4 and P5 by CUDA events (mean of ``reps`` launches after a warm
-    one; at 2^14 also in a CUDA graph, ``graph_ms``: the device's time
-    without the host's launch gaps) beside their plain versions on the
-    card (host clock, synchronized) and their bounds. P4: every stage of
-    n = 2^14, P = 3 in both directions (the row: their mean), the three
-    fused stages the
-    prover runs (the coset powers on the first forward stage, the
-    bit-reversed read on the first inverse one, g^-i and n^-1 on the last
-    inverse one), and stages h = 2^20, 2^10, 1 at n = 2^21, P = 1. P5:
-    the quotient over n = 2^14 (the row), the Montgomery step of the 3 n
-    evaluations, and the quotient at 2^21."""
+    """P4's transforms and P5 by CUDA events (mean of ``reps`` calls after a
+    warm one) and in a CUDA graph (``graph_ms``: the device's time without
+    the host's launch gaps) beside their plain versions on the card (host
+    clock, synchronized) and their bounds (``fr_transform_bound``). P4:
+    each of the prover's transforms (``fr_transforms``) at n = 2^14, P = 3
+    (the row: the forward transform, ``pass_plan``'s 2 launches), the
+    forward and the coset inverse at n = 2^21, P = 1, and the two passes of
+    the 2^21 forward transform alone. P5: the quotient over n = 2^14, the
+    Montgomery step of the 3 n evaluations (its one launch a proof since
+    the passes took the quotient and the demont step), and the quotient at
+    2^21."""
+    rows = {}
+    for lg, p, r in ((log_n, P, reps), (big, 1, max(reps // 5, 3))):
+        n = 1 << lg
+        t = domain.tables(n, device)
+        y, b, c = (random_mont((p, n), device, seed + i) for i in range(3))
+        tq = random_mont((), device, seed + 3)
+        for name, (fn, plain, first, last, dif) in fr_transforms(
+                t, y, (b, c, tq)).items():
+            if lg == big and name not in ("forward",
+                                          "coset_inverse, quotient, demont"):
+                continue
+            ms, got = _cuda_ms(fn, r)
+            pms, want = _host_ms(plain, 1 if lg == big else 3)
+            row = rows[f"{name} 2^{lg}"] = _fr_row(
+                ms, got, want, f"{name}, n=2^{lg}, P={p}, "
+                f"{len(domain.pass_plan(lg))} passes",
+                fr_transform_bound(p, lg, dif, clock_hz, first, last), pms)
+            del got, want
+            row["graph_ms"] = _graph_ms(fn, r)[0]
+        if lg == big:              # each pass of the forward transform alone
+            bit = lg
+            for count in domain.pass_plan(lg):
+                h = 1 << (bit - 1)
+                def one():
+                    return nkern.fr_pass(y, t["words"]["fwd"], h, count, True)
+                ms, got = _cuda_ms(one, r)
+                pms, want = _host_ms(lambda: domain.pass_plain(
+                    y, t["words"]["fwd"], h, count, True))
+                rows[f"forward pass h=2^{bit - 1} x {count} 2^{lg}"] = \
+                    _fr_row(ms, got, want, f"one pass of {count} stages from "
+                            f"h=2^{bit - 1}, n=2^{lg}, P=1",
+                            fr_pass_bound(1, lg, h, count, True, clock_hz),
+                            pms)
+                del got, want
+                bit -= count
+        del y, b, c
+    key = f"forward 2^{log_n}"
+    fpass = dict(rows.pop(key), modes=rows)
     n = 1 << log_n
-    y = random_mont((P, n), device, seed)
-    t = domain.tables(n, device)
-    pw, pw_inv = t["pw"], t["pw_inv"]
-    out = torch.empty_like(y)
-    by_h, plain = {}, []
-    for dif, table in ((True, pw), (False, pw_inv)):
-        for log_h in range(log_n):
-            h = 1 << log_h
-            def run():
-                return nkern.stage(y, table, h, dif, out=out)
-            ms, got = _cuda_ms(run, reps)
-            pms, want = _host_ms(lambda: domain.stage_plain(
-                y, table[:: n // (2 * h)], dif), 3)
-            plain.append(pms)
-            row = by_h[f"{'dif' if dif else 'dit'} h=2^{log_h}"] = _fr_row(
-                ms, got, want, f"n=2^{log_n}, P={P}, h=2^{log_h}",
-                fr_stage_bound(P, n, h, clock_hz), pms)
-            row["graph_ms"] = _graph_ms(run, reps)[0]
-    rows = list(by_h.values())
-    stage = dict(
-        shape=f"one stage, n=2^{log_n}, P={P} (mean over its {log_n} h, "
-              f"both directions)",
-        ms=sum(r["ms"] for r in rows) / len(rows),
-        plain_ms=sum(plain) / len(plain),
-        bound_ms=sum(r["bound_ms"] for r in rows) / len(rows),
-        bound_by="bytes", max_abs_err=max(r["max_abs_err"] for r in rows),
-        graph_ms=sum(r["graph_ms"] for r in rows) / len(rows),
-        by_h=by_h, modes={})
-    fused = {"coset pre, first DIF": (pw, n // 2, True, dict(pre=t["coset"]),
-                                      2, 1),
-             "bitrev, first DIT": (pw_inv, 1, False, dict(bitrev=True), 0, 0),
-             "post g^-i and n^-1, last DIT": (
-                 pw_inv, n // 2, False, dict(post=t["coset_inv"],
-                                             post_scalar=t["ninv"]), 4, 1)}
-    for name, (table, h, dif, kw, extra, tabs) in fused.items():
-        ms, got = _cuda_ms(lambda: nkern.stage(y, table, h, dif, out=out,
-                                               **kw), reps)
-        pms, want = _host_ms(lambda: domain.stage_plain(
-            y, table[:: n // (2 * h)], dif, **kw), 3)
-        stage["modes"][name] = _fr_row(
-            ms, got, want, f"n=2^{log_n}, P={P}, h={h}, {name}",
-            fr_stage_bound(P, n, h, clock_hz, 1 + extra, tabs), pms)
-    nb = 1 << big
-    yb = random_mont((1, nb), device, seed + 1)
-    pwb = random_mont((nb // 2,), device, seed + 2)
-    outb = torch.empty_like(yb)
-    for h in (nb // 2, 1 << (big // 2), 1):
-        ms, got = _cuda_ms(lambda: nkern.stage(yb, pwb, h, True, out=outb),
-                           max(reps // 5, 3))
-        pms, want = _host_ms(lambda: domain.stage_plain(
-            yb, pwb[:: nb // (2 * h)], True))
-        stage["modes"][f"2^{big} h={h}"] = _fr_row(
-            ms, got, want, f"n=2^{big}, P=1, h={h}, DIF",
-            fr_stage_bound(1, nb, h, clock_hz), pms)
-        del want
-    tinv = random_mont((), device, seed + 3)
+    y = random_mont((P, n), device, seed + 5)
+    tinv = random_mont((), device, seed + 6)
     pms, want = _host_ms(lambda: domain.pointwise_plain(y[0], tinv, y[1],
                                                         y[2]), 3)
     def quotient():
@@ -3919,10 +4055,14 @@ def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
     pointwise["modes"] = {}
     r2 = torch.as_tensor(ints_to_limbs(FR.r2_mod_p), device=device)
     pms, want = _host_ms(lambda: domain.pointwise_plain(y, r2), 3)
-    ms, got = _cuda_ms(lambda: nkern.pointwise(y, r2), reps)
+    def mont():
+        return nkern.pointwise(y, r2)
+    ms, got = _cuda_ms(mont, reps)
     pointwise["modes"]["R^2"] = _fr_row(
         ms, got, want, f"times R^2, 3 x 2^{log_n}",
         fr_pointwise_bound(P * n, clock_hz, False), pms)
+    pointwise["modes"]["R^2"]["graph_ms"] = _graph_ms(mont, reps)[0]
+    nb = 1 << big
     ab = random_mont((3, nb), device, seed + 4)
     pms, want = _host_ms(lambda: domain.pointwise_plain(ab[0], tinv, ab[1],
                                                         ab[2]))
@@ -3931,7 +4071,7 @@ def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
     pointwise["modes"][f"quotient 2^{big}"] = _fr_row(
         ms, got, want, f"quotient, n=2^{big}",
         fr_pointwise_bound(nb, clock_hz, True), pms)
-    return {("fr_stage", FR_ROW): stage, ("fr_pointwise", FR_ROW): pointwise}
+    return {("fr_pass", FR_ROW): fpass, ("fr_pointwise", FR_ROW): pointwise}
 
 
 def h_pipeline_plain(evs, tinv, t, demont):
@@ -4239,7 +4379,7 @@ def ptxas_summary(text, kernels=("k_prefix<", "k_addn<", "k_scale_add<",
                                  "k_horner<", "k_poseidon<",
                                  "k_poseidon_lanes<", "k_tree_level<",
                                  "k_miller_lines", "k_final_exp",
-                                 "k_poseidon2<", "k_fr_stage",
+                                 "k_poseidon2<", "k_fr_pass",
                                  "k_fr_pointwise")):
     """{kernel instantiation: registers, spill stores, stack bytes, ptxas
     ms} from ``-Xptxas -v`` output, for the entry functions whose demangled
@@ -4390,17 +4530,17 @@ def main(argv):
         raise AssertionError(
             f"kernels differ from plain twins at the slices' shapes: {bad}")
     t0 = time.perf_counter()
-    ferrs, stage_launches = check_fr_ntt(device)
+    ferrs, pass_launches, want_launches = check_fr_ntt(device)
     errs.update(ferrs)
     bad = {k: v for k, v in ferrs.items() if v}
-    log(2, f"fr_stage, fr_pointwise: {len(ferrs)} cases equal to their "
-           f"plain versions: {not bad}, P4 {stage_launches} launches "
+    log(2, f"fr_pass, fr_pointwise: {len(ferrs)} cases equal to their "
+           f"plain versions: {not bad}, P4 {pass_launches} launches "
            f"({time.perf_counter() - t0:.1f} s)")
-    n_stage = sum(1 for k in ferrs if k[0] == "fr_stage")
-    if bad or stage_launches != n_stage:
+    if bad or pass_launches != want_launches:
         raise AssertionError(f"P4 or P5 differs from its plain version, or "
-                             f"P4 launched other than once a case: {bad}, "
-                             f"{stage_launches} launches")
+                             f"P4 launched other than once a pass: {bad}, "
+                             f"{pass_launches} launches, {want_launches} "
+                             f"passes")
     ftimes = time_fr_ntt(device, clock_hz)
     times.update(ftimes)
     for (name, _), t in ftimes.items():
@@ -4410,13 +4550,7 @@ def main(argv):
             log(2, f"{name} {u['shape']}: max |err| {u['max_abs_err']}, "
                    f"{u['ms']:.4f} ms{graph}, plain {u['plain_ms']:.2f} ms, "
                    f"bound {u['bound_ms']:.5f} ms ({u['bound_by']})")
-    log(2, "fr_stage ms (events; CUDA graph) by direction and h at n = 2^14,"
-           " P = 3: " + json.dumps(
-               {k: [round(u["ms"], 5), round(u["graph_ms"], 5)] for k, u in
-                ftimes[("fr_stage", FR_ROW)]["by_h"].items()}))
-    if any(_times_err(t) for t in ftimes.values()) or any(
-            u["max_abs_err"] for u in ftimes[("fr_stage", FR_ROW)][
-                "by_h"].values()):
+    if any(_times_err(t) for t in ftimes.values()):
         raise AssertionError("P4 or P5 differs from its plain version at "
                              "the prover's shapes")
 
@@ -4436,6 +4570,12 @@ def main(argv):
         raise AssertionError(f"the H(X) pipeline synced the host, differs "
                              f"from its plain twin or ran other kernels "
                              f"than P4 and P5: {info['h_ntt']}")
+    # three transforms of pass_plan's passes, and P5's R^2 step, a proof
+    h_launches = dict(fr_pass=3 * len(domain.pass_plan(
+        info["legs"]["n"].bit_length() - 1)), fr_pointwise=1)
+    if any(info["launches_per_proof"][k] != v for k, v in h_launches.items()):
+        raise AssertionError(f"P4 / P5 launches a proof other than "
+                             f"{h_launches}: {info['launches_per_proof']}")
 
     # ---- 6: the depth-16 Merkle tree through K7
     merkle = phase_merkle(device, clock_hz, products, inverses,
@@ -4694,7 +4834,7 @@ def main(argv):
     # the verify's batch of 256 for P1 and P2, the withdraw proof's domain
     # 2^14 for P4 and P5
     row_key = {"poseidon": 3, "exchange_butterfly": 8, "miller_lines": 256,
-               "final_exp": 256, "poseidon2": P3_ROW, "fr_stage": FR_ROW,
+               "final_exp": 256, "poseidon2": P3_ROW, "fr_pass": FR_ROW,
                "fr_pointwise": FR_ROW}
     rows = {name: times[(name, row_key.get(name, 1))] for name in REPLACES}
     line = {"kernels": [dict(

@@ -1,23 +1,27 @@
 """The H(X) kernels P4 and P5 (``csrc/fr_ntt.cu``): their plain forms
-against the JAX package, the kernel route's stage plan on the CPU, and
+against the JAX package, the kernel route's pass plan on the CPU, and
 the kernels built with g++ against the plain forms.
 
-- ``domain.forward_plain`` / ``inverse_plain`` and the stage plan the
-  kernel route runs (``domain._stages``: P4's fused steps at a transform's
-  ends, here over ``stage_plain``, P4's CPU form) equal
-  ``tpu_zkpool.groth16.domain`` at n = 16 and 64 on seeded inputs (one
-  jitted JAX call a size), and the prover's ``_h_pipeline`` on that plan
-  equals JAX's at n = 16.
+- ``domain.forward_plain`` / ``inverse_plain`` and the pass plan the
+  kernel route runs (``domain._passes``: ``pass_plan``'s P4 launches, the
+  fused steps at a transform's ends, here over ``pass_plain``, P4's CPU
+  form, with 11 stages a pass and with 3) equal ``tpu_zkpool.groth16.domain``
+  at n = 16 and 64 on seeded inputs (one jitted JAX call a size), and the
+  prover's ``_h_pipeline`` on that plan (the quotient and the demont step
+  in the coset inverse's passes) equals JAX's at n = 16 and 64.
 - A CPU tensor reaches the plain forms (a spy on them and on P4).
 - The host build: ``-DZK_HOST_TEST`` turns ``csrc/fr_ntt.cu``'s CUDA
-  keywords into C++ (``field.cuh``'s shims) and a harness that defines
-  ``ZK_HOST_THREADS`` runs every block's threads of a launch one after
-  another, the launch shaped as the C launcher shapes it. The source is
-  cut before its C launchers. P4 at every h for n = 2 ... 64, both
-  directions, P = 1 and 3, each fused step alone, all together and in
-  place, with 0, 1 and r - 1 planted in the values and the twiddles,
-  equals ``stage_plain``; P5 in each mode equals FieldCtx. It skips
-  without g++. Exact integers: the tolerance is zero.
+  keywords into C++ (``field.cuh``'s shims), with a tile of 2^3 values
+  (``-DZK_FR_TILE_LOG=3``); the harness runs each block of a launch, shaped
+  as the C launcher shapes it (``fr_pass_shape``), as fibers meeting at
+  ``__syncthreads`` (``tests/host_fibers.py``). The source is cut before its
+  C launchers. P4 at every (h_first, count) of n = 2 ... 64, both
+  directions, P = 1 and 3, each fused step alone, the quotient with the
+  folded demont scalar and the coset inverse powers, all together and in
+  place, with 0, 1 and r - 1 planted in the values and the tables, equals
+  ``pass_plain`` (the count = 1 cases are the stages of ``stage_plain``);
+  P5 in each mode equals FieldCtx. It skips without g++. Exact integers:
+  the tolerance is zero.
 
 CPU parity proves the algorithm, not the CUDA build: ``chip_smoke.py``
 phase 2 holds the kernels to the same plain forms on the card.
@@ -40,10 +44,13 @@ from tpu_zkpool.groth16 import prove_tpu as jpt
 
 from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.fields.fctx import FR
-from tpu_zkpool_torch.fields.limbs import ints_to_limbs
+from tpu_zkpool_torch.fields.limbs import (int_to_limbs, ints_to_limbs,
+                                            unpack_limbs16)
 from tpu_zkpool_torch.groth16 import domain as td
 from tpu_zkpool_torch.groth16 import ntt_kernels as nk
 from tpu_zkpool_torch.groth16 import prove as tp
+
+from host_fibers import SHIMS
 
 torch.set_num_threads(1)
 
@@ -92,38 +99,47 @@ def test_plain_forms_match_jax(n, fn):
 @pytest.mark.parametrize("n", [16, 64])
 @pytest.mark.parametrize("fn", NTT_FNS)
 def test_stage_plan_matches_jax(n, fn, monkeypatch):
-    """The kernel route's plan (first stage out of place with the
+    """The kernel route's plan (``pass_plan``: one pass at 11 stages a
+    pass, 2 + 2 or 3 + 3 at 3; the first out of place with the
     bit-reversed read or the coset powers, the rest in place, n^-1 and the
     coset inverse powers on the last) run through P4's CPU form."""
     x, want = _jax_ntt(n)
     monkeypatch.setattr(td, "_plain", lambda t: False)
-    nk.reset_launches()
-    _same(want[fn], getattr(td, fn)(x))
+    for max_pass, passes in ((11, 1), (3, 2)):
+        monkeypatch.setattr(nk, "MAX_PASS", max_pass)
+        assert len(td.pass_plan(n.bit_length() - 1)) == passes
+        _same(want[fn], getattr(td, fn)(x))
 
 
 @pytest.mark.parametrize("demont", [False, True])
 def test_h_pipeline_on_stage_plan_matches_jax(demont, monkeypatch):
     """The prover's H(X) on the kernel route's plan (P4's and P5's CPU
-    forms) against JAX's jitted ``_h_pipeline`` at n = 16, and both
+    forms, 3 stages a pass: two passes a transform, the quotient read by
+    the coset inverse's first pass, the demont step folded into its n^-1)
+    against JAX's jitted ``_h_pipeline`` at n = 16 and 64, and both
     pipelines of the port."""
-    n = 16
-    evs = _vals((3, n), 77)
-    tinv = _vals((), 78, planted=0)
-    tables = td.tables(n, "cpu")
-    want = jpt._h_pipeline(jnp.asarray(evs.numpy().astype(np.uint32)),
-                           jnp.asarray(tinv.numpy().astype(np.uint32)),
-                           jd.tables_device(n), demont)
-    plain = tp._h_pipeline(evs, tinv, tables, demont)
-    monkeypatch.setattr(td, "_plain", lambda t: False)
-    for pipeline in (tp._h_pipeline, tp._h_pipeline_split):
-        got = pipeline(evs, tinv, tables, demont)
-        _same(want, got)
-        assert torch.equal(got, plain)
+    monkeypatch.setattr(nk, "MAX_PASS", 3)
+    for n in (16, 64):
+        evs = _vals((3, n), 77 + n)
+        tinv = _vals((), 78, planted=0)
+        tables = td.tables(n, "cpu")
+        want = jpt._h_pipeline(jnp.asarray(evs.numpy().astype(np.uint32)),
+                               jnp.asarray(tinv.numpy().astype(np.uint32)),
+                               jd.tables_device(n), demont)
+        plain = tp._h_pipeline(evs, tinv, tables, demont)
+        _same(want, plain)
+        with monkeypatch.context() as m:
+            m.setattr(td, "_plain", lambda t: False)
+            for pipeline in (tp._h_pipeline, tp._h_pipeline_split):
+                got = pipeline(evs, tinv, tables, demont)
+                _same(want, got)
+                assert torch.equal(got, plain)
 
 
 def test_cpu_tensors_reach_the_plain_forms(monkeypatch):
     """On a CPU tensor every public function runs the plain forms and P4's
-    wrapper never runs; P5's wrapper runs ``pointwise_plain``."""
+    wrapper never runs; P5's wrapper runs ``pointwise_plain``, P4's
+    ``pass_plain``."""
     calls = []
 
     def spy(name, f):
@@ -133,9 +149,9 @@ def test_cpu_tensors_reach_the_plain_forms(monkeypatch):
         return g
 
     for name in ("forward_plain", "inverse_plain", "stage_plain",
-                 "pointwise_plain"):
+                 "pass_plain", "pointwise_plain"):
         monkeypatch.setattr(td, name, spy(name, getattr(td, name)))
-    monkeypatch.setattr(nk, "stage", spy("stage", nk.stage))
+    monkeypatch.setattr(nk, "fr_pass", spy("fr_pass", nk.fr_pass))
     x = _vals((2, 8), 5)
     for fn in NTT_FNS:
         getattr(td, fn)(x)
@@ -144,11 +160,16 @@ def test_cpu_tensors_reach_the_plain_forms(monkeypatch):
     calls.clear()
     nk.pointwise(x, _vals((), 6))
     assert calls == ["pointwise_plain"]
+    calls.clear()
+    nk.fr_pass(x, td.tables(8, "cpu")["words"]["fwd"], 4, 1, True)
+    assert calls == ["fr_pass", "pass_plain", "stage_plain"]
 
 
 def test_tables_power_rows_back_every_stage():
     """``pw`` / ``pw_inv`` rows are the stages' twiddles at stride n/2h:
-    each stage is a view of them (no copy) equal to the host tables."""
+    each stage is a view of them (no copy) equal to the host tables; the
+    packed words P4 reads are those rows and the coset tables, two limbs a
+    word."""
     n = 32
     t = td.tables(n, "cpu")
     fwd, inv = td._tables(n)[:2]
@@ -160,85 +181,97 @@ def test_tables_power_rows_back_every_stage():
             assert tw.untyped_storage().data_ptr() == \
                 pw.untyped_storage().data_ptr()
             assert (tw.T.numpy() == h).all()
+    for key, rows in (("fwd", t["pw"]), ("inv", t["pw_inv"]),
+                      ("coset", t["coset"]), ("coset_inv", t["coset_inv"])):
+        w = t["words"][key]
+        assert w.dtype == torch.int32 and w.shape == (rows.shape[0], 8)
+        assert torch.equal(unpack_limbs16(w), rows)
+    assert torch.equal(FR.mont_mul(t["ninv"], t["one"]), t["ninv_demont"])
 
 
 # ----------------------------------------------- the host build of P4, P5
 
-_HARNESS = r"""
-#define ZK_HOST_TEST
-#define ZK_HOST_THREADS
-#include <cstdint>
-#include <cstdio>
-#include <cstdlib>
-#include <vector>
-struct ZkDim3 {
-  unsigned x, y, z;
-};
-inline ZkDim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
-// field.cuh's warp traits name a shuffle; P4 and P5 never shuffle
-inline uint32_t __shfl_sync(unsigned, uint32_t v, int, int = 32) { return v; }
-#include "fr_ntt_kernels.cu"
+HOST_TILE_LOG = 3              # -DZK_FR_TILE_LOG: n <= 64 runs as passes
+
+_HARNESS = SHIMS + r"""#include "fr_ntt_kernels.cu"
 using namespace zk;
 
-static std::vector<int64_t> take(size_t n) {
-  std::vector<int64_t> v(n);
-  if (n && fread(v.data(), 8, n, stdin) != n) std::exit(3);
-  return v;
-}
+static FrPassArgs g_pass;
+static FrPointwiseArgs g_point;
+static void pass_thread() { k_fr_pass(g_pass); }
+static void point_thread() { k_fr_pointwise(g_point); }
 
-// Every block's threads of a launch of `threads` threads, in turn.
-template <class F>
-static void launch(long long threads, F kernel) {
-  blockDim.x = kFrBlock;
-  const long long blocks = (threads + kFrBlock - 1) / kFrBlock;
-  for (long long b = 0; b < blocks; ++b)
-    for (unsigned t = 0; t < (unsigned)kFrBlock; ++t) {
-      blockIdx.x = (unsigned)b;
-      threadIdx.x = t;
-      kernel();
-    }
+// int64 words (< 2^32) as packed table values, two uint4 each
+static std::vector<uint4> words(size_t values) {
+  const std::vector<int64_t> w = rd(values * 8);
+  std::vector<uint4> v(values * 2);
+  uint32_t* p = reinterpret_cast<uint32_t*>(v.data());
+  for (size_t i = 0; i < w.size(); ++i) p[i] = (uint32_t)w[i];
+  return v;
 }
 
 int main() {
   int64_t kind;
-  // stage:     0, P, log_n, log_h, dif, bitrev, pre, post, scalar, inplace,
-  //            then y, pw, [pre], [post], [post_scalar]
+  // pass:      0, P, log_n, log_h, count, dif, bitrev, pre, post, scalar,
+  //            quotient, inplace, then y, pw words, [pre words],
+  //            [post words], [post_scalar], [b, c, t]
   // pointwise: 1, N, quotient, then a, [b, c], t
   while (fread(&kind, 8, 1, stdin) == 1) {
     if (kind == 0) {
-      auto h = take(9);
-      const long long P = h[0];
-      const int log_n = (int)h[1];
-      const long long n = 1LL << log_n;
-      auto y = take(P * n * 16);
-      auto pw = take(n / 2 * 16);
-      std::vector<int64_t> pre, post, sc;
-      if (h[5]) pre = take(n * 16);
-      if (h[6]) post = take(n * 16);
-      if (h[7]) sc = take(16);
+      const std::vector<int64_t> h = rd(11);
+      const long long P = h[0], n = 1LL << h[1];
+      std::vector<int64_t> y = rd(P * n * 16);
+      const std::vector<uint4> pw = words(n / 2);
+      std::vector<uint4> pre, post;
+      std::vector<int64_t> sc, qb, qc, qt;
+      if (h[6]) pre = words(n);
+      if (h[7]) post = words(n);
+      if (h[8]) sc = rd(16);
+      if (h[9]) {
+        qb = rd(P * n * 16);
+        qc = rd(P * n * 16);
+        qt = rd(16);
+      }
       std::vector<int64_t> out(P * n * 16, -7);
-      if (h[8]) out = y;
-      FrStageArgs a{h[8] ? out.data() : y.data(), out.data(), pw.data(),
-                    h[5] ? pre.data() : nullptr,
-                    h[6] ? post.data() : nullptr,
-                    h[7] ? sc.data() : nullptr, P, log_n, (int)h[2],
-                    (int)h[3], (int)h[4]};
-      launch(fr_stage_threads(a), [&] { k_fr_stage(a); });
+      if (h[10]) out = y;
+      const int log_h = (int)h[2], count = (int)h[3], dif = (int)h[4];
+      g_pass = FrPassArgs{h[10] ? out.data() : y.data(), out.data(),
+                          pw.data(), h[6] ? pre.data() : nullptr,
+                          h[7] ? post.data() : nullptr,
+                          h[8] ? sc.data() : nullptr,
+                          h[9] ? qb.data() : nullptr,
+                          h[9] ? qc.data() : nullptr,
+                          h[9] ? qt.data() : nullptr, P, (int)h[1],
+                          dif ? log_h - count + 1 : log_h, count, dif,
+                          (int)h[5]};
+      long long blocks;
+      int threads, smem;
+      if (!fr_pass_shape(g_pass, &blocks, &threads, &smem) ||
+          smem > 4 * kFrPassWords)
+        std::exit(4);
+      for (long long b = 0; b < blocks; ++b) {
+        blockIdx.x = (unsigned)b;
+        zk_run_block((unsigned)threads, pass_thread);
+      }
       fwrite(out.data(), 8, out.size(), stdout);
     } else {
-      auto h = take(2);
+      const std::vector<int64_t> h = rd(2);
       const long long N = h[0];
-      auto A = take(N * 16);
+      const std::vector<int64_t> A = rd(N * 16);
       std::vector<int64_t> B, C;
       if (h[1]) {
-        B = take(N * 16);
-        C = take(N * 16);
+        B = rd(N * 16);
+        C = rd(N * 16);
       }
-      auto T = take(16);
+      const std::vector<int64_t> T = rd(16);
       std::vector<int64_t> out(N * 16, -7);
-      FrPointwiseArgs a{A.data(), h[1] ? B.data() : nullptr,
-                        h[1] ? C.data() : nullptr, T.data(), out.data(), N};
-      launch(N, [&] { k_fr_pointwise(a); });
+      g_point = FrPointwiseArgs{A.data(), h[1] ? B.data() : nullptr,
+                                h[1] ? C.data() : nullptr, T.data(),
+                                out.data(), N};
+      for (long long b = 0; b < (N + kFrBlock - 1) / kFrBlock; ++b) {
+        blockIdx.x = (unsigned)b;
+        zk_run_block(kFrBlock, point_thread);
+      }
       fwrite(out.data(), 8, out.size(), stdout);
     }
   }
@@ -260,9 +293,10 @@ def host_fr(tmp_path_factory):
                                          + "\n")
     (d / "harness.cpp").write_text(_HARNESS)
     exe = d / "harness"
-    subprocess.run([gxx, "-std=c++17", "-O1", f"-I{CSRC}", f"-I{d}",
-                    str(d / "harness.cpp"), "-o", str(exe)], check=True,
-                   capture_output=True, text=True)
+    subprocess.run([gxx, "-std=c++17", "-O1",
+                    f"-DZK_FR_TILE_LOG={HOST_TILE_LOG}", f"-I{CSRC}",
+                    f"-I{d}", str(d / "harness.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True, text=True)
     return str(exe)
 
 
@@ -282,38 +316,61 @@ def _run(exe, cases):
     return outs
 
 
-# (name, pre, bitrev, post, post_scalar, in place)
-STAGE_MODES = (("plain", 0, 0, 0, 0, 0), ("pre", 1, 0, 0, 0, 0),
-               ("bitrev", 0, 1, 0, 0, 0), ("post", 0, 0, 1, 0, 0),
-               ("scalar", 0, 0, 0, 1, 0), ("all", 1, 1, 1, 1, 0),
-               ("in place", 1, 0, 1, 1, 1))
+# (name, pre, bitrev, post, post_scalar, quotient, in place); "demont" is
+# the coset inverse's steps with the demont scalar n^-1 (plain) folded in
+PASS_MODES = (("plain", 0, 0, 0, 0, 0, 0), ("pre", 1, 0, 0, 0, 0, 0),
+              ("bitrev", 0, 1, 0, 0, 0, 0), ("post", 0, 0, 1, 0, 0, 0),
+              ("scalar", 0, 0, 0, 1, 0, 0), ("quotient", 0, 0, 0, 0, 1, 0),
+              ("demont", 0, 0, 1, 1, 1, 0), ("all", 1, 1, 1, 1, 1, 0),
+              ("in place", 1, 0, 1, 1, 1, 1))
+
+
+def _words_np(limbs):
+    """Packed words of limbs as int64 (< 2^32) for the harness."""
+    return td.pack_words(limbs).numpy().view(np.uint32).astype(np.int64)
 
 
 @pytest.mark.parametrize("dif", [True, False])
 @pytest.mark.parametrize("log_n", range(1, 7))
 def test_host_stage_matches_stage_plain(host_fr, log_n, dif):
+    """P4's host build (a tile of 2^3 values) against ``pass_plain`` at
+    every (h_first, count) of n = 2^log_n, P = 1 and 3, in every mode; the
+    count = 1 passes are single stages (``stage_plain``)."""
     n = 1 << log_n
     cases, wants = [], []
     for P in (1, 3):
         seed = 100 * log_n + 10 * P + dif
-        y = _vals((P, n), seed)
+        y, qb, qc = (_vals((P, n), seed + i) for i in (0, 4, 5))
         pw = _vals((n // 2,), seed + 1)
         tabs = _vals((2, n), seed + 2)
         scalar = _vals((), seed + 3)
-        for log_h in range(log_n):
-            h = 1 << log_h
-            for name, pre, br, post, sc, inplace in STAGE_MODES:
-                kw = dict(pre=tabs[0] if pre else None, bitrev=bool(br),
-                          post=tabs[1] if post else None,
-                          post_scalar=scalar if sc else None)
-                wants.append(((P, log_h, name), td.stage_plain(
-                    y, pw[:: n // (2 * h)], dif, **kw)))
-                head = np.array([0, P, log_n, log_h, int(dif), br, pre,
-                                 post, sc, inplace])
-                parts = [head, y, pw] + [t for t, on in (
-                    (tabs[0], pre), (tabs[1], post), (scalar, sc)) if on]
-                cases.append(((P, n, 16), [p.numpy() if torch.is_tensor(p)
-                                           else p for p in parts]))
+        qt = _vals((), seed + 6)
+        demont = torch.as_tensor(int_to_limbs(pow(n, -1, R)))
+        for count in range(1, min(HOST_TILE_LOG, log_n) + 1):
+            for lo in range(log_n - count + 1):
+                h_first = 1 << (lo + count - 1 if dif else lo)
+                if count == 1:  # a single stage: pass_plain is stage_plain
+                    assert torch.equal(
+                        td.pass_plain(y, td.pack_words(pw), h_first, 1, dif),
+                        td.stage_plain(y, pw[:: n // (2 * h_first)], dif))
+                for name, pre, br, post, sc, q, inplace in PASS_MODES:
+                    s = demont if name == "demont" else scalar
+                    kw = dict(pre=td.pack_words(tabs[0]) if pre else None,
+                              bitrev=bool(br),
+                              post=td.pack_words(tabs[1]) if post else None,
+                              post_scalar=s if sc else None,
+                              quotient=(qb, qc, qt) if q else None)
+                    wants.append(((P, count, h_first, name), td.pass_plain(
+                        y, td.pack_words(pw), h_first, count, dif, **kw)))
+                    head = np.array([0, P, log_n, h_first.bit_length() - 1,
+                                     count, int(dif), br, pre, post, sc, q,
+                                     inplace])
+                    parts = [head, y.numpy(), _words_np(pw)]
+                    parts += [_words_np(t) for t, on in (
+                        (tabs[0], pre), (tabs[1], post)) if on]
+                    parts += [s.numpy()] if sc else []
+                    parts += [qb.numpy(), qc.numpy(), qt.numpy()] if q else []
+                    cases.append(((P, n, 16), parts))
     for (key, want), got in zip(wants, _run(host_fr, cases)):
         assert (got == want.numpy()).all(), key
 

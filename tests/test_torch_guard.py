@@ -25,6 +25,7 @@ SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
            os.path.join("scripts", "pod_ipc_probe.py"),
            os.path.join("scripts", "torch_benchmark_variants.py"),
            os.path.join("scripts", "fr_ntt_phase2.py"),
+           os.path.join("scripts", "fr_ntt_transforms.py"),
            os.path.join("scripts", "chip_smoke_profile.py")]
 
 
@@ -468,9 +469,13 @@ def test_fr_ntt_wrappers_reject_bad_inputs():
     from tpu_zkpool_torch.groth16 import domain, ntt_kernels as nk
     from tpu_zkpool_torch.groth16 import prove as tp
     meta = torch.empty((3, 8, 16), dtype=torch.int64, device="meta")
-    pw = torch.empty((4, 16), dtype=torch.int64, device="meta")
+    pw = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    tab = torch.empty((8, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        nk.stage(meta, pw, 2, True)
+        nk.fr_pass(meta, pw, 2, 2, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        nk.fr_pass(meta, pw, 1, 3, False, pre=tab, post=tab,
+                   post_scalar=meta[0, 0], quotient=(meta, meta, meta[0, 0]))
     with pytest.raises(ValueError, match="CUDA"):
         nk.pointwise(meta, meta[0, 0], meta, meta)
     for fn in ("forward", "inverse", "interpolate_natural", "coset_forward",
@@ -479,13 +484,24 @@ def test_fr_ntt_wrappers_reject_bad_inputs():
             getattr(domain, fn)(meta)
     with pytest.raises(ValueError, match="CUDA"):
         tp._unpack_mont_fr(np.zeros((3, 8, 8), np.uint32), "meta")
-    bad = [(lambda: nk.stage(meta[..., :8], pw, 2, True), r"\(\.\.\., 16\)"),
-           (lambda: nk.stage(meta[:, :6], pw, 2, True), "power of two"),
-           (lambda: nk.stage(meta, pw, 8, True), "h must"),
-           (lambda: nk.stage(meta, pw[:2], 2, True), "power table"),
-           (lambda: nk.stage(meta, pw, 2, True, pre=pw), "pre"),
-           (lambda: nk.stage(meta.int(), pw, 2, True), "int64"),
-           (lambda: nk.stage(meta, pw, 2, False, bitrev=True, out=meta),
+    bad = [(lambda: nk.fr_pass(meta[..., :8], pw, 2, 1, True),
+            r"\(\.\.\., 16\)"),
+           (lambda: nk.fr_pass(meta[:, :6], pw, 2, 1, True), "power of two"),
+           (lambda: nk.fr_pass(meta, pw, 8, 1, True), "does not fit"),
+           (lambda: nk.fr_pass(meta, pw, 2, 3, True), "does not fit"),
+           (lambda: nk.fr_pass(meta, pw, 2, 3, False), "does not fit"),
+           (lambda: nk.fr_pass(meta, pw, 3, 1, False), "does not fit"),
+           (lambda: nk.fr_pass(meta, pw, 1, 0, True), "count"),
+           (lambda: nk.fr_pass(meta, pw, 1, 12, True), "count"),
+           (lambda: nk.fr_pass(meta, pw[:2], 2, 1, True), "power table"),
+           (lambda: nk.fr_pass(meta, pw.long(), 2, 1, True), "int32"),
+           (lambda: nk.fr_pass(meta, pw, 2, 1, True, pre=pw), "pre"),
+           (lambda: nk.fr_pass(meta, pw, 2, 1, True, post=meta[0]), "post"),
+           (lambda: nk.fr_pass(meta.int(), pw, 2, 1, True), "int64"),
+           (lambda: nk.fr_pass(meta, pw, 1, 1, False,
+                               quotient=(meta, meta[:2], meta[0, 0])),
+            "quotient's c"),
+           (lambda: nk.fr_pass(meta, pw, 1, 1, False, bitrev=True, out=meta),
             "out of place"),
            (lambda: nk.pointwise(meta, meta[0, :5]), "t must"),
            (lambda: nk.pointwise(meta, meta[0, 0], meta), "together"),

@@ -75,11 +75,14 @@ def test_fr_ntt_kernels_equal_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     import chip_smoke
-    errs, stage_launches = chip_smoke.check_fr_ntt(
-        torch.device("cuda", 0), logs=range(1, 7), big=12)
-    # P4: every h of n = 2 .. 64 (21 stages) and h = 2^11, 1 at n = 2^12,
-    # both directions, x P = 1, 3 x 7 modes for the former; P5: 3 modes,
-    # each also in place, at 2 element counts
-    n_stage = 21 * 2 * 2 * 7 + 2 * 2
-    assert len(errs) == n_stage + 3 * 2 * 2 and stage_launches == n_stage
+    errs, pass_launches, want_launches = chip_smoke.check_fr_ntt(
+        torch.device("cuda", 0), small=6, row=12, big=12)
+    # P4: every (h_first, count) of n = 2 .. 64 (56 passes), both
+    # directions, x P = 1, 3 x 9 modes; at 2^12 the plan's 6 + 6 passes in
+    # 3 DIF / 5 DIT fused modes and single stages at both ends (5 + 7
+    # cases); two whole 2^12 transforms of 2 passes; P5: 3 modes, each
+    # also in place, at 2 element counts
+    n_small = 56 * 2 * 2 * 9
+    assert len(errs) == n_small + 12 + 2 + 3 * 2 * 2
+    assert pass_launches == want_launches == n_small + 12 + 2 * 2
     assert not {k: v for k, v in errs.items() if v}

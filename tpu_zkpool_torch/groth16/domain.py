@@ -7,15 +7,17 @@ out) and ``inverse`` decimation in time (bit-reversed in, natural out), with
 no bit-reversal pass between them; Fr - 1 = 2^28 * odd, generator 5.
 
 The public functions send a CPU tensor to the plain forms and any other to
-the kernels of ``csrc/fr_ntt.cu`` (``groth16.ntt_kernels``): one P4 launch a
-stage, the coset powers, the bit-reversed read, n^-1 and the coset inverse
-powers fused into a transform's first or last stage (P5 only where a
-transform has no stage, n = 1). The kernel route raises on any failure; it
-never falls back. The plain forms run the butterflies limb-major
-(``FR.lm_*``) on whole stages at once: ``forward_plain``,
-``inverse_plain``, one stage with the kernel's fused steps
-(``stage_plain``) and P5's element-wise products (``pointwise_plain``).
-The JAX package had no Pallas kernel here: XLA compiles its stages.
+the kernels of ``csrc/fr_ntt.cu`` (``groth16.ntt_kernels``): a transform is
+the P4 passes of ``pass_plan`` (up to ``ntt_kernels.MAX_PASS`` stages a
+launch in shared memory), the coset powers, the bit-reversed read and the
+coset quotient fused into its first pass, the coset inverse powers and n^-1
+into its last (P5 only where a transform has no stage, n = 1). The kernel
+route raises on any failure; it never falls back. The plain forms run the
+butterflies limb-major (``FR.lm_*``) on whole stages at once:
+``forward_plain``, ``inverse_plain``, one stage with P4's fused steps
+(``stage_plain``), a pass of them (``pass_plain``) and P5's element-wise
+products (``pointwise_plain``). The JAX package had no Pallas kernel here:
+XLA compiles its stages.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.fields.fctx import FR
-from tpu_zkpool_torch.fields.limbs import NLIMB, int_to_limbs
+from tpu_zkpool_torch.fields.limbs import NLIMB, int_to_limbs, unpack_limbs16
 from tpu_zkpool_torch.refimpl.groth16_ref import powers
 
 COSET_G = 5
@@ -75,6 +77,14 @@ def bitrev_perm(n: int) -> np.ndarray:
     return out
 
 
+def pack_words(limbs: torch.Tensor) -> torch.Tensor:
+    """int64[..., 16] canonical limbs -> int32[..., 8] words (limb 2i low,
+    2i + 1 high: the 32-bit words P4 reads from its tables), on the
+    tensor's device."""
+    w = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
+    return w.contiguous().view(torch.int32)[..., 0::2].contiguous()
+
+
 def _stage_tws(pw, hs, n):
     """Each stage's twiddles, limb-major (16, h): strided views of the
     power table pw (n/2, 16), so the stages hold no copy."""
@@ -89,27 +99,43 @@ def _tables_on(n: int, device: str):
     pw = t(fwd[0] if fwd else none)            # (n/2, 16) rows
     pw_inv = t(inv[-1] if inv else none)
     hs = [n >> (s + 1) for s in range(n.bit_length() - 1)]
+    coset, coset_inv = t(coset), t(coset_inv)
     return dict(
         pw=pw, pw_inv=pw_inv,
         fwd=_stage_tws(pw, hs, n),
         inv=_stage_tws(pw_inv, hs[::-1], n),
         ninv=t(ninv_m),
-        coset=t(coset),
-        coset_inv=t(coset_inv),
+        ninv_demont=t(int_to_limbs(pow(n, -1, R))),
+        coset=coset,
+        coset_inv=coset_inv,
         br=t(bitrev_perm(n)),
         one=t(int_to_limbs(1)),
+        words=dict(fwd=pack_words(pw), inv=pack_words(pw_inv),
+                   coset=pack_words(coset), coset_inv=pack_words(coset_inv)),
     )
+
+
+def _device_key(device) -> str:
+    """``cuda`` names the current CUDA device: one key for both spellings."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
 
 
 def tables(n: int, device) -> dict:
     """All NTT / coset tables for domain size n on ``device``: ``fwd`` and
     ``inv`` each stage's twiddles limb-major (16, h), in the order the
     stages run; ``pw`` and ``pw_inv`` the powers of omega and omega^-1
-    below n/2 as rows (n/2, 16), which P4 reads at stride n/2h and of
-    which the stages' twiddles are views; ``ninv`` n^-1, ``coset`` g^i and
-    ``coset_inv`` g^-i (n, 16), all Montgomery; ``br`` the bit reversal;
-    ``one`` the plain 1, the demont factor (mont_mul(x R, 1) = x)."""
-    return _tables_on(n, str(torch.device(device)))
+    below n/2 as rows (n/2, 16), of which the stages' twiddles are views;
+    ``ninv`` n^-1, ``coset`` g^i and ``coset_inv`` g^-i (n, 16), all
+    Montgomery; ``ninv_demont`` n^-1 plain (mont_mul(x, n^-1) = n^-1
+    mont_mul(x, 1): the inverse's scale with the demont step folded in);
+    ``br`` the bit reversal; ``one`` the plain 1, the demont factor
+    (mont_mul(x R, 1) = x); ``words`` the power tables (``fwd``, ``inv``)
+    and the coset tables as P4 reads them (``pack_words``, packed on the
+    device from the rows above)."""
+    return _tables_on(n, _device_key(device))
 
 
 # ------------------------------------------------------------ plain forms
@@ -176,6 +202,50 @@ def stage_plain(y, tw, dif: bool, pre=None, bitrev: bool = False,
     return out.contiguous()
 
 
+def pass_half_widths(n: int, h_first: int, count: int, dif: bool) -> list:
+    """The half-widths of a pass's stages in order (DIF halving from
+    ``h_first``, DIT doubling); ``ValueError`` unless all lie in [1, n/2]."""
+    hs = [h_first >> s if dif else h_first << s for s in range(count)]
+    if (count < 1 or h_first < 1 or h_first & (h_first - 1)
+            or min(hs) < 1 or max(hs) > n // 2):
+        raise ValueError(f"a pass of {count} stages from h = {h_first} does "
+                         f"not fit n = {n}")
+    return hs
+
+
+def pass_plain(y, pw, h_first: int, count: int, dif: bool, pre=None,
+               bitrev: bool = False, post=None, post_scalar=None,
+               quotient=None) -> torch.Tensor:
+    """P4's plain form: ``count`` stages (``stage_plain``) of int64[..., n,
+    16] values from half-width ``h_first``, DIF halving or DIT doubling,
+    with the pass's fused steps in the kernel's order: the bit-reversed
+    gather (``bitrev``; ``quotient``'s b and c gathered alike), the
+    quotient (``quotient = (b, c, t)``: the values become (y b - c) t),
+    ``pre`` on the first stage's inputs, ``post`` and then ``post_scalar``
+    (16,) limbs on the last stage's outputs. ``pw`` (n/2, 8), ``pre`` and
+    ``post`` (n, 8) are packed words (``pack_words``)."""
+    n = y.shape[-2]
+    hs = pass_half_widths(n, h_first, count, dif)
+    if bitrev:
+        perm = torch.as_tensor(bitrev_perm(n), device=y.device)
+        y = y[..., perm, :]
+        if quotient is not None:
+            b, c, t = quotient
+            quotient = (b[..., perm, :], c[..., perm, :], t)
+    if quotient is not None:
+        b, c, t = quotient
+        y = pointwise_plain(y, t, b, c)
+    pw = unpack_limbs16(pw)
+    pre, post = (None if x is None else unpack_limbs16(x) for x in (pre, post))
+    for s, h in enumerate(hs):
+        last = s == count - 1
+        y = stage_plain(y, pw[:: n // (2 * h)], dif,
+                        pre=pre if s == 0 else None,
+                        post=post if last else None,
+                        post_scalar=post_scalar if last else None)
+    return y
+
+
 def pointwise_plain(a, t, b=None, c=None) -> torch.Tensor:
     """P5's plain form: ``a t``, or ``(a b - c) t`` with ``b`` and ``c``
     given; ``t`` one value (16,)."""
@@ -198,60 +268,79 @@ def _inverse_tables(y, tws, ninv):
     return tws, ninv
 
 
-def _powers(tws, last: bool):
-    """The direction's power table (n/2, 16) rows from its stage twiddles:
-    the stage of half-width n/2 holds every power (the tables' own stages
-    are views of it, so this is no copy); None for n = 1."""
-    if not tws:
-        return None
-    return tws[-1 if last else 0].T.contiguous()
+def _words(x, key, given):
+    """The packed words P4 reads for table ``key`` (``fwd``, ``inv``: the
+    direction's power table; ``coset``, ``coset_inv``): the tables' own
+    copy when ``given`` is None or the tables' entry, else ``given`` packed
+    now (a power table from its stages: the stage of half-width n/2 holds
+    every power)."""
+    t = tables(x.shape[-2], x.device)
+    if given is None or given is t[key]:
+        return t["words"][key]
+    if key in ("fwd", "inv"):
+        given = given[-1 if key == "inv" else 0].T
+    return pack_words(given)
 
 
-def _stages(x, pw, dif: bool, pre=None, bitrev=False, post=None,
-            post_scalar=None):
-    """A whole transform through P4: the first stage out of place (it reads
-    ``x``, in bit-reversed order if ``bitrev``, times ``pre``), the others
-    in place, the last with ``post`` and ``post_scalar``. At n = 1 there is
-    no stage: the products run through P5."""
+def pass_plan(log_n: int) -> list:
+    """The stages of each P4 launch of a transform of 2^log_n values:
+    ceil(log_n / MAX_PASS) passes split as evenly as possible, the larger
+    first (2^21: 11 + 10, 2^14: 7 + 7)."""
+    from tpu_zkpool_torch.groth16 import ntt_kernels as nk
+    p = -(-log_n // nk.MAX_PASS)
+    if p == 0:
+        return []
+    return [log_n // p + (i < log_n % p) for i in range(p)]
+
+
+def _passes(x, pw, dif: bool, pre=None, bitrev=False, post=None,
+            post_scalar=None, quotient=None):
+    """A whole transform through P4's passes (``pass_plan``): the first out
+    of place (it reads ``x``, in bit-reversed order if ``bitrev``, as the
+    quotient with ``quotient``, times ``pre``), the others in place, the
+    last with ``post`` and ``post_scalar``. DIF passes run from the top
+    index bits down, DIT from the bottom up. At n = 1 there is no stage:
+    the products run through P5."""
     from tpu_zkpool_torch.groth16 import ntt_kernels as nk
     n = x.shape[-2]
     x = x.contiguous()
     logn = n.bit_length() - 1
-    hs = [1 << s for s in range(logn)]
-    if dif:
-        hs.reverse()
-    if not hs:                      # n = 1: each table holds one value
-        y = x.clone()
-        for t in (pre, post, post_scalar):
+    if logn == 0:                   # each table holds one value
+        y = x.clone() if quotient is None else nk.pointwise(
+            x, quotient[2], quotient[0], quotient[1])
+        for t in (pre, post):
             if t is not None:
-                y = nk.pointwise(y, t.reshape(NLIMB), out=y)
+                y = nk.pointwise(y, unpack_limbs16(t).reshape(NLIMB), out=y)
+        if post_scalar is not None:
+            y = nk.pointwise(y, post_scalar, out=y)
         return y
-    y, last = x, len(hs) - 1
-    for s, h in enumerate(hs):
-        first = s == 0
-        y = nk.stage(y, pw, h, dif, pre=pre if first else None,
-                     bitrev=bitrev and first,
-                     post=post if s == last else None,
-                     post_scalar=post_scalar if s == last else None,
-                     out=None if first else y)
+    plan = pass_plan(logn)
+    y, bit = x, logn if dif else 0
+    for p, count in enumerate(plan):
+        first, last = p == 0, p == len(plan) - 1
+        y = nk.fr_pass(y, pw, 1 << (bit - 1 if dif else bit), count, dif,
+                       pre=pre if first else None, bitrev=bitrev and first,
+                       post=post if last else None,
+                       post_scalar=post_scalar if last else None,
+                       quotient=quotient if first else None,
+                       out=None if first else y)
+        bit += -count if dif else count
     return y
 
 
 def forward(x: torch.Tensor, tws=None) -> torch.Tensor:
     """DIF NTT along axis -2 of int64[..., n, 16] Montgomery values."""
-    if tws is None:
-        tws = tables(x.shape[-2], x.device)["fwd"]
     if _plain(x):
         return forward_plain(x, tws)
-    return _stages(x, _powers(tws, False), True)
+    return _passes(x, _words(x, "fwd", tws), True)
 
 
 def inverse(y: torch.Tensor, tws=None, ninv=None) -> torch.Tensor:
     """DIT inverse NTT (bit-reversed in, natural out), scaled by n^-1."""
-    tws, ninv = _inverse_tables(y, tws, ninv)
     if _plain(y):
         return inverse_plain(y, tws, ninv)
-    return _stages(y, _powers(tws, True), False, post_scalar=ninv)
+    ninv = _inverse_tables(y, tws, ninv)[1]
+    return _passes(y, _words(y, "inv", tws), False, post_scalar=ninv)
 
 
 def interpolate_natural(evals, br=None, tws=None, ninv=None):
@@ -259,7 +348,6 @@ def interpolate_natural(evals, br=None, tws=None, ninv=None):
     the bit-reversal gather, then ``inverse``. ``br`` is the bit reversal
     (``bitrev_perm(n)``); the kernel route reads in that order itself."""
     n = evals.shape[-2]
-    tws, ninv = _inverse_tables(evals, tws, ninv)
     if _plain(evals):
         if br is None:
             br = tables(n, evals.device)["br"]
@@ -267,28 +355,34 @@ def interpolate_natural(evals, br=None, tws=None, ninv=None):
     if br is not None and tuple(br.shape) != (n,):
         raise ValueError(f"interpolate_natural: br must be the bit reversal "
                          f"of {n} positions, got shape {tuple(br.shape)}")
-    return _stages(evals, _powers(tws, True), False, bitrev=True,
+    ninv = _inverse_tables(evals, tws, ninv)[1]
+    return _passes(evals, _words(evals, "inv", tws), False, bitrev=True,
                    post_scalar=ninv)
 
 
 def coset_forward(coeffs, coset=None, tws=None):
     """Evaluate a coefficient vector on the coset g * omega^i (BR order)."""
-    n = coeffs.shape[-2]
-    if coset is None:
-        coset = tables(n, coeffs.device)["coset"]
-    if tws is None:
-        tws = tables(n, coeffs.device)["fwd"]
     if _plain(coeffs):
+        if coset is None:
+            coset = tables(coeffs.shape[-2], coeffs.device)["coset"]
         return forward_plain(FR.mont_mul(coeffs, coset), tws)
-    return _stages(coeffs, _powers(tws, False), True, pre=coset)
+    return _passes(coeffs, _words(coeffs, "fwd", tws), True,
+                   pre=_words(coeffs, "coset", coset))
 
 
-def coset_inverse(evals, coset_inv=None, tws=None, ninv=None):
-    n = evals.shape[-2]
-    if coset_inv is None:
-        coset_inv = tables(n, evals.device)["coset_inv"]
-    tws, ninv = _inverse_tables(evals, tws, ninv)
+def coset_inverse(evals, coset_inv=None, tws=None, ninv=None, *,
+                  quotient=None):
+    """Coefficients from values on the coset: ``inverse`` and the coset
+    inverse powers g^-i. With ``quotient = (b, c, t)`` the values are (evals
+    b - c) t, the coset quotient, which the kernel route reads in its first
+    pass (no buffer of them is written)."""
     if _plain(evals):
+        if coset_inv is None:
+            coset_inv = tables(evals.shape[-2], evals.device)["coset_inv"]
+        if quotient is not None:
+            evals = pointwise_plain(evals, quotient[2], *quotient[:2])
         return FR.mont_mul(inverse_plain(evals, tws, ninv), coset_inv)
-    return _stages(evals, _powers(tws, True), False, post=coset_inv,
-                   post_scalar=ninv)
+    ninv = _inverse_tables(evals, tws, ninv)[1]
+    return _passes(evals, _words(evals, "inv", tws), False,
+                   post=_words(evals, "coset_inv", coset_inv),
+                   post_scalar=ninv, quotient=quotient)

@@ -1,15 +1,16 @@
 """Wrappers of the H(X) kernels P4 and P5 (``csrc/fr_ntt.cu``).
 
-P4 (``stage``) is one radix-2 Fr NTT stage with its optional fused steps,
-P5 (``pointwise``) an element-wise Fr product or the coset quotient. They
-replace no ``pl.pallas_call``: the JAX package compiles the same steps
-into one XLA program (``tpu_zkpool/groth16/prove_tpu.py:_h_pipeline``,
-l.238; ``tpu_zkpool/groth16/domain.py:forward`` l.73, ``inverse`` l.91).
-Their plain versions are ``groth16.domain.stage_plain`` and
-``pointwise_plain``. Each wrapper:
+P4 (``fr_pass``) is a pass of up to ``MAX_PASS`` radix-2 Fr NTT stages in
+shared memory with its optional fused steps, P5 (``pointwise``) an
+element-wise Fr product or the coset quotient. They replace no
+``pl.pallas_call``: the JAX package compiles the same steps into one XLA
+program (``tpu_zkpool/groth16/prove_tpu.py:_h_pipeline``, l.239;
+``tpu_zkpool/groth16/domain.py:forward`` l.73, ``inverse`` l.91). Their
+plain versions are ``groth16.domain.pass_plain`` and ``pointwise_plain``.
+Each wrapper:
 
 - raises ``ValueError`` on either device for inputs of the wrong shape or
-  dtype (int64 limbs ``[..., 16]``);
+  dtype (int64 limbs ``[..., 16]``, P4's tables int32 words ``[..., 8]``);
 - sends a CPU tensor to the plain version;
 - on a CUDA tensor checks device and contiguity, allocates its output with
   ``torch.empty`` unless given one, launches on the current stream, raises
@@ -28,10 +29,12 @@ from tpu_zkpool_torch.groth16 import domain
 
 SOURCE = "fr_ntt.cu"
 MAX_LOG_N = 28                 # csrc/fr_ntt.cu:kFrMaxLogN (Fr - 1 = 2^28 odd)
+MAX_PASS = 11                  # csrc/fr_ntt.cu:kFrTileLog, stages a pass
+WORDS = NLIMB // 2             # words of a packed table value
 
 # Launches since the last reset (a path's evidence that it ran through the
 # kernels).
-LAUNCHES = {"fr_stage": 0, "fr_pointwise": 0}
+LAUNCHES = {"fr_pass": 0, "fr_pointwise": 0}
 
 _lib = None
 
@@ -52,37 +55,43 @@ def _load():
     if _lib is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _lib = cuda_build.load(SOURCE, {
-            "fr_stage": [P, P, P, P, P, P, L, I, I, I, I, P],
+            "fr_pass": [P] * 9 + [L, I, I, I, I, I, P],
             "fr_pointwise": [P, P, P, P, P, L, P]})
     return _lib
 
 
-def _limbs(x, name, what, shape=None):
-    """Raise unless ``x`` is int64 ``[..., 16]`` (of ``shape`` if given)."""
-    if x.dim() < 1 or x.shape[-1] != NLIMB or (
+def _limbs(x, name, what, shape=None, dtype=torch.int64, width=NLIMB):
+    """Raise unless ``x`` is ``dtype`` ``[..., width]`` (of ``shape`` if
+    given): int64 limbs by default, P4's tables int32 words."""
+    if x.dim() < 1 or x.shape[-1] != width or (
             shape is not None and tuple(x.shape) != tuple(shape)):
-        want = f"{tuple(shape)}" if shape is not None else "(..., 16)"
-        raise ValueError(f"{name}: {what} must be {want} limbs, got "
+        want = f"{tuple(shape)}" if shape is not None else f"(..., {width})"
+        kind = "limbs" if width == NLIMB else "words"
+        raise ValueError(f"{name}: {what} must be {want} {kind}, got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.int64:
-        raise ValueError(f"{name}: {what} must be int64 limbs, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: {what} must be {dtype}, got {x.dtype}")
 
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def stage(y, pw, h: int, dif: bool, *, pre=None, bitrev: bool = False,
-          post=None, post_scalar=None, out=None):
-    """P4: one radix-2 stage of half-width ``h`` over int64[..., n, 16]
-    Montgomery values (axis -2), twiddle k of the stage ``pw[k n / 2h]``
-    from the direction's power table ``pw`` (n/2, 16); ``dif`` picks the
-    forward (DIF) butterfly, else the inverse (DIT) one. The fused steps
-    (``stage_plain``): ``bitrev`` reads the input in bit-reversed order,
-    ``pre`` (n, 16) multiplies the inputs, ``post`` (n, 16) and
-    ``post_scalar`` (16,) the outputs. ``out`` may be ``y`` itself (an
-    in-place stage) unless ``bitrev``."""
-    name = "fr_stage"
+def fr_pass(y, pw, h_first: int, count: int, dif: bool, *, pre=None,
+            bitrev: bool = False, post=None, post_scalar=None,
+            quotient=None, out=None):
+    """P4: ``count`` radix-2 stages over int64[..., n, 16] Montgomery values
+    (axis -2) from half-width ``h_first``, halving (``dif``, the forward
+    butterfly) or doubling (the inverse one), in one launch; twiddle k of a
+    stage of half-width h is ``pw[k n / 2h]`` of the direction's packed
+    power table ``pw`` int32 (n/2, 8). The fused steps (``pass_plain``):
+    ``bitrev`` reads the input in bit-reversed order, ``quotient = (b, c,
+    t)`` (b, c shaped as ``y``, t (16,)) turns the values read into (y b -
+    c) t, ``pre`` int32 (n, 8) multiplies the first stage's inputs,
+    ``post`` int32 (n, 8) and ``post_scalar`` (16,) the last stage's
+    outputs. ``out`` may be ``y`` itself (an in-place pass) unless
+    ``bitrev``."""
+    name = "fr_pass"
     _limbs(y, name, "values")
     if y.dim() < 2:
         raise ValueError(f"{name}: values must be (..., n, 16), got "
@@ -91,35 +100,47 @@ def stage(y, pw, h: int, dif: bool, *, pre=None, bitrev: bool = False,
     if n < 2 or n & (n - 1) or n > 1 << MAX_LOG_N:
         raise ValueError(f"{name}: n must be a power of two in [2, 2^28], "
                          f"got {n}")
-    if h < 1 or h & (h - 1) or h > n // 2:
-        raise ValueError(f"{name}: h must be a power of two in [1, n/2], "
-                         f"got {h}")
-    _limbs(pw, name, "the power table", (n // 2, NLIMB))
+    if not 1 <= count <= MAX_PASS:
+        raise ValueError(f"{name}: count must be in [1, {MAX_PASS}], got "
+                         f"{count}")
+    domain.pass_half_widths(n, h_first, count, dif)
+    _limbs(pw, name, "the power table", (n // 2, WORDS), torch.int32, WORDS)
     for t, what in ((pre, "pre"), (post, "post")):
         if t is not None:
-            _limbs(t, name, what, (n, NLIMB))
+            _limbs(t, name, what, (n, WORDS), torch.int32, WORDS)
     if post_scalar is not None:
         _limbs(post_scalar, name, "post_scalar", (NLIMB,))
+    qb = qc = qt = None
+    if quotient is not None:
+        qb, qc, qt = quotient
+        _limbs(qb, name, "the quotient's b", y.shape)
+        _limbs(qc, name, "the quotient's c", y.shape)
+        _limbs(qt, name, "the quotient's t", (NLIMB,))
     if out is not None:
         _limbs(out, name, "out", y.shape)
         if bitrev and out.data_ptr() == y.data_ptr():
             raise ValueError(f"{name}: a bit-reversed read runs out of place")
     if y.device.type == "cpu":
-        res = domain.stage_plain(y, pw[:: n // (2 * h)], dif, pre=pre,
-                                 bitrev=bitrev, post=post,
-                                 post_scalar=post_scalar)
+        res = domain.pass_plain(y, pw, h_first, count, dif, pre=pre,
+                                bitrev=bitrev, post=post,
+                                post_scalar=post_scalar, quotient=quotient)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(y, memory_format=torch.contiguous_format)
-    ts = [t for t in (y, out, pw, pre, post, post_scalar) if t is not None]
-    cuda_build.check_tensors(name, *ts)
+    cuda_build.check_tensors(name, *[t for t in (
+        y, out, post_scalar, qb, qc, qt) if t is not None])
+    words = [t for t in (pw, pre, post) if t is not None]
+    cuda_build.check_tensors(name, *words, dtype=torch.int32)
+    if any(t.device != y.device for t in words):
+        raise ValueError(f"{name}: the tables must be on {y.device}")
     if y.numel() == 0:
         return out
-    cuda_build.launch(LAUNCHES, name, y.device, _load().fr_stage,
+    cuda_build.launch(LAUNCHES, name, y.device, _load().fr_pass,
                       y.data_ptr(), out.data_ptr(), pw.data_ptr(), _ptr(pre),
-                      _ptr(post), _ptr(post_scalar), y.numel() // (n * NLIMB),
-                      n.bit_length() - 1, h.bit_length() - 1, int(dif),
-                      int(bitrev))
+                      _ptr(post), _ptr(post_scalar), _ptr(qb), _ptr(qc),
+                      _ptr(qt), y.numel() // (n * NLIMB),
+                      n.bit_length() - 1, h_first.bit_length() - 1, count,
+                      int(dif), int(bitrev))
     return out
 
 

@@ -4,12 +4,13 @@
 The four G1 legs (A, B1, K, H) and the G2 leg (B2) run through the grid
 Pippenger MSM (``msm.grid``, CUDA kernels K1-K6, and K8 for the G1 legs
 with ``tree=True``); H(X) = (UV - W)/t runs through the Fr NTT
-(``groth16.domain``: one P4 launch a stage) and the element-wise steps of
-P5 (``groth16.ntt_kernels``). The U/V/W row evaluations are host
-work in C++ (``solver_native.eval_rows_native`` over ``native/witness.cpp``),
-the witness and the K-leg scalars are packed by
-``solver_native.ints_to_u64x4``, and the final combine into (A, B2, C) is
-host bigint code. A proof equals
+(``groth16.domain``: P4 passes of up to 11 stages, the coset quotient and
+the demont step fused into the coset inverse's passes) and P5's
+Montgomery step of the evaluations (``groth16.ntt_kernels``). The U/V/W
+row evaluations are host work in C++ (``solver_native.eval_rows_native``
+over ``native/witness.cpp``), the witness and the K-leg scalars are packed
+by ``solver_native.ints_to_u64x4``, and the final combine into (A, B2, C)
+is host bigint code. A proof equals
 ``tpu_zkpool.refimpl.groth16_ref.prove`` on the same inputs and seed.
 """
 
@@ -229,14 +230,13 @@ def _h_pipeline(evs, tinv, tables, demont):
 
 
 def _h_finish(a_ev, b_ev, c_ev, tinv, tables, demont):
-    """(A B - C) t^-1 on the coset (P5), the coset inverse NTT, and the
-    demont step mont_mul(h R, 1) = h (P5 in place)."""
-    h_ev = nk.pointwise(a_ev, tinv, b_ev, c_ev)
-    h_m = domain.coset_inverse(h_ev, tables["coset_inv"], tables["inv"],
-                               tables["ninv"])
-    if demont:
-        h_m = nk.pointwise(h_m, tables["one"], out=h_m)
-    return h_m
+    """(A B - C) t^-1 on the coset, read by the coset inverse NTT itself
+    (its first P4 pass on the kernel route), and with ``demont`` the step
+    mont_mul(h R, 1) = h folded into its n^-1: mont_mul(x, n^-1) =
+    mont_mul(mont_mul(x, n^-1 R), 1)."""
+    ninv = tables["ninv_demont"] if demont else tables["ninv"]
+    return domain.coset_inverse(a_ev, tables["coset_inv"], tables["inv"],
+                                ninv, quotient=(b_ev, c_ev, tinv))
 
 
 # Above this domain size the H pipeline runs one polynomial at a time
