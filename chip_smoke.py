@@ -3797,7 +3797,7 @@ def _pass_chains(inp, h_first, cmax, dif):
         y, b, c = ((t[..., perm, :] for t in (inp.y, inp.qb, inp.qc)) if br
                    else (inp.y, inp.qb, inp.qc))
         if q:
-            y = domain.pointwise_plain(y, inp.qt, b, c)
+            y = domain.quotient_plain(y, b, c, inp.qt)
         if pre:
             y = FR.mont_mul(y, inp.tabs[0])
         starts.append(y)
@@ -3827,8 +3827,9 @@ def check_fr_ntt(device, small=FR_SMALL, Ps=(1, 3), row=FR_ROW, big=FR_BIG,
     plan's passes in each direction, plain and in the prover's fused modes,
     and count = 1 at h = n/2 and 1; at n = 2^big, P = 1, a whole two-pass
     ``domain.forward`` and ``inverse`` against ``forward_plain`` and
-    ``inverse_plain``; P5 against FieldCtx's products in each mode (R^2,
-    1, the quotient; in place; a ragged count). Returns {(name, n, case):
+    ``inverse_plain``; P5 against FieldCtx's products by R^2 and by 1, out
+    of place and in place, at the proof's 3 x 2^14 values and a ragged
+    count. Returns {(name, n, case):
     max |err|}, P4's launches and the launches the cases make (one a pass,
     a plan's a transform)."""
     errs = {}
@@ -3854,7 +3855,8 @@ def check_fr_ntt(device, small=FR_SMALL, Ps=(1, 3), row=FR_ROW, big=FR_BIG,
                             want_launches += 1
     n, P = 1 << row, max(Ps)
     inp = _PassInputs(P, n, device, seed + row)
-    plan = domain.pass_plan(row)
+    tile = nkern.max_pass(device)
+    plan = domain.pass_plan(row, tile)
     for dif in (True, False):
         cases, bit = [], row if dif else 0
         for p, count in enumerate(plan):
@@ -3877,24 +3879,20 @@ def check_fr_ntt(device, small=FR_SMALL, Ps=(1, 3), row=FR_ROW, big=FR_BIG,
         want = plain(yb)
         errs[("fr_pass", 1 << big, (name, 1, "transform"))] = _max_err(
             fn(yb), want)
-        want_launches += len(domain.pass_plan(big))
+        want_launches += len(domain.pass_plan(big, tile))
         del want
     pass_launches = nkern.LAUNCHES["fr_pass"]
     r2 = torch.as_tensor(ints_to_limbs(FR.r2_mod_p), device=device)
     one = torch.as_tensor(ints_to_limbs(1), device=device)
     for N in (3 << FR_ROW, 1000):
-        a, b, c = fr_planted((3, N), device, seed + 300 + N)
-        s = fr_planted((), device, seed + 302, share=1)
-        cases = {"R^2": (a, r2, None, None, FR.mont_mul(a, r2)),
-                 "1": (a, one, None, None, FR.mont_mul(a, one)),
-                 "quotient": (a, s, b, c, FR.mont_mul(
-                     FR.sub(FR.mont_mul(a, b), c), s))}
-        for mode, (x, t, bb, cc, want) in cases.items():
+        a = fr_planted((N,), device, seed + 300 + N)
+        for mode, t in (("R^2", r2), ("1", one)):
+            want = FR.mont_mul(a, t)
             errs[("fr_pointwise", N, mode)] = _max_err(
-                nkern.pointwise(x, t, bb, cc), want)
-            x2 = x.clone()
+                nkern.pointwise(a, t), want)
+            x2 = a.clone()
             errs[("fr_pointwise", N, mode + ", in place")] = _max_err(
-                nkern.pointwise(x2, t, bb, cc, out=x2), want)
+                nkern.pointwise(x2, t, out=x2), want)
     return errs, pass_launches, want_launches
 
 
@@ -3917,11 +3915,13 @@ def fr_pass_bound(P, log_n, h_first, count, dif, clock_hz, products=0,
                                        else "bytes")
 
 
-def fr_transform_bound(P, log_n, dif, clock_hz, first=None, last=None):
-    """(bound ms, bound_by) of a transform through ``pass_plan``'s passes:
-    the sum of ``fr_pass_bound`` over them, ``first`` / ``last`` the fused
-    keywords of its first / last pass; bound_by the larger part's."""
-    plan, bit = domain.pass_plan(log_n), log_n if dif else 0
+def fr_transform_bound(P, log_n, dif, clock_hz, plan, first=None,
+                       last=None):
+    """(bound ms, bound_by) of a transform through the passes of ``plan``
+    (``pass_plan``'s): the sum of ``fr_pass_bound`` over them, ``first`` /
+    ``last`` the fused keywords of its first / last pass; bound_by the
+    larger part's."""
+    bit = log_n if dif else 0
     total, by = 0.0, {}
     for p, count in enumerate(plan):
         kw = {}
@@ -3936,12 +3936,11 @@ def fr_transform_bound(P, log_n, dif, clock_hz, first=None, last=None):
     return total, max(by, key=by.get)
 
 
-def fr_pointwise_bound(N, clock_hz, quotient):
-    """(bound ms, bound_by) of one P5 launch over N values: a (and b, c)
-    read once, the output written once, one product (two with the
-    quotient) a value."""
-    nbytes = ((4 if quotient else 2) * N + 1) * 128
-    madds = N * (2 if quotient else 1) * MADDS_PER_FP_MUL
+def fr_pointwise_bound(N, clock_hz):
+    """(bound ms, bound_by) of one P5 launch over N values: a and t read
+    once, the output written once, one product a value."""
+    nbytes = (2 * N + 1) * 128
+    madds = N * MADDS_PER_FP_MUL
     ops_s = madds / (INT32_LANES * clock_hz)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
@@ -3985,7 +3984,7 @@ def fr_transforms(t, y, quotient=None):
                                          t["ninv_demont"],
                                          quotient=(b, c, tq)),
             lambda: FR.mont_mul(domain.inverse_plain(
-                domain.pointwise_plain(y, tq, b, c), t["inv"],
+                domain.quotient_plain(y, b, c, tq), t["inv"],
                 t["ninv_demont"]), t["coset_inv"]),
             dict(quotient=True), dict(products=2, tables=1), False)}
 
@@ -3999,13 +3998,14 @@ def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
     each of the prover's transforms (``fr_transforms``) at n = 2^14, P = 3
     (the row: the forward transform, ``pass_plan``'s 2 launches), the
     forward and the coset inverse at n = 2^21, P = 1, and the two passes of
-    the 2^21 forward transform alone. P5: the quotient over n = 2^14, the
-    Montgomery step of the 3 n evaluations (its one launch a proof since
-    the passes took the quotient and the demont step), and the quotient at
-    2^21."""
+    the 2^21 forward transform alone. P5 (the row): the R^2 step of the
+    3 n evaluations, its one launch a proof since the passes took the
+    quotient and the demont step."""
     rows = {}
+    tile = nkern.max_pass(device)
     for lg, p, r in ((log_n, P, reps), (big, 1, max(reps // 5, 3))):
         n = 1 << lg
+        plan = domain.pass_plan(lg, tile)
         t = domain.tables(n, device)
         y, b, c = (random_mont((p, n), device, seed + i) for i in range(3))
         tq = random_mont((), device, seed + 3)
@@ -4018,13 +4018,14 @@ def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
             pms, want = _host_ms(plain, 1 if lg == big else 3)
             row = rows[f"{name} 2^{lg}"] = _fr_row(
                 ms, got, want, f"{name}, n=2^{lg}, P={p}, "
-                f"{len(domain.pass_plan(lg))} passes",
-                fr_transform_bound(p, lg, dif, clock_hz, first, last), pms)
+                f"{len(plan)} passes",
+                fr_transform_bound(p, lg, dif, clock_hz, plan, first, last),
+                pms)
             del got, want
             row["graph_ms"] = _graph_ms(fn, r)[0]
         if lg == big:              # each pass of the forward transform alone
             bit = lg
-            for count in domain.pass_plan(lg):
+            for count in plan:
                 h = 1 << (bit - 1)
                 def one():
                     return nkern.fr_pass(y, t["words"]["fwd"], h, count, True)
@@ -4043,34 +4044,14 @@ def time_fr_ntt(device, clock_hz, log_n=FR_ROW, P=3, big=FR_BIG, reps=50,
     fpass = dict(rows.pop(key), modes=rows)
     n = 1 << log_n
     y = random_mont((P, n), device, seed + 5)
-    tinv = random_mont((), device, seed + 6)
-    pms, want = _host_ms(lambda: domain.pointwise_plain(y[0], tinv, y[1],
-                                                        y[2]), 3)
-    def quotient():
-        return nkern.pointwise(y[0], tinv, y[1], y[2])
-    ms, got = _cuda_ms(quotient, reps)
-    pointwise = _fr_row(ms, got, want, f"quotient, n=2^{log_n}",
-                        fr_pointwise_bound(n, clock_hz, True), pms)
-    pointwise["graph_ms"] = _graph_ms(quotient, reps)[0]
-    pointwise["modes"] = {}
     r2 = torch.as_tensor(ints_to_limbs(FR.r2_mod_p), device=device)
     pms, want = _host_ms(lambda: domain.pointwise_plain(y, r2), 3)
     def mont():
         return nkern.pointwise(y, r2)
     ms, got = _cuda_ms(mont, reps)
-    pointwise["modes"]["R^2"] = _fr_row(
-        ms, got, want, f"times R^2, 3 x 2^{log_n}",
-        fr_pointwise_bound(P * n, clock_hz, False), pms)
-    pointwise["modes"]["R^2"]["graph_ms"] = _graph_ms(mont, reps)[0]
-    nb = 1 << big
-    ab = random_mont((3, nb), device, seed + 4)
-    pms, want = _host_ms(lambda: domain.pointwise_plain(ab[0], tinv, ab[1],
-                                                        ab[2]))
-    ms, got = _cuda_ms(lambda: nkern.pointwise(ab[0], tinv, ab[1], ab[2]),
-                       max(reps // 5, 3))
-    pointwise["modes"][f"quotient 2^{big}"] = _fr_row(
-        ms, got, want, f"quotient, n=2^{big}",
-        fr_pointwise_bound(nb, clock_hz, True), pms)
+    pointwise = _fr_row(ms, got, want, f"times R^2, {P} x 2^{log_n}",
+                        fr_pointwise_bound(P * n, clock_hz), pms)
+    pointwise["graph_ms"] = _graph_ms(mont, reps)[0]
     return {("fr_pass", FR_ROW): fpass, ("fr_pointwise", FR_ROW): pointwise}
 
 
@@ -4078,7 +4059,7 @@ def h_pipeline_plain(evs, tinv, t, demont):
     """The H(X) pipeline on the plain forms (the kernels' twins), one
     polynomial at a time: the bit-reversed gather and ``inverse_plain``,
     the coset powers and ``forward_plain``, the quotient
-    (``pointwise_plain``), ``inverse_plain`` and the coset inverse powers,
+    (``quotient_plain``), ``inverse_plain`` and the coset inverse powers,
     and the demont step."""
     def on_coset(ev):
         coeffs = domain.inverse_plain(ev[..., t["br"], :], t["inv"],
@@ -4086,7 +4067,7 @@ def h_pipeline_plain(evs, tinv, t, demont):
         return domain.forward_plain(FR.mont_mul(coeffs, t["coset"]),
                                     t["fwd"])
     a, b, c = (on_coset(evs[i]) for i in range(3))
-    h_ev = domain.pointwise_plain(a, tinv, b, c)
+    h_ev = domain.quotient_plain(a, b, c, tinv)
     del a, b, c
     h = FR.mont_mul(domain.inverse_plain(h_ev, t["inv"], t["ninv"]),
                     t["coset_inv"])
@@ -4572,7 +4553,8 @@ def main(argv):
                              f"than P4 and P5: {info['h_ntt']}")
     # three transforms of pass_plan's passes, and P5's R^2 step, a proof
     h_launches = dict(fr_pass=3 * len(domain.pass_plan(
-        info["legs"]["n"].bit_length() - 1)), fr_pointwise=1)
+        info["legs"]["n"].bit_length() - 1, nkern.max_pass(device))),
+        fr_pointwise=1)
     if any(info["launches_per_proof"][k] != v for k, v in h_launches.items()):
         raise AssertionError(f"P4 / P5 launches a proof other than "
                              f"{h_launches}: {info['launches_per_proof']}")

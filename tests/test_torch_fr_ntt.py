@@ -20,8 +20,8 @@ the kernels built with g++ against the plain forms.
   folded demont scalar and the coset inverse powers, all together and in
   place, with 0, 1 and r - 1 planted in the values and the tables, equals
   ``pass_plain`` (the count = 1 cases are the stages of ``stage_plain``);
-  P5 in each mode equals FieldCtx. It skips without g++. Exact integers:
-  the tolerance is zero.
+  P5, out of place and in place, equals FieldCtx. It skips without g++.
+  Exact integers: the tolerance is zero.
 
 CPU parity proves the algorithm, not the CUDA build: ``chip_smoke.py``
 phase 2 holds the kernels to the same plain forms on the card.
@@ -106,8 +106,8 @@ def test_stage_plan_matches_jax(n, fn, monkeypatch):
     x, want = _jax_ntt(n)
     monkeypatch.setattr(td, "_plain", lambda t: False)
     for max_pass, passes in ((11, 1), (3, 2)):
-        monkeypatch.setattr(nk, "MAX_PASS", max_pass)
-        assert len(td.pass_plan(n.bit_length() - 1)) == passes
+        monkeypatch.setattr(nk, "max_pass", lambda device: max_pass)
+        assert len(td.pass_plan(n.bit_length() - 1, max_pass)) == passes
         _same(want[fn], getattr(td, fn)(x))
 
 
@@ -118,7 +118,7 @@ def test_h_pipeline_on_stage_plan_matches_jax(demont, monkeypatch):
     the coset inverse's first pass, the demont step folded into its n^-1)
     against JAX's jitted ``_h_pipeline`` at n = 16 and 64, and both
     pipelines of the port."""
-    monkeypatch.setattr(nk, "MAX_PASS", 3)
+    monkeypatch.setattr(nk, "max_pass", lambda device: 3)
     for n in (16, 64):
         evs = _vals((3, n), 77 + n)
         tinv = _vals((), 78, planted=0)
@@ -215,7 +215,7 @@ int main() {
   // pass:      0, P, log_n, log_h, count, dif, bitrev, pre, post, scalar,
   //            quotient, inplace, then y, pw words, [pre words],
   //            [post words], [post_scalar], [b, c, t]
-  // pointwise: 1, N, quotient, then a, [b, c], t
+  // pointwise: 1, N, in place, then a, t
   while (fread(&kind, 8, 1, stdin) == 1) {
     if (kind == 0) {
       const std::vector<int64_t> h = rd(11);
@@ -258,15 +258,10 @@ int main() {
       const std::vector<int64_t> h = rd(2);
       const long long N = h[0];
       const std::vector<int64_t> A = rd(N * 16);
-      std::vector<int64_t> B, C;
-      if (h[1]) {
-        B = rd(N * 16);
-        C = rd(N * 16);
-      }
       const std::vector<int64_t> T = rd(16);
       std::vector<int64_t> out(N * 16, -7);
-      g_point = FrPointwiseArgs{A.data(), h[1] ? B.data() : nullptr,
-                                h[1] ? C.data() : nullptr, T.data(),
+      if (h[1]) out = A;
+      g_point = FrPointwiseArgs{h[1] ? out.data() : A.data(), T.data(),
                                 out.data(), N};
       for (long long b = 0; b < (N + kFrBlock - 1) / kFrBlock; ++b) {
         blockIdx.x = (unsigned)b;
@@ -375,19 +370,44 @@ def test_host_stage_matches_stage_plain(host_fr, log_n, dif):
         assert (got == want.numpy()).all(), key
 
 
-@pytest.mark.parametrize("quotient", [False, True])
+@pytest.mark.parametrize("in_place", [False, True])
 @pytest.mark.parametrize("shape", [(3, 8), (3, 300)])
-def test_host_pointwise_matches_fieldctx(host_fr, shape, quotient):
+def test_host_pointwise_matches_fieldctx(host_fr, shape, in_place):
     """P5's host build and ``pointwise_plain`` against FieldCtx's own
-    products: ``a t`` and ``(a b - c) t`` over 24 and 900 elements (the
-    latter four blocks, the last one ragged)."""
-    a, b, c = _vals((3,) + shape, 60 + shape[1] + quotient)
+    product ``a t`` over 24 and 900 elements (the latter four blocks, the
+    last one ragged), out of place and in place (``out`` is ``a``, as the
+    prover's R^2 step runs it)."""
+    a = _vals(shape, 60 + shape[1] + in_place)
     t = _vals((), 70 + shape[1])
-    x = FR.sub(FR.mont_mul(a, b), c) if quotient else a
-    want = FR.mont_mul(x, t)
-    args = (b, c) if quotient else ()
-    assert torch.equal(td.pointwise_plain(a, t, *args), want)
-    head = np.array([1, a.numel() // 16, int(quotient)])
-    parts = [head, a.numpy()] + [v.numpy() for v in args] + [t.numpy()]
-    got, = _run(host_fr, [(shape + (16,), parts)])
+    want = FR.mont_mul(a, t)
+    assert torch.equal(td.pointwise_plain(a, t), want)
+    assert torch.equal(nk.pointwise(a.clone(), t), want)
+    head = np.array([1, a.numel() // 16, int(in_place)])
+    got, = _run(host_fr, [(shape + (16,), [head, a.numpy(), t.numpy()])])
     assert (got == want.numpy()).all()
+
+
+def test_kernel_route_takes_only_its_own_tables(monkeypatch):
+    """The kernel route reads the packed words ``tables`` made once: a
+    table of the caller's that is not the tables' own entry raises rather
+    than being packed anew on every call; a quotient needs a transform's
+    first pass, so n = 1 raises on both routes."""
+    monkeypatch.setattr(td, "_plain", lambda t: False)
+    monkeypatch.setattr(nk, "max_pass", lambda device: 3)
+    x = _vals((2, 16), 9)
+    t = td.tables(16, "cpu")
+    assert torch.equal(td.forward(x, t["fwd"]), td.forward_plain(x))
+    copies = dict(fwd=tuple(w.clone() for w in t["fwd"]),
+                  inv=tuple(w.clone() for w in t["inv"]),
+                  coset=t["coset"].clone(), coset_inv=t["coset_inv"].clone())
+    for call in (lambda: td.forward(x, copies["fwd"]),
+                 lambda: td.inverse(x, copies["inv"]),
+                 lambda: td.coset_forward(x, copies["coset"]),
+                 lambda: td.coset_inverse(x, copies["coset_inv"])):
+        with pytest.raises(ValueError, match="own tables"):
+            call()
+    one = _vals((2, 1), 10)
+    for plain in (False, True):
+        monkeypatch.setattr(td, "_plain", lambda t: plain)
+        with pytest.raises(ValueError, match="n >= 2"):
+            td.coset_inverse(one, quotient=(one, one, one[0, 0]))

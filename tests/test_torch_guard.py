@@ -477,7 +477,7 @@ def test_fr_ntt_wrappers_reject_bad_inputs():
         nk.fr_pass(meta, pw, 1, 3, False, pre=tab, post=tab,
                    post_scalar=meta[0, 0], quotient=(meta, meta, meta[0, 0]))
     with pytest.raises(ValueError, match="CUDA"):
-        nk.pointwise(meta, meta[0, 0], meta, meta)
+        nk.pointwise(meta, meta[0, 0], out=meta)
     for fn in ("forward", "inverse", "interpolate_natural", "coset_forward",
                "coset_inverse"):
         with pytest.raises(ValueError, match="CUDA"):
@@ -492,7 +492,7 @@ def test_fr_ntt_wrappers_reject_bad_inputs():
            (lambda: nk.fr_pass(meta, pw, 2, 3, False), "does not fit"),
            (lambda: nk.fr_pass(meta, pw, 3, 1, False), "does not fit"),
            (lambda: nk.fr_pass(meta, pw, 1, 0, True), "count"),
-           (lambda: nk.fr_pass(meta, pw, 1, 12, True), "count"),
+           (lambda: nk.fr_pass(meta, pw, 1, 12, True), "does not fit"),
            (lambda: nk.fr_pass(meta, pw[:2], 2, 1, True), "power table"),
            (lambda: nk.fr_pass(meta, pw.long(), 2, 1, True), "int32"),
            (lambda: nk.fr_pass(meta, pw, 2, 1, True, pre=pw), "pre"),
@@ -504,9 +504,8 @@ def test_fr_ntt_wrappers_reject_bad_inputs():
            (lambda: nk.fr_pass(meta, pw, 1, 1, False, bitrev=True, out=meta),
             "out of place"),
            (lambda: nk.pointwise(meta, meta[0, :5]), "t must"),
-           (lambda: nk.pointwise(meta, meta[0, 0], meta), "together"),
-           (lambda: nk.pointwise(meta, meta[0, 0], meta[:2], meta[:2]),
-            "b must"),
+           (lambda: nk.pointwise(meta, meta[0, 0], out=meta[:2]),
+            "out must"),
            (lambda: nk.pointwise(meta, meta[0, 0].int()), "int64")]
     for call, match in bad:
         with pytest.raises(ValueError, match=match):

@@ -80,9 +80,9 @@ def test_fr_ntt_kernels_equal_plain_versions():
     # P4: every (h_first, count) of n = 2 .. 64 (56 passes), both
     # directions, x P = 1, 3 x 9 modes; at 2^12 the plan's 6 + 6 passes in
     # 3 DIF / 5 DIT fused modes and single stages at both ends (5 + 7
-    # cases); two whole 2^12 transforms of 2 passes; P5: 3 modes, each
-    # also in place, at 2 element counts
+    # cases); two whole 2^12 transforms of 2 passes; P5: times R^2 and 1,
+    # each also in place, at 2 element counts
     n_small = 56 * 2 * 2 * 9
-    assert len(errs) == n_small + 12 + 2 + 3 * 2 * 2
+    assert len(errs) == n_small + 12 + 2 + 2 * 2 * 2
     assert pass_launches == want_launches == n_small + 12 + 2 * 2
     assert not {k: v for k, v in errs.items() if v}

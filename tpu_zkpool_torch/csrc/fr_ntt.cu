@@ -35,12 +35,10 @@
 // give the limbs of the plain version's separate steps (groth16/domain.py
 // pass_plain: stage_plain `count` times).
 //
-// P5 k_fr_pointwise: per element of N, with t one value:
-//   mode mul       a t                 (R^2: into Montgomery form)
-//   mode quotient  (a b - c) t
-// (groth16/domain.py pointwise_plain). The pipeline's quotient and demont
-// step ride P4's passes; P5 is the R^2 step of the evaluations' upload and
-// a transform of n = 1.
+// P5 k_fr_pointwise: a t per element of N, t one value (groth16/domain.py
+// pointwise_plain): the R^2 step of the evaluations' upload, and the fused
+// products of a transform of n = 1, which has no stage. The pipeline's
+// quotient and demont step ride P4's passes.
 //
 // Bound. A transform of n = 2^L is ceil(L / 11) passes (groth16/domain.py
 // pass_plan: 2^21 11 + 10 stages, 2^14 7 + 7), each reading and writing
@@ -73,9 +71,10 @@
 // product-bound pass). Products are field.cuh's PTX carry-chain row, and
 // the pass asks for three blocks a SM (__launch_bounds__(kFrBlock, 3):
 // three tiles of 11 stages fit a SM's shared memory), which beat the C row
-// at two blocks a SM (PERF.md, PR 20). kFrTileLog is a compile-time
-// constant: the host build sets it small (-DZK_FR_TILE_LOG=3) so that tiny
-// transforms run as several passes.
+// at two blocks a SM (PERF.md). kFrTileLog is a compile-time constant,
+// which the library exports (fr_max_pass) for the pass plan: the host
+// build sets it small (-DZK_FR_TILE_LOG=3) so that tiny transforms run as
+// several passes.
 //
 // Interface: plain C, launched on the caller's stream
 // (tpu_zkpool_torch/groth16/ntt_kernels.py); returns cudaGetLastError().
@@ -96,7 +95,7 @@ namespace zk {
 
 constexpr int kFrBlock = 256;              // P5's block; P4's most threads
 constexpr int kFrMaxLogN = 28;             // Fr - 1 = 2^28 * odd
-constexpr int kFrTileLog = ZK_FR_TILE_LOG;  // most stages a pass
+constexpr int kFrTileLog = ZK_FR_TILE_LOG;  // most stages a pass (fr_max_pass)
 constexpr int kFrPad = 4;                  // words after each tile row
 constexpr int kFrMoves = 4;                // global moves in flight a thread
 // P4's dynamic shared words at most: the tile and the quotient's staging
@@ -120,8 +119,6 @@ struct FrPassArgs {
 
 struct FrPointwiseArgs {
   const int64_t* a;  // (N, 16)
-  const int64_t* b;  // (N, 16), null in mode mul
-  const int64_t* c;  // (N, 16), null in mode mul
   const int64_t* t;  // (16)
   int64_t* out;      // (N, 16); may be a
   long long N;
@@ -312,23 +309,14 @@ __global__ void __launch_bounds__(kFrBlock, 3)
 __global__ void __launch_bounds__(kFrBlock)
     k_fr_pointwise(const FrPointwiseArgs a) {
   constexpr int st = kFrBlock + kFrPad;
-  __shared__ uint32_t sa[8 * st], sb[8 * st], sc[8 * st];
+  __shared__ uint32_t sa[8 * st];
   const long long v0 = (long long)blockIdx.x * kFrBlock;
   const int m = a.N - v0 < kFrBlock ? (int)(a.N - v0) : kFrBlock;
   const FrPos pos{v0, 0, 1, 0};  // v0 | q: v0 is a multiple of kFrBlock
   tile_load(sa, st, a.a, pos, 0, m);
-  if (a.b) {
-    tile_load(sb, st, a.b, pos, 0, m);
-    tile_load(sc, st, a.c, pos, 0, m);
-  }
   __syncthreads();
   const int q = threadIdx.x;
-  if (q < m) {
-    Fr x = tile_get(sa, st, q);
-    if (a.b)
-      x = mont_sub(fr_pmul(x, tile_get(sb, st, q)), tile_get(sc, st, q));
-    tile_put(sa, st, q, fr_pmul(x, fr_load2(a.t)));
-  }
+  if (q < m) tile_put(sa, st, q, fr_pmul(tile_get(sa, st, q), fr_load2(a.t)));
   __syncthreads();
   tile_store(a.out, sa, st, pos, m);
 }
@@ -354,6 +342,9 @@ inline bool fr_pass_shape(const FrPassArgs& a, long long* blocks,
 }  // namespace zk
 
 extern "C" {
+
+// The most stages a P4 launch runs: the tile this library was built with.
+int fr_max_pass() { return zk::kFrTileLog; }
 
 // P4 over (P, n = 2^log_n, 16) values: `count` stages from half-width
 // 2^log_h of direction `dif`. pw, pre, post are packed words (8 a value);
@@ -388,14 +379,13 @@ int fr_pass(const int64_t* y, int64_t* out, const void* pw, const void* pre,
   return (int)cudaGetLastError();
 }
 
-// P5 over N values; b and c both null (mode mul) or both set (quotient).
-int fr_pointwise(const int64_t* a, const int64_t* b, const int64_t* c,
-                 const int64_t* t, int64_t* out, long long N, void* stream) {
-  if (N < 1 || (b == nullptr) != (c == nullptr))
-    return (int)cudaErrorInvalidValue;
+// P5 over N values: out = a t.
+int fr_pointwise(const int64_t* a, const int64_t* t, int64_t* out,
+                 long long N, void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
   const long long blocks = (N + zk::kFrBlock - 1) / zk::kFrBlock;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const zk::FrPointwiseArgs args{a, b, c, t, out, N};
+  const zk::FrPointwiseArgs args{a, t, out, N};
   zk::k_fr_pointwise<<<(unsigned)blocks, zk::kFrBlock, 0,
                        (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();

@@ -8,16 +8,17 @@ no bit-reversal pass between them; Fr - 1 = 2^28 * odd, generator 5.
 
 The public functions send a CPU tensor to the plain forms and any other to
 the kernels of ``csrc/fr_ntt.cu`` (``groth16.ntt_kernels``): a transform is
-the P4 passes of ``pass_plan`` (up to ``ntt_kernels.MAX_PASS`` stages a
-launch in shared memory), the coset powers, the bit-reversed read and the
+the P4 passes of ``pass_plan`` (up to ``ntt_kernels.max_pass`` stages a
+launch in shared memory, the built library's tile), reading the domain's
+own tables (``tables``), the coset powers, the bit-reversed read and the
 coset quotient fused into its first pass, the coset inverse powers and n^-1
 into its last (P5 only where a transform has no stage, n = 1). The kernel
 route raises on any failure; it never falls back. The plain forms run the
 butterflies limb-major (``FR.lm_*``) on whole stages at once:
 ``forward_plain``, ``inverse_plain``, one stage with P4's fused steps
-(``stage_plain``), a pass of them (``pass_plain``) and P5's element-wise
-products (``pointwise_plain``). The JAX package had no Pallas kernel here:
-XLA compiles its stages.
+(``stage_plain``), a pass of them (``pass_plain``), the coset quotient
+(``quotient_plain``) and P5's product (``pointwise_plain``). The JAX
+package had no Pallas kernel here: XLA compiles its stages.
 """
 
 from __future__ import annotations
@@ -233,8 +234,7 @@ def pass_plain(y, pw, h_first: int, count: int, dif: bool, pre=None,
             b, c, t = quotient
             quotient = (b[..., perm, :], c[..., perm, :], t)
     if quotient is not None:
-        b, c, t = quotient
-        y = pointwise_plain(y, t, b, c)
+        y = quotient_plain(y, *quotient)
     pw = unpack_limbs16(pw)
     pre, post = (None if x is None else unpack_limbs16(x) for x in (pre, post))
     for s, h in enumerate(hs):
@@ -246,11 +246,15 @@ def pass_plain(y, pw, h_first: int, count: int, dif: bool, pre=None,
     return y
 
 
-def pointwise_plain(a, t, b=None, c=None) -> torch.Tensor:
-    """P5's plain form: ``a t``, or ``(a b - c) t`` with ``b`` and ``c``
-    given; ``t`` one value (16,)."""
-    x = a if b is None else FR.sub(FR.mont_mul(a, b), c)
-    return FR.mont_mul(x, t).contiguous()
+def quotient_plain(y, b, c, t) -> torch.Tensor:
+    """The coset quotient (y b - c) t, ``t`` one value (16,): the plain
+    form of P4's quotient prologue."""
+    return FR.mont_mul(FR.sub(FR.mont_mul(y, b), c), t).contiguous()
+
+
+def pointwise_plain(a, t) -> torch.Tensor:
+    """P5's plain form: ``a t``, ``t`` one value (16,)."""
+    return FR.mont_mul(a, t).contiguous()
 
 
 # ---------------------------------------------------- the public functions
@@ -270,24 +274,22 @@ def _inverse_tables(y, tws, ninv):
 
 def _words(x, key, given):
     """The packed words P4 reads for table ``key`` (``fwd``, ``inv``: the
-    direction's power table; ``coset``, ``coset_inv``): the tables' own
-    copy when ``given`` is None or the tables' entry, else ``given`` packed
-    now (a power table from its stages: the stage of half-width n/2 holds
-    every power)."""
+    direction's power table; ``coset``, ``coset_inv``), packed once in
+    ``tables``. ``given``, a caller's table, must be None or the tables'
+    own entry: ``ValueError`` for any other."""
     t = tables(x.shape[-2], x.device)
-    if given is None or given is t[key]:
-        return t["words"][key]
-    if key in ("fwd", "inv"):
-        given = given[-1 if key == "inv" else 0].T
-    return pack_words(given)
+    if given is not None and given is not t[key]:
+        raise ValueError(f"the kernel route reads the domain's own tables "
+                         f"(domain.tables); {key} is another")
+    return t["words"][key]
 
 
-def pass_plan(log_n: int) -> list:
+def pass_plan(log_n: int, max_pass: int) -> list:
     """The stages of each P4 launch of a transform of 2^log_n values:
-    ceil(log_n / MAX_PASS) passes split as evenly as possible, the larger
-    first (2^21: 11 + 10, 2^14: 7 + 7)."""
-    from tpu_zkpool_torch.groth16 import ntt_kernels as nk
-    p = -(-log_n // nk.MAX_PASS)
+    ceil(log_n / max_pass) passes split as evenly as possible, the larger
+    first (a tile of 2^11: 2^21 11 + 10, 2^14 7 + 7). ``max_pass`` is the
+    kernel's tile, ``ntt_kernels.max_pass``."""
+    p = -(-log_n // max_pass)
     if p == 0:
         return []
     return [log_n // p + (i < log_n % p) for i in range(p)]
@@ -300,21 +302,21 @@ def _passes(x, pw, dif: bool, pre=None, bitrev=False, post=None,
     quotient with ``quotient``, times ``pre``), the others in place, the
     last with ``post`` and ``post_scalar``. DIF passes run from the top
     index bits down, DIT from the bottom up. At n = 1 there is no stage:
-    the products run through P5."""
+    the products run through P5 (``coset_inverse`` takes no quotient
+    there)."""
     from tpu_zkpool_torch.groth16 import ntt_kernels as nk
     n = x.shape[-2]
     x = x.contiguous()
     logn = n.bit_length() - 1
     if logn == 0:                   # each table holds one value
-        y = x.clone() if quotient is None else nk.pointwise(
-            x, quotient[2], quotient[0], quotient[1])
+        y = x.clone()
         for t in (pre, post):
             if t is not None:
                 y = nk.pointwise(y, unpack_limbs16(t).reshape(NLIMB), out=y)
         if post_scalar is not None:
             y = nk.pointwise(y, post_scalar, out=y)
         return y
-    plan = pass_plan(logn)
+    plan = pass_plan(logn, nk.max_pass(x.device))
     y, bit = x, logn if dif else 0
     for p, count in enumerate(plan):
         first, last = p == 0, p == len(plan) - 1
@@ -375,12 +377,15 @@ def coset_inverse(evals, coset_inv=None, tws=None, ninv=None, *,
     """Coefficients from values on the coset: ``inverse`` and the coset
     inverse powers g^-i. With ``quotient = (b, c, t)`` the values are (evals
     b - c) t, the coset quotient, which the kernel route reads in its first
-    pass (no buffer of them is written)."""
+    pass (no buffer of them is written); n must be 2 or more."""
+    if quotient is not None and evals.shape[-2] < 2:
+        raise ValueError("coset_inverse: a quotient needs n >= 2 (its "
+                         "prologue rides a transform's first pass)")
     if _plain(evals):
         if coset_inv is None:
             coset_inv = tables(evals.shape[-2], evals.device)["coset_inv"]
         if quotient is not None:
-            evals = pointwise_plain(evals, quotient[2], *quotient[:2])
+            evals = quotient_plain(evals, *quotient)
         return FR.mont_mul(inverse_plain(evals, tws, ninv), coset_inv)
     ninv = _inverse_tables(evals, tws, ninv)[1]
     return _passes(evals, _words(evals, "inv", tws), False,

@@ -1,8 +1,8 @@
 """Wrappers of the H(X) kernels P4 and P5 (``csrc/fr_ntt.cu``).
 
-P4 (``fr_pass``) is a pass of up to ``MAX_PASS`` radix-2 Fr NTT stages in
+P4 (``fr_pass``) is a pass of up to ``max_pass`` radix-2 Fr NTT stages in
 shared memory with its optional fused steps, P5 (``pointwise``) an
-element-wise Fr product or the coset quotient. They replace no
+element-wise Fr product by one value. They replace no
 ``pl.pallas_call``: the JAX package compiles the same steps into one XLA
 program (``tpu_zkpool/groth16/prove_tpu.py:_h_pipeline``, l.239;
 ``tpu_zkpool/groth16/domain.py:forward`` l.73, ``inverse`` l.91). Their
@@ -29,7 +29,6 @@ from tpu_zkpool_torch.groth16 import domain
 
 SOURCE = "fr_ntt.cu"
 MAX_LOG_N = 28                 # csrc/fr_ntt.cu:kFrMaxLogN (Fr - 1 = 2^28 odd)
-MAX_PASS = 11                  # csrc/fr_ntt.cu:kFrTileLog, stages a pass
 WORDS = NLIMB // 2             # words of a packed table value
 
 # Launches since the last reset (a path's evidence that it ran through the
@@ -37,6 +36,7 @@ WORDS = NLIMB // 2             # words of a packed table value
 LAUNCHES = {"fr_pass": 0, "fr_pointwise": 0}
 
 _lib = None
+_max_pass = None
 
 
 def reset_launches():
@@ -56,8 +56,21 @@ def _load():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _lib = cuda_build.load(SOURCE, {
             "fr_pass": [P] * 9 + [L, I, I, I, I, I, P],
-            "fr_pointwise": [P, P, P, P, P, L, P]})
+            "fr_pointwise": [P, P, P, L, P], "fr_max_pass": []})
     return _lib
+
+
+def max_pass(device) -> int:
+    """The most stages a P4 launch runs on ``device``: the tile the
+    library was built with (``csrc/fr_ntt.cu:kFrTileLog``), read once.
+    Raises ``ValueError`` off CUDA: the plain form has no tile."""
+    global _max_pass
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"fr_pass: tensors must be on a CUDA device, got "
+                         f"{device}")
+    if _max_pass is None:
+        _max_pass = _load().fr_max_pass()
+    return _max_pass
 
 
 def _limbs(x, name, what, shape=None, dtype=torch.int64, width=NLIMB):
@@ -100,9 +113,8 @@ def fr_pass(y, pw, h_first: int, count: int, dif: bool, *, pre=None,
     if n < 2 or n & (n - 1) or n > 1 << MAX_LOG_N:
         raise ValueError(f"{name}: n must be a power of two in [2, 2^28], "
                          f"got {n}")
-    if not 1 <= count <= MAX_PASS:
-        raise ValueError(f"{name}: count must be in [1, {MAX_PASS}], got "
-                         f"{count}")
+    if count < 1:
+        raise ValueError(f"{name}: count must be at least 1, got {count}")
     domain.pass_half_widths(n, h_first, count, dif)
     _limbs(pw, name, "the power table", (n // 2, WORDS), torch.int32, WORDS)
     for t, what in ((pre, "pre"), (post, "post")):
@@ -133,6 +145,9 @@ def fr_pass(y, pw, h_first: int, count: int, dif: bool, *, pre=None,
     cuda_build.check_tensors(name, *words, dtype=torch.int32)
     if any(t.device != y.device for t in words):
         raise ValueError(f"{name}: the tables must be on {y.device}")
+    if count > max_pass(y.device):
+        raise ValueError(f"{name}: count must be at most the tile's "
+                         f"{max_pass(y.device)} stages, got {count}")
     if y.numel() == 0:
         return out
     cuda_build.launch(LAUNCHES, name, y.device, _load().fr_pass,
@@ -144,29 +159,23 @@ def fr_pass(y, pw, h_first: int, count: int, dif: bool, *, pre=None,
     return out
 
 
-def pointwise(a, t, b=None, c=None, *, out=None):
-    """P5 over int64[..., 16] Montgomery values ``a``: ``a t`` (mode mul),
-    or ``(a b - c) t`` (the quotient) with ``b`` and ``c`` shaped as ``a``;
-    ``t`` is one value (16,). ``out`` may be ``a`` itself."""
+def pointwise(a, t, *, out=None):
+    """P5: ``a t`` over int64[..., 16] Montgomery values ``a``, ``t`` one
+    value (16,). ``out`` may be ``a`` itself."""
     name = "fr_pointwise"
     _limbs(a, name, "a")
     _limbs(t, name, "t", (NLIMB,))
-    if (b is None) != (c is None):
-        raise ValueError(f"{name}: b and c come together")
-    for x, what in ((b, "b"), (c, "c"), (out, "out")):
-        if x is not None:
-            _limbs(x, name, what, a.shape)
+    if out is not None:
+        _limbs(out, name, "out", a.shape)
     N = a.numel() // NLIMB
     if a.device.type == "cpu":
-        res = domain.pointwise_plain(a, t, b, c)
+        res = domain.pointwise_plain(a, t)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(a, memory_format=torch.contiguous_format)
-    ts = [x for x in (a, t, b, c, out) if x is not None]
-    cuda_build.check_tensors(name, *ts)
+    cuda_build.check_tensors(name, a, t, out)
     if N == 0:
         return out
     cuda_build.launch(LAUNCHES, name, a.device, _load().fr_pointwise,
-                      a.data_ptr(), _ptr(b), _ptr(c), t.data_ptr(),
-                      out.data_ptr(), N)
+                      a.data_ptr(), t.data_ptr(), out.data_ptr(), N)
     return out
