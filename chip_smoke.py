@@ -319,6 +319,7 @@ from tpu_zkpool_torch.rlwe import encrypt as renc
 from tpu_zkpool_torch.rlwe import ntt as rntt
 from tpu_zkpool_torch.rlwe import quotient
 from tpu_zkpool_torch.shamir import reconstruct_batch, share_batch
+from tpu_zkpool_torch.utils.profiling import kernel_launches, launch_line
 from tpu_zkpool_torch.webui import DemoApp, make_server, write_rlwe_dir
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2101,22 +2102,12 @@ def count_fieldctx(fn):
     return out, calls[0]
 
 
-def kernel_launches(fn):
-    """(output, {CUDA kernel name: launches of ``fn``}) by torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, {e.key: e.count for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
-
-
 def device_launches(fn):
-    """(output, CUDA kernel launches of ``fn`` by torch.profiler)."""
-    out, names = kernel_launches(fn)
-    return out, sum(names.values())
+    """(output, kernel launches of one call of ``fn``, its copy and fill
+    calls by name): ``profiling.kernel_launches``, the one count of every
+    launch figure here, which counts the host's launch calls."""
+    out, launches, _, copies = kernel_launches(fn)
+    return out, sum(launches.values()), copies
 
 
 def time_poseidon2(device, clock_hz, products, sponge, Bs=P3_TIMED_BS,
@@ -2129,7 +2120,7 @@ def time_poseidon2(device, clock_hz, products, sponge, Bs=P3_TIMED_BS,
     by CUDA events, beside the bound and the chain floor."""
     x = sponge["x"]
     B, n = x.shape[:2]
-    _, perm_launches = device_launches(
+    _, perm_launches, _ = device_launches(
         lambda: poseidon2.permutation_plain(x[:256, :4]))
     rows = {}
     for b in Bs:
@@ -2412,34 +2403,34 @@ def _affine_list(C, T):
 
 def _warm_call(fn, reps):
     """(warm ms by the host clock over ``reps`` synchronized calls, the
-    CUDA launches of one call by torch.profiler, the output), after one
-    unprofiled call that makes the first-use constants."""
+    kernel launches of one call and its copy and fill calls by
+    torch.profiler, the output), after one unprofiled call that makes the
+    first-use constants."""
     fn()
-    _, launches = device_launches(fn)
+    _, launches, copies = device_launches(fn)
     ms, out = _host_ms(fn, reps)
-    return ms, launches, out
+    return ms, launches, copies, out
 
 
-def _launch_line(step_fn):
-    """(base, a step): the CUDA launches of ``step_fn(k)``, a loop of k
-    steps of one shape whose op sequence does not depend on the data
-    (FieldCtx ops only), are base + k x step; from torch.profiler over 1
-    and 2 steps."""
-    one = device_launches(lambda: step_fn(1))[1]
-    two = device_launches(lambda: step_fn(2))[1]
-    return 2 * one - two, two - one
+def _launch_line(step_fn, n):
+    """({launch call: count}, {kernel: records}) of ``step_fn(n)``, a loop
+    of n steps of one shape whose op sequence does not depend on the data
+    (FieldCtx ops only), as base + n x step for each name, from
+    torch.profiler over 1 and 2 steps."""
+    one, two = (kernel_launches(lambda: step_fn(k))[1:3] for k in (1, 2))
+    return launch_line(one[0], two[0], n), launch_line(one[1], two[1], n)
 
 
 def _loop_call(step_fn, n):
-    """(warm ms of ``step_fn(n)`` by the host clock, its CUDA launches, its
-    output). The launches are extrapolated by ``_launch_line``, since
+    """(warm ms of ``step_fn(n)`` by the host clock, its kernel launches,
+    its output). The launches are extrapolated by ``_launch_line``, since
     profiling a loop of 10^5 launches takes seconds to minutes;
     ``pool_curves`` holds one keygen's line to a whole profile of a few
-    steps."""
+    steps, launch call by launch call."""
     step_fn(1)                        # first-use constants, unprofiled
-    base, step = _launch_line(step_fn)
+    launches = sum(_launch_line(step_fn, n)[0].values())
     ms, out = _host_ms(lambda: step_fn(n))
-    return ms, base + n * step, out
+    return ms, launches, out
 
 
 def pool_curves(device, B=POOL_B, seed=601):
@@ -2455,8 +2446,9 @@ def pool_curves(device, B=POOL_B, seed=601):
                                                           seed)
         for op, fn, want in (("add", lambda: C.add(P, Q), want_add),
                              ("double", lambda: C.double(Q), want_dbl)):
-            ms, launches, out = _warm_call(fn, 5)
-            info[f"{name}_{op}"] = dict(B=B, ms=ms, launches=launches)
+            ms, launches, copies, out = _warm_call(fn, 5)
+            info[f"{name}_{op}"] = dict(B=B, ms=ms, launches=launches,
+                                        copies=copies)
             checks[f"{name}_{op}"] = _affine_list(C, out) == [
                 w or (0, 0) for w in want]
         rng = random.Random(seed + nbits)
@@ -2491,15 +2483,25 @@ def pool_curves(device, B=POOL_B, seed=601):
                                           ms=ms, launches=launches)
         if b == B:       # the extrapolation against one whole profile
             k = KEYGEN_CHECK_WINDOWS
-            base, per = _launch_line(lambda n: tbl.mul(digits[:, :n]))
+            line, kernel_line = _launch_line(
+                lambda n: tbl.mul(digits[:, :n]), k)
             t0 = time.perf_counter()
-            row.update(check_windows=k, launches_line=base + k * per,
-                       launches_whole=device_launches(
-                           lambda: tbl.mul(digits[:, :k]))[1],
+            _, whole, kernels, copies = kernel_launches(
+                lambda: tbl.mul(digits[:, :k]))
+            # the card's kernel records beside the count: the profiler
+            # loses some, so they name a miss but do not decide it
+            row.update(check_windows=k, launches_line=line,
+                       launches_whole=whole, copies_whole=copies,
+                       kernel_records_whole=sum(kernels.values()),
+                       kernel_records_line_misses={
+                           kern: (kernel_line.get(kern, 0),
+                                  kernels.get(kern, 0))
+                           for kern in kernel_line.keys() | kernels
+                           if kernel_line.get(kern, 0)
+                           != kernels.get(kern, 0)},
                        whole_profile_s=time.perf_counter() - t0)
-            checks["keygen_launch_line"] = (row["launches_line"]
-                                            == row["launches_whole"])
-        step[b] = kernel_launches(lambda: tbl.mul(digits[:, :1]))[1]
+            checks["keygen_launch_line"] = line == whole
+        step[b] = kernel_launches(lambda: tbl.mul(digits[:, :1]))[2]
     # one window's kernels by name where B = 1 and B = 256 differ
     info["keygen_window_kernels_B1_B256"] = {
         k: (step[1].get(k, 0), step[B].get(k, 0))
@@ -4278,11 +4280,10 @@ def h_pipeline_check(device, n, seed=60, profile=True):
                     ms=ms, plain_ms=plain_ms)
         del want, got
         if profile:
-            _, names = kernel_launches(lambda: pipeline(ev, tinv, tables,
-                                                        True))
-            launched = {k: v for k, v in names.items()
-                        if not k.startswith(("Memcpy", "Memset"))}
-            info.update(profile={k[:60]: v for k, v in names.items()},
+            _, _, launched, copies = kernel_launches(
+                lambda: pipeline(ev, tinv, tables, True))
+            info.update(profile={k[:60]: v for k, v in
+                                 {**launched, **copies}.items()},
                         only_p4_p5=bool(launched) and all(
                             "k_fr_" in k for k in launched))
     return info
