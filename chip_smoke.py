@@ -4200,7 +4200,10 @@ def profile_prove(run):
     the device's own events, kernels and copies, is the busy time), each
     MSM kernel's device ms and launches, and the device events with the
     most time. ``all_rows_s`` sums every row, the torch ops' device time
-    too, which repeats their kernels' (an earlier, inflated busy count)."""
+    too, which repeats their kernels' (an earlier, inflated busy count).
+    The card's rows of the prover's spans (``utils.metrics.span``, user
+    annotations) are left out of both: a span's row times the work under
+    it, which the kernels' and copies' rows already count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4212,6 +4215,8 @@ def profile_prove(run):
         wall = time.perf_counter() - t0
     rows, all_us = [], 0
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            continue
         dev_us = e.self_device_time_total
         all_us += dev_us
         if dev_us > 0 and e.device_type == DeviceType.CUDA:

@@ -43,7 +43,7 @@ from tpu_zkpool_torch.protocol.state import (  # noqa: E402
 from tpu_zkpool_torch.protocol.audit_circuit import (  # noqa: E402
     ct_commitment_of)
 from tpu_zkpool_torch.refimpl import rlwe_ref  # noqa: E402
-from tpu_zkpool_torch.utils.profiling import StageTimer  # noqa: E402
+from tpu_zkpool_torch.utils.metrics import Metrics  # noqa: E402
 from tpu_zkpool_torch.webui.app import DEFAULT_RLWE_DIR  # noqa: E402
 
 
@@ -68,7 +68,7 @@ def main(argv=None):
     if os.path.exists(args.store):
         os.remove(args.store)
 
-    timer = StageTimer("demo")
+    timer = Metrics()
     store = stg.Store(args.store)
     tree = MerkleTree(device=args.device)
     pool = Pool(withdraw_verifier=lambda p, w: True,
@@ -77,7 +77,7 @@ def main(argv=None):
     relayer = Relayer(pool)
 
     banner("1. Deposit — identity keygen + note commitment + RLWE encrypt")
-    with timer.stage("deposit"):
+    with timer.timer("deposit"):
         ident = flows.Identity.generate()
         note = flows.Note(ident, amount=5_000_000,
                           randomness=secrets.randbits(200))
@@ -102,7 +102,7 @@ def main(argv=None):
     show(status("success", f"root age {age} (32-root window)"))
 
     banner("2. Relayed withdraw — audit tx then withdraw tx")
-    with timer.stage("withdraw"):
+    with timer.timer("withdraw"):
         wit = flows.build_withdraw_witness(
             tree, note, idx, recipient_pubkey=b"\x07" * 32,
             amount=note.amount)
@@ -129,7 +129,7 @@ def main(argv=None):
     for row in store.audit_logs():
         print(f"  #{row['id']}  nullifier {row['nullifier'][:18]}... "
               f"wa {row['wa_commitment'][:18]}...", flush=True)
-    with timer.stage("decrypt"):
+    with timer.timer("decrypt"):
         shares = []
         for i in (1, 2):
             with open(os.path.join(args.rlwe_dir, "rlwe_sk_shares",
@@ -149,7 +149,8 @@ def main(argv=None):
     show(status("success", "auditor recovered the depositor identity "
                 "exactly (owner_x/owner_y match)"))
 
-    timer.print_summary()
+    for name, t in timer.snapshot()["timings"].items():
+        print(f"[demo] {name}: {t['total_s']:.2f}s", flush=True)
     print("\nDEMO OK", flush=True)
 
 

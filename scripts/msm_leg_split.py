@@ -66,6 +66,7 @@ def traced(run):
     return wall, {e.key: (e.self_device_time_total / 1e3, e.count)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
                   and e.self_device_time_total > 0}
 
 

@@ -214,24 +214,27 @@ def test_metrics_registry():
     assert m.snapshot() == {"counters": {}, "timings": {}}
 
 
-def test_stage_timer_and_trace(tmp_path, monkeypatch, capsys):
-    t = profiling.StageTimer("pool")
-    with t.stage("a", verbose=False):
-        pass
-    with t.stage("b"):
-        pass
-    assert [n for n, _ in t.rows] == ["a", "b"]
-    assert "pool timing summary" in t.summary() and "TOTAL" in t.summary()
-    assert "[pool] b:" in capsys.readouterr().out
+def test_stage_timer_and_trace(tmp_path, monkeypatch):
+    """``trace()`` writes nothing without TORCH_PROFILE_DIR, and a span
+    outside a profile is the null context; with it, the Chrome trace
+    carries the program's spans as user annotations, nested."""
     monkeypatch.delenv("TORCH_PROFILE_DIR", raising=False)
     with profiling.trace("off"):
-        pass
+        assert metrics.span("prove.proof") is metrics.NULL_SPAN
     assert not list(tmp_path.iterdir())
     monkeypatch.setenv("TORCH_PROFILE_DIR", str(tmp_path))
     with profiling.trace("on"):
-        torch.ones(4).sum()
+        with metrics.span("prove.proof"):
+            with metrics.span("prove.combine"):
+                torch.ones(4).sum()
+    assert metrics.span("prove.proof") is metrics.NULL_SPAN
     with open(tmp_path / "on.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    notes = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation"}
+    outer, inner = notes["prove.proof"], notes["prove.combine"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
 
 
 @pytest.mark.parametrize("with_commitment", [False, True])

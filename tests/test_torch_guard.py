@@ -27,7 +27,9 @@ SCRIPTS = ["chip_smoke.py", os.path.join("scripts", "withdraw_acir.py"),
            os.path.join("scripts", "fr_ntt_phase2.py"),
            os.path.join("scripts", "fr_ntt_transforms.py"),
            os.path.join("scripts", "chip_smoke_profile.py"),
-           os.path.join("scripts", "launch_count_probe.py")]
+           os.path.join("scripts", "launch_count_probe.py"),
+           os.path.join("scripts", "span_cost.py"),
+           os.path.join("scripts", "trace_cost.py")]
 
 
 def _port_sources():

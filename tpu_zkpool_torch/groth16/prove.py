@@ -12,6 +12,14 @@ over ``native/witness.cpp``), the witness and the K-leg scalars are packed
 by ``solver_native.ints_to_u64x4``, and the final combine into (A, B2, C)
 is host bigint code. A proof equals
 ``tpu_zkpool.refimpl.groth16_ref.prove`` on the same inputs and seed.
+
+Each proof's phases are spans of ``utils.metrics`` (annotations of any
+torch.profiler profile that runs), with the same boundaries in ``prove``
+and ``prove_batch``: ``prove.dispatch`` holds ``prove.pack_witness``,
+``prove.upload``, ``msm.a``, ``msm.b1``, ``msm.b2``, ``prove.h_ntt``
+(``prove.h_rows`` inside it), ``msm.h`` and ``msm.k``; then
+``prove.fetch`` and ``prove.combine``. Their roots are ``prove.proof`` and
+``prove.batch``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from tpu_zkpool_torch.msm import grid
 from tpu_zkpool_torch.msm.grid import TILE_N, msm_grid_g1, msm_grid_g2
 from tpu_zkpool_torch.refimpl import groth16_ref as g16
 from tpu_zkpool_torch.refimpl import pairing_ref as pr
+from tpu_zkpool_torch.utils.metrics import span
 
 # Limb arrays go to the device packed (two 16-bit limbs per word,
 # fields.limbs.pack_limbs16) and unpack there: half the bytes of every
@@ -202,20 +211,35 @@ def _g2_affine(out):
     return (pr.f2_mul(X, zi2), pr.f2_mul(Y, pr.f2_mul(zi2, zi)))
 
 
-@contextlib.contextmanager
+# The key of ``prove(timings=)`` each phase's seconds add to: packing and
+# upload are "upload", the fetch and the combine "combine".
+_TIMING_KEY = {"prove.pack_witness": "upload", "prove.upload": "upload",
+               "msm.a": "msm_a", "msm.b1": "msm_b1", "msm.b2": "msm_b2",
+               "prove.h_ntt": "h_ntt", "prove.h_rows": "h_rows",
+               "msm.h": "msm_h", "msm.k": "msm_k",
+               "prove.fetch": "combine", "prove.combine": "combine"}
+
+
 def _phase(timings, name, device):
-    """Record the seconds of one prover phase into ``timings`` (if given),
-    synchronizing the device at both ends."""
+    """The span of one prover phase. With ``timings`` a dict, the device is
+    synchronized at both ends of the phase and its seconds are added to
+    ``timings[_TIMING_KEY[name]]``."""
     if timings is None:
+        return span(name)
+    return _timed_phase(timings, name, device)
+
+
+@contextlib.contextmanager
+def _timed_phase(timings, name, device):
+    with span(name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
         yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        key = _TIMING_KEY[name]
+        timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
 
 
 def _h_pipeline(evs, tinv, tables, demont):
@@ -273,7 +297,7 @@ def compute_h_device(r1cs, w_full, n: int, as_limbs: bool = False,
     m = len(r1cs.a_rows)
     if w64 is None:
         w64 = _witness_u64(w_full)
-    with _phase(timings, "h_rows", dev):
+    with _phase(timings, "prove.h_rows", dev):
         evs = np.zeros((3, n, 4), dtype=np.uint64)
         for i, rows in enumerate((r1cs.a_rows, r1cs.b_rows, r1cs.c_rows)):
             evs[i, :m] = sn.eval_rows_native((id(r1cs), i), rows, w64)
@@ -294,34 +318,36 @@ def compute_h_device(r1cs, w_full, n: int, as_limbs: bool = False,
 def _dispatch_legs(dpk: DeviceProvingKey, r1cs, w_full: list, timings=None):
     """Run the five MSMs and the H NTT feeding the H leg. Returns the
     device outputs (a, b1, b2, ht, k), each an (X, Y, Z) tuple."""
-    pk, dev = dpk.pk, dpk.device
-    n = pk.n_domain
-    with _phase(timings, "upload", dev):
-        w64 = _witness_u64(w_full)
-        w_limbs = _scalar_limbs(w64, max(dpk._na, dpk._nb2), dev)
-        if pk.committed:
-            cset = set(pk.committed)
-            priv = w64[[i for i in range(r1cs.num_public, len(w_full))
-                        if i not in cset]]
-        else:
-            priv = w64[r1cs.num_public:]
-        k_limbs = _scalar_limbs(priv, dpk._nk, dev)
-    with _phase(timings, "msm_a", dev):
-        a_out = dpk._msm_g1(dpk.a_query, dpk._na, w_limbs)
-    with _phase(timings, "msm_b1", dev):
-        b1_out = dpk._msm_g1(dpk.b1_query, dpk._na, w_limbs)
-    with _phase(timings, "msm_b2", dev):
-        b2_out = dpk._msm_g2(w_limbs)
-    with _phase(timings, "h_ntt", dev):
-        h_limbs = compute_h_device(r1cs, w_full, n, as_limbs=True,
-                                   device=dev, w64=w64, timings=timings)
-        h_pad = torch.cat([h_limbs[: n - 1],
-                           h_limbs.new_zeros((dpk._nh - (n - 1), NLIMB))])
-    with _phase(timings, "msm_h", dev):
-        ht_out = dpk._msm_g1(dpk.h_query, dpk._nh, h_pad)
-    with _phase(timings, "msm_k", dev):
-        k_out = dpk._msm_g1(dpk.k_query, dpk._nk, k_limbs)
-    return (a_out, b1_out, b2_out, ht_out, k_out)
+    with span("prove.dispatch"):
+        pk, dev = dpk.pk, dpk.device
+        n = pk.n_domain
+        with _phase(timings, "prove.pack_witness", dev):
+            w64 = _witness_u64(w_full)
+        with _phase(timings, "prove.upload", dev):
+            w_limbs = _scalar_limbs(w64, max(dpk._na, dpk._nb2), dev)
+            if pk.committed:
+                cset = set(pk.committed)
+                priv = w64[[i for i in range(r1cs.num_public, len(w_full))
+                            if i not in cset]]
+            else:
+                priv = w64[r1cs.num_public:]
+            k_limbs = _scalar_limbs(priv, dpk._nk, dev)
+        with _phase(timings, "msm.a", dev):
+            a_out = dpk._msm_g1(dpk.a_query, dpk._na, w_limbs)
+        with _phase(timings, "msm.b1", dev):
+            b1_out = dpk._msm_g1(dpk.b1_query, dpk._na, w_limbs)
+        with _phase(timings, "msm.b2", dev):
+            b2_out = dpk._msm_g2(w_limbs)
+        with _phase(timings, "prove.h_ntt", dev):
+            h_limbs = compute_h_device(r1cs, w_full, n, as_limbs=True,
+                                       device=dev, w64=w64, timings=timings)
+            h_pad = torch.cat([h_limbs[: n - 1],
+                               h_limbs.new_zeros((dpk._nh - (n - 1), NLIMB))])
+        with _phase(timings, "msm.h", dev):
+            ht_out = dpk._msm_g1(dpk.h_query, dpk._nh, h_pad)
+        with _phase(timings, "msm.k", dev):
+            k_out = dpk._msm_g1(dpk.k_query, dpk._nk, k_limbs)
+        return (a_out, b1_out, b2_out, ht_out, k_out)
 
 
 def _fetch(legs):
@@ -338,9 +364,12 @@ def prove(dpk: DeviceProvingKey, r1cs, w_full: list, seed: int = 7,
     seconds (the device is synchronized around every phase)."""
     rng = random.Random(seed)
     r_rand, s_rand = rng.randrange(R), rng.randrange(R)
-    legs = _dispatch_legs(dpk, r1cs, w_full, timings)
-    with _phase(timings, "combine", dpk.device):
-        return _finish_proof(dpk, _fetch(legs), r_rand, s_rand, w_full)
+    with span("prove.proof"):
+        legs = _dispatch_legs(dpk, r1cs, w_full, timings)
+        with _phase(timings, "prove.fetch", dpk.device):
+            fetched = _fetch(legs)
+        with _phase(timings, "prove.combine", dpk.device):
+            return _finish_proof(dpk, fetched, r_rand, s_rand, w_full)
 
 
 def _finish_proof(dpk: DeviceProvingKey, fetched, r_rand: int, s_rand: int,
@@ -382,6 +411,12 @@ def prove_batch(dpk: DeviceProvingKey, r1cs, witnesses: list,
     for i in range(len(witnesses)):
         rng = random.Random(seed + i)
         rng_pairs.append((rng.randrange(R), rng.randrange(R)))
-    legs = [_dispatch_legs(dpk, r1cs, w) for w in witnesses]
-    return [_finish_proof(dpk, _fetch(f), r, s, w)
-            for f, (r, s), w in zip(legs, rng_pairs, witnesses)]
+    with span("prove.batch"):
+        legs = [_dispatch_legs(dpk, r1cs, w) for w in witnesses]
+        out = []
+        for f, (r, s), w in zip(legs, rng_pairs, witnesses):
+            with span("prove.fetch"):
+                fetched = _fetch(f)
+            with span("prove.combine"):
+                out.append(_finish_proof(dpk, fetched, r, s, w))
+        return out

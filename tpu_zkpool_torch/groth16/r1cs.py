@@ -28,6 +28,7 @@ from tpu_zkpool_torch.fields.bn254 import FR_MOD as R
 from tpu_zkpool_torch.refimpl.groth16_ref import R1CS
 from tpu_zkpool_torch.groth16.acir import Program
 from tpu_zkpool_torch.groth16 import gadgets
+from tpu_zkpool_torch.utils.metrics import span
 
 
 @dataclass
@@ -145,21 +146,23 @@ def convert(program: Program) -> AcirR1CS:
 
 
 def build_witness(ar: AcirR1CS, acir_witness: dict) -> list:
-    """Full R1CS witness vector [1, acir witnesses..., aux...]."""
-    w = [0] * ar.r1cs.num_vars
-    w[0] = 1
-    for i in range(ar.n_acir_witnesses):
-        w[1 + i] = acir_witness.get(i, 0) % R
-    for item in ar.aux_builders:
-        if item[0] == "mul":
-            _, tvar, av, bv = item
-            w[tvar] = w[av] * w[bv] % R
-        elif item[0] == "fn":
-            _, tvar, fn = item
-            w[tvar] = fn(w)
-        else:
-            _, xv, first_bit_var, bits = item
-            x = w[xv]
-            for i in range(bits):
-                w[first_bit_var + i] = (x >> i) & 1
-    return w
+    """Full R1CS witness vector [1, acir witnesses..., aux...] (the span
+    ``witness.build``)."""
+    with span("witness.build"):
+        w = [0] * ar.r1cs.num_vars
+        w[0] = 1
+        for i in range(ar.n_acir_witnesses):
+            w[1 + i] = acir_witness.get(i, 0) % R
+        for item in ar.aux_builders:
+            if item[0] == "mul":
+                _, tvar, av, bv = item
+                w[tvar] = w[av] * w[bv] % R
+            elif item[0] == "fn":
+                _, tvar, fn = item
+                w[tvar] = fn(w)
+            else:
+                _, xv, first_bit_var, bits = item
+                x = w[xv]
+                for i in range(bits):
+                    w[first_bit_var + i] = (x >> i) & 1
+        return w

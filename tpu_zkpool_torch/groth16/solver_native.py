@@ -46,6 +46,7 @@ from tpu_zkpool_torch.fields.bn254 import FR_MOD as P
 from tpu_zkpool_torch.groth16 import solver as pysolver
 from tpu_zkpool_torch.groth16.acir import Expression, Program
 from tpu_zkpool_torch.native_bridge import BUILD_DIR
+from tpu_zkpool_torch.utils.metrics import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "witness.cpp")
@@ -423,17 +424,19 @@ def solve(program: Program, inputs: dict[int, int]) -> dict[int, int]:
     """Drop-in for ``solver.solve``: compiles on the first call per program
     and input set, replays natively afterwards. A circuit the lowering
     cannot express (``UnsupportedCircuit``) is solved by the interpreter;
-    any other failure, a g++ build included, raises."""
-    key = (id(program), tuple(sorted(inputs)))
-    hit = _cache.get(key)
-    if hit is None or hit[0] is not program:
-        try:
-            cs = CompiledSolver(program, inputs)
-        except UnsupportedCircuit:
-            cs = None
-        hit = (program, cs)
-        _cache[key] = hit
-    cs = hit[1]
-    if cs is None:
-        return pysolver.solve(program, inputs)
-    return cs.solve(inputs)
+    any other failure, a g++ build included, raises. The span
+    ``witness.solve`` covers the call."""
+    with span("witness.solve"):
+        key = (id(program), tuple(sorted(inputs)))
+        hit = _cache.get(key)
+        if hit is None or hit[0] is not program:
+            try:
+                cs = CompiledSolver(program, inputs)
+            except UnsupportedCircuit:
+                cs = None
+            hit = (program, cs)
+            _cache[key] = hit
+        cs = hit[1]
+        if cs is None:
+            return pysolver.solve(program, inputs)
+        return cs.solve(inputs)

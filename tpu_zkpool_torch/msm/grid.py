@@ -54,6 +54,7 @@ from tpu_zkpool_torch.fields.limbs import NLIMB, WBITS
 # kernels imports this module for the plain twins; both only use each
 # other's names inside functions, so the import cycle is benign.
 from tpu_zkpool_torch.msm import affine_tree, kernels
+from tpu_zkpool_torch.utils.metrics import span
 
 TILE_N = 1024      # default lanes: chunks per prefix scan
 SCALAR_BITS = 255  # BN254 Fr < 2^254; one guard bit for the signed recode
@@ -547,7 +548,8 @@ def window_sums(rows, scalar_limbs, c, lanes=TILE_N, complete=True,
         for s in range(0, N, SUB):
             Sw = _window_sums_one(rows[s:s + SUB], scalar_limbs[s:s + SUB],
                                   c, lanes, complete, nbits, tree)
-            acc = kernels.addn(acc, Sw)
+            with span("msm.reduce"):
+                acc = kernels.addn(acc, Sw)
         return acc
     return _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits,
                             tree)
@@ -565,70 +567,77 @@ def _window_sums_one(rows, scalar_limbs, c, lanes, complete, nbits, tree):
     dev = rows.device
     pt = (3, ncomp, NLIMB)
 
-    bucket, neg = signed_digits(scalar_limbs, c, nbits)
-    # identity inputs (Z = 0) contribute nothing: their digits go to the
-    # never-read bucket 0 and a valid curve point stands in for their
-    # coordinates, so the mixed-add scan needs no Z plane.
-    valid = (rows[:, 2] != 0).reshape(N, -1).any(-1)
-    bucket = torch.where(valid[:, None], bucket, 0)
-    neg = neg & valid[:, None]
-    xy = torch.where(valid[:, None, None, None], rows[:, :2],
-                     _safe_point(ncomp, dev))
-    xyf = xy.reshape(N, -1)
-    # co-sort a packed (index | neg << 31) payload with the bucket keys.
-    # K1 reads the row index from its low 31 bits: safe while a slice
-    # holds at most 2^SUB_LOG2 rows (window_sums cuts larger sets into
-    # such slices; the kernels' other offsets are size_t)
-    payload = (torch.arange(N, device=dev)[:, None]
-               | (neg.long() << 31))                   # (N, W)
-    skeys, perm = torch.sort(bucket, dim=0, stable=True)
-    svals = torch.gather(payload, 0, perm)
+    with span("msm.digits"):
+        bucket, neg = signed_digits(scalar_limbs, c, nbits)
+        # identity inputs (Z = 0) contribute nothing: their digits go to the
+        # never-read bucket 0 and a valid curve point stands in for their
+        # coordinates, so the mixed-add scan needs no Z plane.
+        valid = (rows[:, 2] != 0).reshape(N, -1).any(-1)
+        bucket = torch.where(valid[:, None], bucket, 0)
+        neg = neg & valid[:, None]
+        xy = torch.where(valid[:, None, None, None], rows[:, :2],
+                         _safe_point(ncomp, dev))
+        xyf = xy.reshape(N, -1)
+        # co-sort a packed (index | neg << 31) payload with the bucket keys.
+        # K1 reads the row index from its low 31 bits: safe while a slice
+        # holds at most 2^SUB_LOG2 rows (window_sums cuts larger sets into
+        # such slices; the kernels' other offsets are size_t)
+        payload = (torch.arange(N, device=dev)[:, None]
+                   | (neg.long() << 31))                   # (N, W)
+        skeys, perm = torch.sort(bucket, dim=0, stable=True)
+        svals = torch.gather(payload, 0, perm)
 
     if tree and ncomp == 1:
         # the batched-affine pairwise tree over the sorted bucket segments
         # (msm/affine_tree.py, kernel K8) replaces the chunk prefix and the
         # boundary differences below. Rows (W, N, 32) per window: x, then y
         # negated where the sign bit is set.
-        xyn = torch.cat([xyf[:, :NLIMB], FP.neg(xyf[:, NLIMB:])], dim=1)
-        sv_t = svals.T
-        order = sv_t & 0x7FFFFFFF
-        neg_w = (sv_t >> 31) != 0
-        pts = torch.where(neg_w[..., None], xyn[order], xyf[order])
-        B = affine_tree.bucket_sums_tree(pts, skeys.T.contiguous(), half,
-                                         complete)
+        with span("msm.buckets"):
+            xyn = torch.cat([xyf[:, :NLIMB], FP.neg(xyf[:, NLIMB:])], dim=1)
+            sv_t = svals.T
+            order = sv_t & 0x7FFFFFFF
+            neg_w = (sv_t >> 31) != 0
+            pts = torch.where(neg_w[..., None], xyn[order], xyf[order])
+            B = affine_tree.bucket_sums_tree(pts, skeys.T.contiguous(),
+                                             half, complete)
         return _reduce_buckets(B, W, half, C, L)
     if W > 32:
         raise ValueError(f"c={c} gives {W} windows of {nbits} bits; the "
                          "level-1 cross-chunk prefix holds at most 32")
-    # step-major payload: [w, j, l] = sorted position l * k + j of window w
-    svals_t = svals.reshape(lanes, k, W).permute(2, 1, 0).contiguous()
-    # every window in one K1 launch, its rows gathered in the kernel; the
-    # prefix comes back in sorted order (W * N rows)
-    prs = kernels.prefix_rows(xy, svals_t, complete).reshape((W * N,) + pt)
+    with span("msm.buckets"):
+        # step-major payload: [w, j, l] = sorted position l * k + j of
+        # window w
+        svals_t = svals.reshape(lanes, k, W).permute(2, 1, 0).contiguous()
+        # every window in one K1 launch, its rows gathered in the kernel;
+        # the prefix comes back in sorted order (W * N rows)
+        prs = kernels.prefix_rows(xy, svals_t, complete).reshape(
+            (W * N,) + pt)
 
-    wi = torch.arange(W, device=dev)[:, None]
-    last = (torch.arange(lanes, device=dev) + 1) * k - 1
-    TOT = prs[(wi * N + last).reshape(-1)]                  # (W * lanes,)
+        wi = torch.arange(W, device=dev)[:, None]
+        last = (torch.arange(lanes, device=dev) + 1) * k - 1
+        TOT = prs[(wi * N + last).reshape(-1)]              # (W * lanes,)
 
-    # ---- cross-chunk exclusive prefix of the `lanes` chunk totals, all
-    # windows batched into lanes: level 1 groups the chunks of window w
-    # into GA groups of 32; flat row (w*GA + g)*32 + e = w*lanes + g*32 + e.
-    # K2 runs on the real lanes only: W * GA of 32 steps, then W of GA.
-    GA = lanes // 32
-    l1 = _prefix_chunks(TOT, 32)
-    gtot = l1[torch.arange(W * GA, device=dev) * 32 + 31]
-    l2 = _prefix_chunks(gtot, GA)
+        # ---- cross-chunk exclusive prefix of the `lanes` chunk totals,
+        # all windows batched into lanes: level 1 groups the chunks of
+        # window w into GA groups of 32; flat row (w*GA + g)*32 + e =
+        # w*lanes + g*32 + e. K2 runs on the real lanes only: W * GA of 32
+        # steps, then W of GA.
+        GA = lanes // 32
+        l1 = _prefix_chunks(TOT, 32)
+        gtot = l1[torch.arange(W * GA, device=dev) * 32 + 31]
+        l2 = _prefix_chunks(gtot, GA)
 
-    # excl[w, chunk = g*32 + e] = l1[e-1 @ lane w*GA + g] + l2[g-1 @ lane w]
-    # (K4 gathers both, the identity where e = 0 or g = 0)
-    excl = kernels.addn(l1, l2, *excl_index(W, lanes, dev))
+        # excl[w, chunk = g*32 + e] = l1[e-1 @ lane w*GA + g]
+        #                              + l2[g-1 @ lane w]
+        # (K4 gathers both, the identity where e = 0 or g = 0)
+        excl = kernels.addn(l1, l2, *excl_index(W, lanes, dev))
 
-    # ---- E[i] at bucket boundaries; B_j = E[start_{j+1}] - E[start_j] ----
-    # (K4 gathers excl and the prefix rows, zeroes E where the bucket start
-    # is 0, and negates E[start_j])
-    ex_i, pr_i, zm = boundary_index(skeys, k, lanes, half)
-    E = kernels.addn(excl, prs, ex_i, pr_i, zero=zm)
-    B = kernels.addn(E, E, *diff_index(W, half, dev), neg_b=True)
+        # ---- E[i] at bucket boundaries; B_j = E[start_{j+1}] - E[start_j]
+        # (K4 gathers excl and the prefix rows, zeroes E where the bucket
+        # start is 0, and negates E[start_j])
+        ex_i, pr_i, zm = boundary_index(skeys, k, lanes, half)
+        E = kernels.addn(excl, prs, ex_i, pr_i, zero=zm)
+        B = kernels.addn(E, E, *diff_index(W, half, dev), neg_b=True)
     # B[w, j-1] = bucket j's sum, j = 1..half
     return _reduce_buckets(B.reshape((W, half) + pt), W, half, C, L)
 
@@ -694,22 +703,24 @@ def _diff_index(W, half, device, stream):
 def _reduce_buckets(B, W, half, C, L):
     """Bucket reduction sum_j j B_j per window, j = m L + (l + 1), from the
     dense bucket rows B (W, half, 3, ncomp, 16)."""
-    pt = B.shape[2:]
-    Bm = B.reshape((W * C, L) + pt).transpose(0, 1).contiguous()
-    T, U = kernels.wsum(Bm)                       # (W*C,) lanes each
-    T = T.reshape((W, C) + pt)
-    U = U.reshape((W, C) + pt)
-    if C > 1:
-        # one launch over 2W lanes (T's windows, then U's), steps = C
-        acc, tot = kernels.wsum(torch.cat([T, U]).transpose(0, 1).contiguous())
-        # sum_m m T_m = (sum (m+1) T_m) - (sum T_m)
-        mT = kernels.addn(tot[:W], acc[:W], neg_b=True)
-        sU = acc[W:]
-    else:
-        mT = torch.zeros_like(U[:, 0])
-        sU = U[:, 0].contiguous()
-    # window sums S_w = L * (sum_m m T_m) + sum_m U_m
-    return kernels.scale_add(mT, sU, L.bit_length() - 1)
+    with span("msm.reduce"):
+        pt = B.shape[2:]
+        Bm = B.reshape((W * C, L) + pt).transpose(0, 1).contiguous()
+        T, U = kernels.wsum(Bm)                       # (W*C,) lanes each
+        T = T.reshape((W, C) + pt)
+        U = U.reshape((W, C) + pt)
+        if C > 1:
+            # one launch over 2W lanes (T's windows, then U's), steps = C
+            acc, tot = kernels.wsum(
+                torch.cat([T, U]).transpose(0, 1).contiguous())
+            # sum_m m T_m = (sum (m+1) T_m) - (sum T_m)
+            mT = kernels.addn(tot[:W], acc[:W], neg_b=True)
+            sU = acc[W:]
+        else:
+            mT = torch.zeros_like(U[:, 0])
+            sU = U[:, 0].contiguous()
+        # window sums S_w = L * (sum_m m T_m) + sum_m U_m
+        return kernels.scale_add(mT, sU, L.bit_length() - 1)
 
 
 # The MSM is integer work that never needs autograd: inference mode drops
@@ -723,7 +734,8 @@ def msm_rows(rows, scalar_limbs, c=13, lanes=TILE_N, complete=True,
     ``lanes``. Returns the MSM as one point row (3, ncomp, 16)."""
     S = window_sums(rows, scalar_limbs, c, lanes, complete, sub_log2, nbits,
                     tree)
-    return kernels.horner(S, c)
+    with span("msm.horner"):
+        return kernels.horner(S, c)
 
 
 def msm_grid_g1(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
@@ -737,7 +749,8 @@ def msm_grid_g1(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
     ``tree`` accumulates the buckets through the batched-affine pairwise
     tree (``msm/affine_tree.py``, kernel K8) instead of the prefix scan."""
     X, Y, Z = points
-    rows = torch.stack([X, Y, Z], 1)[:, :, None, :]
+    with span("msm.stack"):
+        rows = torch.stack([X, Y, Z], 1)[:, :, None, :]
     out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2,
                    tree)
     return out[0, 0], out[1, 0], out[2, 0]
@@ -751,7 +764,8 @@ def msm_grid_g2(points, scalar_limbs, c: int = 13, lanes: int = TILE_N,
     in the JAX package and changes nothing: the affine tree is G1 only, so
     G2 runs the prefix path."""
     X, Y, Z = points
-    rows = torch.stack([X, Y, Z], 1)
+    with span("msm.stack"):
+        rows = torch.stack([X, Y, Z], 1)
     out = msm_rows(rows, scalar_limbs, c, lanes, complete, nbits, sub_log2,
                    tree)
     return out[0], out[1], out[2]

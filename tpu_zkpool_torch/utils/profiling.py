@@ -1,13 +1,10 @@
-"""Per-stage timing and optional device profiler traces (SURVEY.md §5).
+"""Device profiler traces and launch counts (SURVEY.md §5).
 
-The port of ``tpu_zkpool/utils/profiling.py``. The reference times every
-pipeline stage with shell/`time.time()` wrappers and prints a summary table
-(``prove_linux.sh:21-25``, ``generate_audit.py:644-716``); this module keeps
-that UX (a ``StageTimer`` context collecting (stage, seconds) rows and
-printing the same kind of table) and adds the device layer: ``trace()``
+The port of ``tpu_zkpool/utils/profiling.py``'s device layer: ``trace()``
 wraps a region in ``torch.profiler`` so kernel-level timelines land in a
 Chrome trace file when TORCH_PROFILE_DIR is set, and ``kernel_launches()``
-counts the kernels a call launches on the card.
+counts the kernels a call launches on the card. Stage timing is the
+metrics registry's (``utils.metrics``: ``timer`` and ``span``).
 """
 
 from __future__ import annotations
@@ -15,7 +12,6 @@ from __future__ import annotations
 import contextlib
 import os
 import re
-import time
 
 # The host's calls into the CUDA runtime and driver that launch one kernel
 # each, and those that copy or fill device memory; the card's rows of the
@@ -25,45 +21,13 @@ COPY_CALLS = re.compile(r"cu(da)?Mem(cpy|set)")
 COPY_ROWS = ("Memcpy", "Memset")
 
 
-class StageTimer:
-    """Collects named stage timings; prints a generate_audit.py-style
-    summary table."""
-
-    def __init__(self, title: str = "pipeline"):
-        self.title = title
-        self.rows: list[tuple[str, float]] = []
-
-    @contextlib.contextmanager
-    def stage(self, name: str, verbose: bool = True):
-        t0 = time.time()
-        yield
-        dt = time.time() - t0
-        self.rows.append((name, dt))
-        if verbose:
-            print(f"[{self.title}] {name}: {dt:.2f}s", flush=True)
-
-    def summary(self) -> str:
-        width = max((len(n) for n, _ in self.rows), default=10)
-        total = sum(t for _, t in self.rows)
-        lines = ["=" * (width + 14),
-                 f"{self.title} timing summary",
-                 "-" * (width + 14)]
-        for name, t in self.rows:
-            lines.append(f"{name:<{width}}  {t:>9.2f}s")
-        lines.append("-" * (width + 14))
-        lines.append(f"{'TOTAL':<{width}}  {total:>9.2f}s")
-        return "\n".join(lines)
-
-    def print_summary(self) -> None:
-        print(self.summary(), flush=True)
-
-
 @contextlib.contextmanager
 def trace(name: str = "tpu_zkpool_torch"):
     """Capture a torch.profiler trace of the region (the host and, where
     CUDA is present, the card) into ``$TORCH_PROFILE_DIR/<name>.json`` when
     TORCH_PROFILE_DIR is set (open it in Perfetto or chrome://tracing);
-    no-op otherwise."""
+    no-op otherwise. The prover's spans (``utils.metrics.span``) are the
+    trace's user annotations, so it names the prover's own phases."""
     out = os.environ.get("TORCH_PROFILE_DIR")
     if not out:
         yield
@@ -90,11 +54,15 @@ def split_launches(rows):
     ...), not at the card's record of the kernel: torch.profiler loses
     some of the card's records, more the longer a process profiles, and
     keeps every host call (``scripts/launch_count_probe.py``). The card's
-    records, the copies and fills left out, name the kernels."""
+    records, the copies and fills left out, name the kernels; its rows of
+    the prover's spans (``utils.metrics.span``, user annotations) are
+    neither."""
     from torch.autograd import DeviceType
 
     launches, kernels, copies = {}, {}, {}
     for e in rows:
+        if getattr(e, "is_user_annotation", False):
+            continue
         if e.device_type == DeviceType.CUDA:
             if e.key.startswith(COPY_ROWS):
                 continue
